@@ -1,0 +1,22 @@
+"""Activation layers (``bigdl_tpu/nn/activation.py``: ``ReLU`` :30,
+``LogSoftMax`` :116)."""
+
+from __future__ import annotations
+
+import torch
+
+from bigdl_tpu_torch.nn.module import Module
+
+
+class ReLU(Module):
+    """Rectified linear max(x, 0) (reference ``nn/ReLU.scala``)."""
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.relu(input)
+
+
+class LogSoftMax(Module):
+    """log-softmax over the last dim (reference ``nn/LogSoftMax.scala``)."""
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(input, dim=-1)
