@@ -29,7 +29,10 @@
 //   * fp32: plain FMA in full fp32 (TF32 would not hold the fp32 tolerance).
 //     Each thread owns 4 query rows x 8 key columns of S and 4 rows x 16
 //     columns of O; P goes through shared memory.
-// Both accumulate in fp32 and write o in the input's type.
+// Both accumulate in fp32 and write o in the input's type.  When the caller
+// passes an lse pointer (training: the backward recomputes P from it), each
+// row's log-sum-exp of the scaled scores, in natural log, goes to lse
+// (B, H, T) fp32; a null pointer writes nothing (serving).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +45,7 @@ constexpr int kHeadDim = 128;
 constexpr int kBlockM = 64;   // query rows per block
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kThreads = 128;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, t, h;  // in elements; the head dimension has stride 1
@@ -52,11 +56,17 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, T) or null
   Strides sq, sk, sv, so;
   int seq_len;
   float scale_log2;  // sm_scale * log2(e): the softmax runs on exp2
   int causal;
 };
+
+// the lse entries of (b, h): the grid's y is the head
+__device__ __forceinline__ float* lse_row(const Args& a, int b, int h) {
+  return a.lse + ((long long)b * gridDim.y + h) * a.seq_len;
+}
 
 // ---------------------------------------------------------------- fp32 (FMA)
 
@@ -183,6 +193,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(Args a) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     l += __shfl_xor_sync(0xffffffffu, l, 4);
     const float inv = 1.f / l;
+    // m_run is in the exp2 domain: lse = ln(2^m * l) = (m + log2 l) ln 2
+    if (a.lse != nullptr && tx == 0)
+      lse_row(a, b, h)[m0 + ty * 4 + i] = (m_run[i] + log2f(l)) * kLn2;
     float* orow = o + (long long)(m0 + ty * 4 + i) * a.so.t;
 #pragma unroll
     for (int j = 0; j < kHeadDim / 8; ++j) orow[tx + 8 * j] = acc[i][j] * inv;
@@ -365,6 +378,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_bf16_kernel(Args a) {
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    if (a.lse != nullptr && t4 == 0)
+      lse_row(a, b, h)[m0 + r0 + r * 8] = (m_run[r] + log2f(l)) * kLn2;
   }
   __nv_bfloat16* o0 = o + (long long)(m0 + r0) * a.so.t;
   __nv_bfloat16* o1 = o0 + 8 * a.so.t;
@@ -383,10 +398,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_bf16_kernel(Args a) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 host values, (b, t, h) in
-// elements for q, k, v and o in that order.  Launches on `stream` and does not
-// synchronise; returns cudaGetLastError() after the launch (0 on success).
+// elements for q, k, v and o in that order.  lse: (B, H, T) fp32, contiguous,
+// or null for none.  Launches on `stream` and does not synchronise; returns
+// cudaGetLastError() after the launch (0 on success).
 int bigdl_flash_attention_fwd(const void* q, const void* k, const void* v,
-                              void* o, const long long* strides, int batch,
+                              void* o, float* lse, const long long* strides,
+                              int batch,
                               int seq_len, int heads, int head_dim, int dtype,
                               float sm_scale, int causal, void* stream) {
   if (head_dim != kHeadDim || seq_len <= 0 || seq_len % kBlockM != 0 ||
@@ -397,6 +414,7 @@ int bigdl_flash_attention_fwd(const void* q, const void* k, const void* v,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   Strides* dst[4] = {&a.sq, &a.sk, &a.sv, &a.so};
   for (int i = 0; i < 4; ++i) {
     dst[i]->b = strides[3 * i];

@@ -3,8 +3,9 @@
 
 Shapes follow the JAX package: (B, T, D) activations, per-head (B, T, H, Dh)
 q/k/v.  ``flash=True`` runs :func:`bigdl_tpu_torch.kernels.flash_attention.
-flash_attention`, which launches the hand-written Hopper kernel on CUDA
-tensors and its plain version on CPU tensors.
+flash_attention`, which launches the hand-written Hopper kernels on CUDA
+tensors (the forward, and under autograd the dK/dV and dQ backward) and
+their plain versions on CPU tensors.
 """
 
 from __future__ import annotations

@@ -3,6 +3,9 @@
 
 ``Linear`` keeps PyTorch's (out, in) weight; the JAX package stores (in, out),
 so :func:`bigdl_tpu_torch.utils.convert.params_from_jax` transposes it.
+``w_regularizer``/``b_regularizer`` (:mod:`bigdl_tpu_torch.optim.regularizer`)
+add their penalties to the training loss
+(:func:`bigdl_tpu_torch.optim.optimizer.regularization_penalty`).
 """
 
 from __future__ import annotations
@@ -22,13 +25,16 @@ class Linear(Module):
     U(-1/sqrt(in), 1/sqrt(in)) like the JAX package's ``RandomUniform``."""
 
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None,
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         g = make_generator(generator)
         bound = 1.0 / math.sqrt(max(1, input_size))
         w = torch.empty(output_size, input_size).uniform_(-bound, bound,
@@ -52,12 +58,13 @@ class LookupTable(Module):
     table, as in the JAX package.  ``max_norm`` renormalisation is not in
     this slice."""
 
-    def __init__(self, n_index: int, n_output: int,
+    def __init__(self, n_index: int, n_output: int, w_regularizer=None,
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_index = n_index
         self.n_output = n_output
+        self.w_regularizer = w_regularizer
         w = torch.randn(n_index, n_output, generator=make_generator(generator))
         self.weight = nn.Parameter(w.to(device))
 

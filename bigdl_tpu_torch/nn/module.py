@@ -1,5 +1,6 @@
 """The Torch-style module shell of the port (``bigdl_tpu/nn/module.py``:
-``Module`` :119, ``Container`` :546, ``Sequential`` :645).
+``Module`` :119, ``Criterion`` :515, ``Container`` :546, ``Sequential``
+:645).
 
 In the JAX package a module is a pure ``apply`` over a parameter pytree that
 the shell keeps beside it.  Here a module is a ``torch.nn.Module`` that owns
@@ -34,6 +35,36 @@ class Module(nn.Module):
     def evaluate(self) -> "Module":
         """Inference mode (reference ``evaluate()``); ``train()`` undoes it."""
         return self.eval()
+
+
+class Criterion:
+    """Loss base class (reference ``nn/abstractnn/AbstractCriterion.scala:49``).
+
+    ``apply(input, target)`` is the loss as a scalar tensor.  The shell
+    mirrors the reference: ``forward`` caches ``output``; ``backward`` is the
+    gradient of the loss with respect to the input, taken with
+    ``torch.autograd.grad``, cached as ``grad_input``."""
+
+    def __init__(self):
+        self.output = None
+        self.grad_input = None
+        self.size_average = True
+
+    def apply(self, input, target) -> torch.Tensor:
+        raise NotImplementedError(type(self).__name__)
+
+    def forward(self, input, target) -> torch.Tensor:
+        self.output = self.apply(input, target)
+        return self.output
+
+    def backward(self, input: torch.Tensor, target) -> torch.Tensor:
+        x = input.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (self.grad_input,) = torch.autograd.grad(self.apply(x, target), x)
+        return self.grad_input
+
+    def __call__(self, input, target) -> torch.Tensor:
+        return self.forward(input, target)
 
 
 class Container(Module):

@@ -24,6 +24,9 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.serving.pollInterval": 0.05,    # batcher idle wake period, seconds
     "bigdl.serving.warmupBatches": 3,      # dispatch-EMA warmup (first-call exemption)
     "bigdl.serving.gracePeriod": 5.0,      # drain window for stop, seconds
+    # training (bigdl_tpu_torch/optim/optimizer.py)
+    "bigdl.divergence.guard": True,          # skip non-finite updates in-step
+    "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
 }
 
 _OVERRIDES: Dict[str, Any] = {}
@@ -51,6 +54,13 @@ def get_int(name: str, default: int = 0) -> int:
 
 def get_float(name: str, default: float = 0.0) -> float:
     return float(get_property(name, default))
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    v = get_property(name, default)
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("1", "true", "yes", "on")
 
 
 def set_property(name: str, value: Any) -> None:

@@ -1,8 +1,10 @@
-"""Load the JAX package's parameters into the port's model.
+"""Carry parameters between the JAX package's layout and the port's model.
 
 Initial weights cannot match across the two frameworks (``jax.random`` and
 ``torch.Generator`` draw different numbers), so every comparison of the port
-with the JAX package builds both models and carries the JAX parameters over.
+with the JAX package builds both models and carries the JAX parameters over
+(:func:`params_from_jax`); :func:`params_to_jax` reads the port's weights
+back in the JAX layout, to compare trained weights.
 """
 
 from __future__ import annotations
@@ -56,3 +58,19 @@ def params_from_jax(jax_params: Any, torch_model: nn.Module) -> nn.Module:
             value = np.asarray(value).T
         _copy(own[key], value, f"{name}.{key}")
     return torch_model
+
+
+def params_to_jax(torch_model: nn.Module) -> Any:
+    """The inverse of :func:`params_from_jax`: the port's parameters as a
+    numpy tree in the JAX package's layout (a container's is the list of its
+    children's; a leaf's a dict of fresh host arrays, ``Linear`` weights
+    transposed back to (in, out))."""
+    if isinstance(torch_model, Container):
+        return [params_to_jax(child) for child in torch_model.layers]
+    out = {}
+    for key, param in torch_model.named_parameters(recurse=False):
+        value = param.detach().cpu().numpy()
+        if isinstance(torch_model, Linear) and key == "weight":
+            value = value.T
+        out[key] = np.array(value)
+    return out

@@ -130,9 +130,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     elif case == "shapes":
         k = k[:, :64]
         err = ValueError
-    else:   # no backward kernel yet: refuse rather than drop the gradient
+    else:   # the backward kernels have no backward: a second derivative
         q.requires_grad_(True)
-        err = NotImplementedError
+        g = torch.ones(q.shape, requires_grad=True)
+        (dq,) = torch.autograd.grad(fa.flash_attention(q, k, v), q, g,
+                                    create_graph=True)
+        with pytest.raises(RuntimeError, match="differentiate twice"):
+            dq.sum().backward()
+        return
     with pytest.raises(err):
         fa.flash_attention(q, k, v)
 

@@ -4,12 +4,13 @@
   or anything of ``bigdl_tpu`` (an AST walk over every file).
 * Every kernel module names a CUDA source that exists; its build directory is
   listed in ``.gitignore``.
-* In a fresh process, importing every module of the port, building a model
-  and serving a request on the CPU builds no kernel, starts no process,
-  imports neither package, and changes no state global to the process
-  (torch's default dtype, thread count, RNG and TF32 flags, the
-  environment).  The tier-1 run shares worker processes between test files,
-  so the port must not change what the other files see.
+* In a fresh process, importing every module of the port, building a model,
+  serving a request and taking a training step on the CPU builds no kernel,
+  starts no process, imports neither package, and changes no state global to
+  the process (torch's default dtype, thread count, RNG and TF32 flags,
+  numpy's global RNG, the environment).  The tier-1 run shares worker
+  processes between test files, so the port must not change what the other
+  files see.
 """
 
 import ast
@@ -57,8 +58,8 @@ def test_every_kernel_module_has_its_cuda_source():
     sources = []
     for info in pkgutil.iter_modules(kernels.__path__):
         mod = importlib.import_module(f"bigdl_tpu_torch.kernels.{info.name}")
-        if hasattr(mod, "SOURCE"):
-            sources.append(mod.SOURCE)
+        if hasattr(mod, "SOURCES"):
+            sources.extend(mod.SOURCES)
             assert mod.launches, f"{info.name} counts no launches"
     assert sources, "no kernel module found"
     for src in sources:
@@ -86,6 +87,7 @@ import torch
 def global_state():
     return (torch.get_default_dtype(), torch.get_num_threads(),
             torch.random.get_rng_state().tolist(),
+            repr(np.random.get_state()),
             torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
             torch.get_float32_matmul_precision(), dict(os.environ))
@@ -96,8 +98,11 @@ for info in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                   "bigdl_tpu_torch."):
     importlib.import_module(info.name)
 import chip_smoke
+from bigdl_tpu_torch.dataset import LocalDataSet, Sample, SampleToMiniBatch
 from bigdl_tpu_torch.kernels import build, flash_attention
 from bigdl_tpu_torch.models.transformer import transformer_lm
+from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
 from bigdl_tpu_torch.serving import ServingEngine
 
 model = transformer_lm(16, d_model=128, n_head=1, n_layers=1, max_len=128,
@@ -108,11 +113,20 @@ with ServingEngine(model, max_batch=2, deadline_ms=60000.0,
     eng.warmup(row)
     assert eng.submit(row).result(timeout=60).shape == (128, 16)
 
+samples = [Sample(row, np.roll(row, -1)) for _ in range(2)]
+opt = Optimizer.create(
+    model, LocalDataSet(samples).transform(SampleToMiniBatch(2)),
+    TimeDistributedCriterion(ClassNLLCriterion(), size_average=True),
+    device="cpu")
+opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
+opt.set_end_when(max_iteration(1)).optimize()
+assert len(opt.history) == 1 and np.isfinite(opt.history[0]["loss"])
+
 assert global_state() == before, "process-global state changed"
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "bigdl_tpu"))
 assert not leaked, leaked
-assert build._loaded == {} and flash_attention._lib is None
+assert build._loaded == {} and flash_attention._libs == {}
 assert not any(flash_attention.launches.values())
 print("isolated")
 """
