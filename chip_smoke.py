@@ -6,12 +6,15 @@
 Phases, each fatal on any fault:
 
 1. the card: CUDA present; its name and power limit from ``nvidia-smi``;
-2. build: every CUDA source of the port, one ``nvcc`` each, all at once;
+2. build: every CUDA source of the port, one ``nvcc`` each, all at once,
+   with each kernel's registers and spills from the compiler's report;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    main path gives it, with its time, the plain version's, the library
-   call's and the card's bound for the same work: the forward, and the
-   dK/dV and dQ backward kernels (causal and not, fp32 and bf16, two
-   launches bit-identical);
+   call's and the card's bound for the same work: the forward (also at a
+   ragged T = 1984, a multiple of 64 and not of the kernels' 128-row tiles;
+   achieved TFLOP/s and share of the bound of its route), and the dK/dV and
+   dQ backward kernels (causal and not, fp32 and bf16, two launches
+   bit-identical);
 4. serving: the 134M transformer LM (d_model 1024, 8 heads of 128, 8 layers,
    vocab 16384, T 2048; random weights from a seed) with ``flash=True``,
    served through ``ServingEngine``; every result checked, one row held
@@ -37,6 +40,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,11 +50,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
-# rate for its operand type
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# rate of the unit that runs them: bf16 and TF32 on the tensor cores, fp32
+# FMA outside them
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+#: the forward kernels' routes: (unit, passes).  The fp32 forward runs each
+#: product as three TF32 products on the tensor cores (3xTF32); the fp32
+#: backward kernels stay FMA.
+FWD_ROUTE = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3)}
 
 VOCAB, D_MODEL, N_HEAD, N_LAYERS, SEQ = 16384, 1024, 8, 8, 2048
+RAGGED_SEQ = SEQ - 64   # a multiple of 64 (the wrapper's rule), not of 128
 SEED = 0
 DEVICE = "cuda"
 N_REQUESTS, MAX_BATCH, BF16_STEPS = 16, 8, 5
@@ -92,20 +102,23 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 10) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Mean device time of one call: ``reps`` calls launched back to back
+    between two CUDA events, behind ``warmup`` calls still in the queue.
+    The host enqueues each call while the card runs the one before, so a
+    call's host cost (for the flash wrappers about 50 us of checks and
+    ctypes) shows only where it exceeds the call's device time; events
+    around each call alone also timed the card waiting for that enqueue."""
     import torch
     for _ in range(warmup):
         fn()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def profile(label: str, fn, card: str, categories=()) -> None:
@@ -150,21 +163,56 @@ def profile(label: str, fn, card: str, categories=()) -> None:
             for n, (ms, c) in sums.items()))
 
 
+def kernel_resources(log_text: str) -> list:
+    """(kernel, registers, spill stores, spill loads) for each kernel in
+    ``nvcc -Xptxas -v`` output, in the order compiled."""
+    out, name, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            k = re.search(
+                r"(flash_(?:fwd|bwd)_\w+?_kernel)(?:I\w*?Li(\d+)E)?", raw)
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else raw)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
+
+
 def phase_build(card: str) -> None:
     from bigdl_tpu_torch.kernels import build, flash_attention
     built = build.build(list(flash_attention.SOURCES))
     for src, b in built.items():
         log(f"[build] {src}: nvcc {b.seconds:.1f} s on the machine of {card}"
             f"\n{b.log}")
+        for name, regs, stores, loads in kernel_resources(b.log):
+            log(f"[build] {name}: {regs} registers, spill stores {stores} "
+                f"bytes, spill loads {loads} bytes")
 
 
-def attention_bound_ms(b, t, h, dh, dtype: str, causal: bool):
-    """(bound_ms, bound_by) for one flash forward: q, k, v read once, o
-    written once; 4*Dh operations per (query, key) pair the mask keeps."""
+def attention_flops(b, t, h, dh, causal: bool) -> float:
+    """4*Dh operations per (query, key) pair the mask keeps."""
     pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 4.0 * b * h * dh * pairs
+    return 4.0 * b * h * dh * pairs
+
+
+def attention_bound_ms(b, t, h, dh, dtype: str, causal: bool,
+                       unit: str | None = None, passes: int = 1):
+    """(bound_ms, bound_by) for one flash forward: q, k, v read once, o
+    written once; its operations run ``passes`` times on ``unit`` (default:
+    once at the peak of ``dtype``)."""
+    flops = passes * attention_flops(b, t, h, dh, causal)
     nbytes = 4.0 * b * t * h * dh * (2 if dtype == "bfloat16" else 4)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS[unit or dtype]
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -276,47 +324,74 @@ def phase_backward_kernels(card: str):
 
 
 def phase_kernels(card: str):
-    """Each kernel against its plain version at (8, 2048, 8, 128)."""
+    """The forward kernel against its plain version at (8, 2048, 8, 128)
+    and at the ragged (8, 1984, 8, 128), causal and not, bf16 and fp32:
+    max abs error, two launches bit-identical; at T 2048 its time beside
+    the plain version's, SDPA's and the bound of its route (fp32: 3xTF32 on
+    the tensor cores, the FMA bound printed beside), with the achieved
+    TFLOP/s and share of that bound."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.kernels import flash_attention as fa
 
-    b, t, h, dh = 8, SEQ, N_HEAD, D_MODEL // N_HEAD
+    b, h, dh = 8, N_HEAD, D_MODEL // N_HEAD
     scale = 1.0 / math.sqrt(dh)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the T 2048 inputs are those of the earlier slices' runs (seed SEED, bf16
+    # first); the ragged ones come from a generator of their own
+    gens = {t: torch.Generator(device="cuda").manual_seed(seed)
+            for t, seed in ((SEQ, SEED), (RAGGED_SEQ, SEED + 4))}
     records = {}
     for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        q, k, v = (torch.randn(b, t, h, dh, device="cuda", generator=gen)
-                   .to(dtype) for _ in range(3))
-        for causal in (True, False):
-            out = fa.flash_attention(q, k, v, causal, scale)
-            torch.cuda.synchronize()
-            ref = fa.flash_attention_reference(q, k, v, causal, scale)
-            err = (out.float() - ref).abs().max().item()
-            dname = str(dtype).replace("torch.", "")
-            tag = f"{dname} causal={causal}"
-            if not err <= atol:
-                raise AssertionError(f"flash kernel {tag}: max abs err {err} "
-                                     f"> {atol}")
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal, scale))
-            plain_ms = time_ms(
-                lambda: fa.flash_attention_reference(q, k, v, causal, scale),
-                warmup=1, reps=5)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
-            bound_ms, bound_by = attention_bound_ms(b, t, h, dh, dname,
-                                                    causal)
-            log(f"[kernels] {tag}: max_abs_err {err:.3e} (atol {atol}); "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
-                f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-                f"on {card}")
-            if causal:   # the LM's attention: the numbers the record keeps
-                records[dname] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms}
-            del out, ref
+        dname = str(dtype).replace("torch.", "")
+        for t in (SEQ, RAGGED_SEQ):
+            q, k, v = (torch.randn(b, t, h, dh, device="cuda",
+                                   generator=gens[t]).to(dtype)
+                       for _ in range(3))
+            for causal in (True, False):
+                tag = f"{dname} T={t} causal={causal}"
+                out = fa.flash_attention(q, k, v, causal, scale)
+                again = fa.flash_attention(q, k, v, causal, scale)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"flash kernel {tag}: two launches "
+                                         "differ")
+                ref = fa.flash_attention_reference(q, k, v, causal, scale)
+                err = (out.float() - ref).abs().max().item()
+                if not err <= atol:
+                    raise AssertionError(f"flash kernel {tag}: max abs err "
+                                         f"{err} > {atol}")
+                del out, again, ref
+                if t != SEQ:
+                    log(f"[kernels] {tag}: max_abs_err {err:.3e} (atol "
+                        f"{atol}), bit-identical over two launches")
+                    continue
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                ms = time_ms(lambda: fa.flash_attention(q, k, v, causal,
+                                                        scale))
+                plain_ms = time_ms(
+                    lambda: fa.flash_attention_reference(q, k, v, causal,
+                                                         scale),
+                    warmup=1, reps=5)
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal))
+                unit, passes = FWD_ROUTE[dname]
+                bound_ms, bound_by = attention_bound_ms(
+                    b, t, h, dh, dname, causal, unit, passes)
+                tflops = attention_flops(b, t, h, dh, causal) / ms / 1e9
+                fma_ms = attention_bound_ms(b, t, h, dh, dname, causal)[0]
+                fma = "" if unit == dname else f", FMA bound {fma_ms:.4f} ms"
+                log(f"[kernels] {tag}: max_abs_err {err:.3e} (atol {atol}), "
+                    f"bit-identical over two launches; kernel {ms:.3f} ms "
+                    f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
+                    f"the {unit} x{passes} bound {bound_ms:.4f} ms, "
+                    f"{bound_by}{fma}), plain {plain_ms:.3f} ms, sdpa "
+                    f"{lib_ms:.3f} ms on {card}")
+                if causal:   # the LM's attention: the numbers the record keeps
+                    records[dname] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms}
+            del q, k, v
     return records
 
 

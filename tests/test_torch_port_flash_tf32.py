@@ -1,0 +1,136 @@
+"""The numerical design of the port's fp32 flash-attention forward kernel
+(``flash_fwd_tf32x3_kernel`` in ``bigdl_tpu_torch/csrc/flash_attention_fwd.cu``)
+held against the JAX package, on the CPU.
+
+The kernel runs every fp32 product as split TF32 on the tensor cores:
+with ``x_hi = tf32_rna(x)`` and ``x_lo = tf32_rna(x - x_hi)``,
+``a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi``.  Here ``tf32_rna`` is emulated
+exactly as the kernel computes it, with integer operations on the fp32 bit
+pattern, and the forward is built from it with both products (``Q K^T`` and
+``P V``) split, its softmax in exp2 on unnormalised probabilities as the
+kernel runs it.  (The kernel's online softmax rescales per key tile; that
+changes only the rounding of the running sums, not the split products.)
+A TF32 product of two tf32 values is exact in fp32, so fp32 matmuls of the
+split operands give the tensor cores' products; only the order of the sums
+differs.
+
+Inputs come from a numpy seed at (1, 2048, 1, 128), the main path's
+sequence length, causal and not.  Tolerances:
+
+* against ``bigdl_tpu.nn.attention.scaled_dot_product_attention`` in fp32:
+  atol 1e-4, the fp32 forward gate that ``chip_smoke.py`` holds the kernel
+  to on the card;
+* against the same attention in fp64: atol 1e-5, ten times tighter.  The
+  split keeps about 2^-21 of each product; what remains is fp32 rounding
+  of the sums (measured here below 1e-6).
+
+Single-pass TF32 (``a_hi b_hi`` alone) is printed beside them, not
+asserted: its error against fp64 (measured here 1.0e-3 causal, 9.1e-5 not)
+is why the kernel splits.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bigdl_tpu.nn.attention import \
+    scaled_dot_product_attention as jax_sdpa
+
+B, T, H, DH = 1, 2048, 1, 128
+ATOL_FP32 = 1e-4     # the card's fp32 forward gate
+ATOL_FP64 = 1e-5     # against fp64: ten times tighter
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 (10 explicit significand bits), to nearest with
+    ties away from zero: add half a tf32 ulp to the bit pattern (the sign
+    is apart, so this rounds the magnitude) and clear the 13 low bits — the
+    kernel's ``tf32_rna``.  int64 keeps the add from overflowing int32."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms
+    first as the kernel adds them."""
+    a_hi, a_lo = split(a)
+    b_hi, b_lo = split(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def attention(q, k, v, causal: bool, mm) -> torch.Tensor:
+    """The kernel's forward on (T, Dh) fp32 operands with products by
+    ``mm``: exp2 softmax of the scaled scores on unnormalised P, then
+    (P V) / l."""
+    scale_log2 = (1.0 / math.sqrt(q.shape[-1])) * 1.4426950408889634
+    s = mm(q, k.T)
+    if causal:
+        keep = torch.ones(s.shape, dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True) * scale_log2
+    p = torch.exp2(s * scale_log2 - m)
+    return mm(p, v) / p.sum(dim=-1, keepdim=True)
+
+
+def _qkv(seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, T, H, DH)).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_forward_holds_the_fp32_gate(causal):
+    q, k, v = _qkv(40 + causal)
+    ref32 = np.asarray(jax_sdpa(*(jnp.asarray(x) for x in (q, k, v)),
+                                causal=causal))
+    ref64 = attention(*(torch.from_numpy(x[0, :, 0]).double()
+                        for x in (q, k, v)), causal,
+                      lambda a, b: a @ b).numpy()
+    q2, k2, v2 = (torch.from_numpy(x[0, :, 0]) for x in (q, k, v))
+    out = attention(q2, k2, v2, causal, mm_3xtf32).numpy()
+    single = attention(q2, k2, v2, causal, mm_tf32).numpy()
+    err32 = np.abs(out - ref32[0, :, 0]).max()
+    err64 = np.abs(out - ref64).max()
+    print(f"causal={causal}: 3xTF32 max abs err {err32:.3e} vs the JAX "
+          f"fp32 attention (atol {ATOL_FP32}), {err64:.3e} vs fp64 (atol "
+          f"{ATOL_FP64}); single-pass TF32 {np.abs(single - ref64).max():.3e}"
+          " vs fp64 (not asserted)")
+    assert err32 <= ATOL_FP32
+    assert err64 <= ATOL_FP64
+
+
+def test_tf32_rna_rounds_to_nearest_with_ties_away():
+    ulp = 2.0 ** -10                  # tf32's spacing in [1, 2)
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2),       # ties: away
+                      1 + ulp / 2 - 2.0 ** -23,          # just below: down
+                      1 + 3 * ulp / 4, 1.0, -0.0, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 1.0, -0.0, 3.0],
+                        dtype=torch.float32)
+    got = tf32_rna(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_split_keeps_22_bits_and_low_bits_clear():
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(4096)
+                         .astype(np.float32) * 100)
+    hi, lo = split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs()).max().item()
+    assert rel <= 2.0 ** -21
