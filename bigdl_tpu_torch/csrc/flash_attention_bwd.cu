@@ -32,36 +32,66 @@
 // head; a multiply-add counts as two operations):
 //   dK/dV: four products (S, dP, dV, dK) = 8*Dh*pairs*B*H = 137 GFLOP;
 //          q, k, v, do read and dk, dv written once, plus lse and di, in
-//          bf16 = 202 MB.  bf16: 0.139 ms (operations); fp32: 2.05 ms.
+//          bf16 = 202 MB.  bf16: 0.139 ms (operations); fp32: 2.05 ms (FMA).
 //   dQ:    three products (S, dP, dQ) = 103 GFLOP; 168 MB in bf16.
-//          bf16: 0.104 ms (operations); fp32: 1.54 ms.
+//          bf16: 0.104 ms (operations); fp32: 1.54 ms by FMA, 0.625 ms as
+//          3xTF32 on the tensor cores (3 x 103 GFLOP at 494.7 TFLOP/s).
 //
-// Kernels, simple first (no TMA, no wgmma, no warp specialisation):
-//   * bf16: mma.sync m16n8k16 with fp32 accumulation, in the forward's
-//     fragment layouts.  dK/dV: each of 4 warps owns 16 keys of a 64-key tile
-//     and works on S^T = K Q^T (keys as rows), so P^T and dS^T come out as A
-//     fragments of dV += P^T dO and dK += dS^T Q; 32-query tiles keep the two
-//     16x128 fp32 accumulators and the score tiles in registers.  dQ: each of
-//     4 warps owns 16 queries of a 64-query tile.  P and dS are cast to bf16
-//     for their products, as flash attention does on GPUs.
-//   * fp32: plain FMA in full fp32 (TF32 would not hold the fp32 tolerance),
-//     256 threads; each thread owns 2 rows x 8 columns of a 64x64 score tile
-//     and 2 rows x 16 columns of each accumulator; P and dS go through shared
+// Kernels:
+//   * bf16 dK/dV, flash_bwd_dkv_wgmma_bf16_kernel: the bf16 forward's design
+//     (flash_attention_fwd.cu).  128 keys per block, three warpgroups.  A
+//     producer thread TMA-loads the block's K and V tiles once (32 KB each,
+//     128B swizzle, two 64-column boxes per row), then streams query tiles
+//     of 64 rows into a 3-stage mbarrier ring: per stage the Q and dO tiles
+//     (16 KB each) and, by a bulk copy on the same barrier, the tile's 64
+//     lse and 64 di values.  Two consumer warpgroups (240 registers by
+//     setmaxnreg) own 64 keys each and, per query tile:
+//       - S^T = K Q^T and dP^T = V dO^T as wgmma m64n64k16 from shared
+//         memory, both operands K-major; dP^T is issued before P^T is
+//         computed, so the exponentials run while it is in flight;
+//       - P^T = exp2(S^T s log2e - lse log2e) with lse per column (the
+//         query), the causal mask on the one 64-query tile that crosses the
+//         warpgroup's 64-key diagonal; dS^T = P^T * (dP^T - di);
+//       - both to bf16 register A fragments (the C layout of m64n64 is the A
+//         layout of four k16 steps), then dV += P^T dO and dK += dS^T Q as
+//         wgmma m64n128k16 with B MN-major: the forward's transpose of V.
+//         The Q tile is read K-major for S^T and MN-major for dK: one tile,
+//         two descriptors.
+//     A warpgroup whose keys all lie beyond T (the ragged last key tile)
+//     or above a query tile (causal) only releases the stage.  dK (times s)
+//     and dV go out once in bf16; rows at or beyond T are not stored (TMA
+//     zero-filled them, and a zero key's P is not 0, but it reaches only
+//     that key's own row).
+//   * bf16 dQ, flash_bwd_dq_mma_bf16_kernel: mma.sync m16n8k16 with fp32
+//     accumulation; each of 4 warps owns 16 queries of a 64-query tile.  P
+//     and dS are cast to bf16 for their products, as flash attention does
+//     on GPUs.
+//   * fp32 dQ, flash_bwd_dq_tf32x3_kernel: the fp32 forward's design.  Every
+//     product runs as 3xTF32 mma.sync m16n8k8 (the split of
+//     flash_attention_fwd.cu: round to nearest, ties away, by integer
+//     operations; about 2^-21 relative per product).  128 query rows per
+//     block, 8 warps of 16 rows, Q and dO in shared memory, K and V tiles of
+//     32 keys through a 2-stage cp.async ring (204 KB in all, one block per
+//     SM).  S = Q K^T and dP = dO V^T per warp; dS in the C fragments; dQ +=
+//     dS K with dS's C fragment as the A fragment (k = t4 reads key 2 t4,
+//     k = t4 + 4 key 2 t4 + 1).  K's rows are then read at rows 2 t4 and at
+//     rows g, which no padding serves both without bank conflicts: K's row r
+//     is stored with its columns XOR-ed by 8 when r & 4 is set.
+//   * fp32 dK/dV, flash_bwd_dkv_fma_kernel: plain FMA in full fp32, 256
+//     threads; each thread owns 2 rows x 8 columns of a 64x64 score tile and
+//     2 rows x 16 columns of each accumulator; P and dS go through shared
 //     memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // cp.async, 3xTF32, mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kHeadDim = 128;
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, t, h;  // in elements; the head dimension has stride 1
-};
 
 struct Args {
   const void* q;
@@ -74,18 +104,20 @@ struct Args {
   void* dk;
   void* dv;
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  int batch, heads;
   int seq_len;
   float sm_scale;
   float scale_log2;  // sm_scale * log2(e)
   int causal;
 };
 
-// offset of row (b, h, 0) in a (B, H, T) array; the grid's y is the head
+// offset of row (b, h, 0) in a (B, H, T) array, in the kernels whose grid's
+// y is the head (the 1-D grids take a.heads)
 __device__ __forceinline__ long long bht_row(int b, int h, int seq_len) {
   return ((long long)b * gridDim.y + h) * seq_len;
 }
 
-// ---------------------------------------------------------------- fp32 (FMA)
+// ------------------------------------------------------ fp32 dK/dV (FMA)
 
 constexpr int kFmaThreads = 256;
 constexpr int kFmaBlock = 64;               // rows of every tile
@@ -94,8 +126,6 @@ constexpr int kFmaPStride = kFmaBlock + 1;
 constexpr size_t kFmaDkvSmemBytes =
     sizeof(float) * (4 * kFmaBlock * kFmaStride + 2 * kFmaBlock * kFmaPStride +
                      2 * kFmaBlock);
-constexpr size_t kFmaDqSmemBytes =
-    sizeof(float) * (4 * kFmaBlock * kFmaStride + kFmaBlock * kFmaPStride);
 
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long row_stride, int row0) {
@@ -230,130 +260,209 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
 }
 
-__global__ void __launch_bounds__(kFmaThreads)
-    flash_bwd_dq_fma_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kFmaBlock * kFmaStride;
-  float* ks = dos + kFmaBlock * kFmaStride;
-  float* vs = ks + kFmaBlock * kFmaStride;
-  float* dss = vs + kFmaBlock * kFmaStride;
+// ------------------------------------------- fp32 dQ (3xTF32, mma.sync)
 
+constexpr int kTfRows = 128;   // query rows per block, 16 per warp
+constexpr int kTfKeys = 32;    // keys per tile of the loop
+constexpr int kTfThreads = 256;
+// rows of kTfStride floats: 16-byte aligned, and the 8-byte fragment loads
+// of rows g hit 32 distinct banks per half warp
+constexpr int kTfStride = kHeadDim + 8;
+constexpr int kTfTileFloats = kTfRows * kTfStride;
+constexpr int kTfStageFloats = 2 * kTfKeys * kTfStride;  // K, then V
+constexpr size_t kTfDqSmemBytes =
+    sizeof(float) * (2 * kTfTileFloats + 2 * kTfStageFloats);
+
+template <int kBytes>
+__global__ void __launch_bounds__(kTfThreads, 1)
+    flash_bwd_dq_tf32x3_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + kTfTileFloats;
+  float* stage0 = dos + kTfTileFloats;
   const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // query rows ty*2, ty*2+1 of the tile
-  const int tx = tid & 7;   // key columns tx + 8j; head-dim columns tx + 8j
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kFmaBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2;  // fragment row, and column of B
+  const int t4 = lane & 3;
+  const int T = a.seq_len;
+  const int m_tiles = (T + kTfRows - 1) / kTfRows;
+  const Work w = block_work(m_tiles, a.heads, a.batch);
+  const int m0 = (m_tiles - 1 - w.tile) * kTfRows, h = w.h, b = w.b;
 
   const float* q = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
   const float* k = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
   const float* v = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
   const float* dout =
       static_cast<const float*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const float* lse = a.lse + bht_row(b, h, a.seq_len);
-  const float* di = a.di + bht_row(b, h, a.seq_len);
+  const long long row_bh = ((long long)b * a.heads + h) * T;
 
-  load_tile_f32(qs, q, a.sq.t, m0);
-  load_tile_f32(dos, dout, a.sdo.t, m0);
-  float lse2[2], dir[2];
+  // Q's and dO's rows below T (T is a multiple of 64, so a warp's 16 rows
+  // lie all below T or all beyond it; the latter only wait), then K and V
+  // of the first tile: one cp.async group
+  const int m_end = min(m0 + kTfRows, T);
+  copy_rows<kBytes, kTfThreads, kHeadDim>(qs, kTfStride, q, a.sq.t, m0, m_end);
+  copy_rows<kBytes, kTfThreads, kHeadDim>(dos, kTfStride, dout, a.sdo.t, m0,
+                                          m_end);
+  const int n_tiles = (a.causal ? m_end : T) / kTfKeys;
+  auto load_tile = [&](int i) {
+    float* ks = stage0 + (i & 1) * kTfStageFloats;
+    const int n0 = i * kTfKeys;
+    copy_rows<kBytes, kTfThreads, kHeadDim, true>(ks, kTfStride, k, a.sk.t,
+                                                  n0, n0 + kTfKeys);
+    copy_rows<kBytes, kTfThreads, kHeadDim>(ks + kTfKeys * kTfStride,
+                                            kTfStride, v, a.sv.t, n0,
+                                            n0 + kTfKeys);
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  const int wrow = m0 + warp * 16;  // the warp's first row
+  const int r0 = wrow + g;          // the lane's rows are r0 and r0 + 8
+  float lse2[2] = {0.f, 0.f}, dir[2] = {0.f, 0.f};
+  if (wrow < T) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse2[i] = lse[m0 + ty * 2 + i] * kLog2e;
-    dir[i] = di[m0 + ty * 2 + i];
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = a.lse[row_bh + r0 + 8 * r] * kLog2e;
+      dir[r] = a.di[row_bh + r0 + 8 * r];
+    }
   }
-
-  float acc[2][kHeadDim / 8];
+  float acc[kHeadDim / 8][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int dt = 0; dt < kHeadDim / 8; ++dt)
 #pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  // K's swizzle (columns XOR 8 on rows with bit 2 set) as each lane meets
+  // it: on rows g in S = Q K^T, on rows 2 t4 and 2 t4 + 1 in dQ += dS K
+  const int kx_s = (g & 4) << 1;
+  const int kx_dq = (t4 & 2) << 2;
 
-  const int kv_end = a.causal ? m0 + kFmaBlock : a.seq_len;
-  for (int n0 = 0; n0 < kv_end; n0 += kFmaBlock) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile_f32(ks, k, a.sk.t, n0);
-    load_tile_f32(vs, v, a.sv.t, n0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int n0 = i * kTfKeys;
+    if (i + 1 < n_tiles) {
+      load_tile(i + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
     __syncthreads();
+    const float* ks = stage0 + (i & 1) * kTfStageFloats;
+    const float* vs = ks + kTfKeys * kTfStride;
 
-    float s[2][8], dp[2][8];
+    // a warp whose rows all lie above this tile's keys (causal), or beyond
+    // T (the ragged last query tile), has nothing to add
+    const bool active = wrow < T && (!a.causal || n0 <= wrow + 15);
+    if (active) {
+      // S = Q K^T and dP = dO V^T: 4 tiles of 16 rows x 8 keys each, over
+      // Dh in 16 k-steps of 8; k = t4 reads Dh index 2 t4 and k = t4 + 4
+      // reads 2 t4 + 1, so each fragment pair is one 8-byte load
+      float s[kTfKeys / 8][4], dp[kTfKeys / 8][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int nt = 0; nt < kTfKeys / 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kHeadDim; ++d) {
-      float qv[2], dov[2], kv[8], vv[8];
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < kHeadDim / 8; ++kk) {
+        const int c = kk * 8 + 2 * t4;
+        uint32_t a_hi[4], a_lo[4];
+        float kb[kTfKeys / 8][2];
+        {
+          const float2 x0 = *reinterpret_cast<const float2*>(
+              &qs[(warp * 16 + g) * kTfStride + c]);
+          const float2 x1 = *reinterpret_cast<const float2*>(
+              &qs[(warp * 16 + g + 8) * kTfStride + c]);
+          const float xa[4] = {x0.x, x1.x, x0.y, x1.y};
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        qv[i] = qs[(ty * 2 + i) * kFmaStride + d];
-        dov[i] = dos[(ty * 2 + i) * kFmaStride + d];
-      }
+          for (int e = 0; e < 4; ++e) split_tf32(xa[e], a_hi[e], a_lo[e]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        kv[j] = ks[(tx + 8 * j) * kFmaStride + d];
-        vv[j] = vs[(tx + 8 * j) * kFmaStride + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          for (int nt = 0; nt < kTfKeys / 8; ++nt) {
+            const float2 y = *reinterpret_cast<const float2*>(
+                &ks[(nt * 8 + g) * kTfStride + (c ^ kx_s)]);
+            kb[nt][0] = y.x;
+            kb[nt][1] = y.y;
+          }
+          mma_3xtf32(s, a_hi, a_lo, kb);
         }
-    }
+        {
+          const float2 x0 = *reinterpret_cast<const float2*>(
+              &dos[(warp * 16 + g) * kTfStride + c]);
+          const float2 x1 = *reinterpret_cast<const float2*>(
+              &dos[(warp * 16 + g + 8) * kTfStride + c]);
+          const float xa[4] = {x0.x, x1.x, x0.y, x1.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(xa[e], a_hi[e], a_lo[e]);
+#pragma unroll
+          for (int nt = 0; nt < kTfKeys / 8; ++nt) {
+            const float2 y = *reinterpret_cast<const float2*>(
+                &vs[(nt * 8 + g) * kTfStride + c]);
+            kb[nt][0] = y.x;
+            kb[nt][1] = y.y;
+          }
+          mma_3xtf32(dp, a_hi, a_lo, kb);
+        }
+      }
 
-    const bool diag = a.causal && n0 + kFmaBlock > m0;
+      // dS = P * (dP - di) in the C fragments: s[nt][e] lies on row
+      // r0 + 8 (e >> 1) and key n0 + 8 nt + 2 t4 + (e & 1)
+      const bool diag = a.causal && n0 + kTfKeys - 1 > wrow;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qr = ty * 2 + i;
+      for (int nt = 0; nt < kTfKeys / 8; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kc = tx + 8 * j;
-        float p = exp2f(s[i][j] * a.scale_log2 - lse2[i]);
-        if (diag && n0 + kc > m0 + qr) p = 0.f;
-        dss[qr * kFmaPStride + kc] = p * (dp[i][j] - dir[i]);
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[nt][e], a.scale_log2, -lse2[e >> 1]));
+          if (diag && n0 + nt * 8 + 2 * t4 + (e & 1) > r0 + (e >> 1) * 8)
+            p = 0.f;
+          dp[nt][e] = p * (dp[nt][e] - dir[e >> 1]);
+        }
+      }
+
+      // dQ += dS K: dS tile j's C fragment, read with k = t4 as key 2 t4
+      // and k = t4 + 4 as key 2 t4 + 1, is the A fragment of k-step j; B
+      // is K's rows 2 t4 and 2 t4 + 1 of the step; the 16 output tiles go
+      // in groups of 4
+#pragma unroll
+      for (int j = 0; j < kTfKeys / 8; ++j) {
+        const float da[4] = {dp[j][0], dp[j][2], dp[j][1], dp[j][3]};
+        uint32_t d_hi[4], d_lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(da[e], d_hi[e], d_lo[e]);
+        const float* k0 = &ks[(j * 8 + 2 * t4) * kTfStride + g];
+#pragma unroll
+        for (int dg = 0; dg < kHeadDim / 32; ++dg) {
+          float kb[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int col = ((dg * 4 + n) * 8) ^ kx_dq;
+            kb[n][0] = k0[col];
+            kb[n][1] = k0[kTfStride + col];
+          }
+          mma_3xtf32(*reinterpret_cast<float(*)[4][4]>(&acc[dg * 4]), d_hi,
+                     d_lo, kb);
+        }
       }
     }
-    __syncthreads();
-
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll 4
-    for (int n = 0; n < kFmaBlock; ++n) {
-      float dsv[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) dsv[i] = dss[(ty * 2 + i) * kFmaPStride + n];
-#pragma unroll
-      for (int j = 0; j < kHeadDim / 8; ++j) {
-        const float kv = ks[n * kFmaStride + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
-      }
-    }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
+  if (wrow >= T) return;
   float* dq = static_cast<float*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long row = m0 + ty * 2 + i;
+  for (int r = 0; r < 2; ++r) {
+    float* row = dq + (long long)(r0 + 8 * r) * a.sdq.t;
 #pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j)
-      dq[row * a.sdq.t + tx + 8 * j] = acc[i][j] * a.sm_scale;
+    for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+      row[dt * 8 + 2 * t4] = acc[dt][2 * r] * a.sm_scale;
+      row[dt * 8 + 2 * t4 + 1] = acc[dt][2 * r + 1] * a.sm_scale;
+    }
   }
 }
 
-// ---------------------------------------------------------- bf16 (mma.sync)
+// ------------------------------------------------ bf16 dQ (mma.sync)
 
 constexpr int kMmaThreads = 128;
 constexpr int kMmaStride = kHeadDim + 8;  // 272-byte rows: 16-B aligned and
                                           // conflict-free fragment reads
-constexpr int kDkvKeys = 64;     // keys per dK/dV block, 16 per warp
-constexpr int kDkvQueries = 32;  // queries per tile of its loop
 constexpr int kDqQueries = 64;   // queries per dQ block, 16 per warp
 constexpr int kDqKeys = 64;      // keys per tile of its loop
-constexpr size_t kMmaDkvSmemBytes =
-    sizeof(__nv_bfloat16) * (2 * kDkvKeys + 2 * kDkvQueries) * kMmaStride +
-    sizeof(float) * 2 * kDkvQueries;
 constexpr size_t kMmaDqSmemBytes =
     sizeof(__nv_bfloat16) * (2 * kDqQueries + 2 * kDqKeys) * kMmaStride;
 
@@ -365,10 +474,6 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
                                               __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
 }
 
 // c += a b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
@@ -416,133 +521,6 @@ __device__ __forceinline__ void load_b_frag_rows(uint32_t& b0, uint32_t& b1,
   const __nv_bfloat16* p = &tile[(row0 + t4 * 2) * kMmaStride + col0 + g];
   b0 = pack_bf16(p[0], p[kMmaStride]);
   b1 = pack_bf16(p[8 * kMmaStride], p[9 * kMmaStride]);
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma_bf16_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kDkvKeys * kMmaStride;
-  __nv_bfloat16* qs = vs + kDkvKeys * kMmaStride;
-  __nv_bfloat16* dos = qs + kDkvQueries * kMmaStride;
-  float* lse_s = reinterpret_cast<float*>(dos + kDkvQueries * kMmaStride);
-  float* di_s = lse_s + kDkvQueries;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;  // fragment row (and column of B) within a tile
-  const int t4 = lane & 3;  // fragment column pair
-  const int n0 = blockIdx.x * kDkvKeys;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const __nv_bfloat16* dout =
-      static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const float* lse = a.lse + bht_row(b, h, a.seq_len);
-  const float* di = a.di + bht_row(b, h, a.seq_len);
-
-  load_tile_bf16(ks, k, a.sk.t, n0, kDkvKeys);
-  load_tile_bf16(vs, v, a.sv.t, n0, kDkvKeys);
-
-  const int kr0 = warp * 16;  // this warp's keys; the lane's are kr0 + g, +8
-  float dk_acc[kHeadDim / 8][4], dv_acc[kHeadDim / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  for (int m0 = a.causal ? n0 : 0; m0 < a.seq_len; m0 += kDkvQueries) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile_bf16(qs, q, a.sq.t, m0, kDkvQueries);
-    load_tile_bf16(dos, dout, a.sdo.t, m0, kDkvQueries);
-    if (tid < kDkvQueries) {
-      lse_s[tid] = lse[m0 + tid] * kLog2e;
-      di_s[tid] = di[m0 + tid];
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 4 tiles of 16 keys x 8 queries each
-    float st[kDkvQueries / 8][4], dpt[kDkvQueries / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kDkvQueries / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a_frag(ka, ks, kr0, kk * 16, g, t4);
-      load_a_frag(va, vs, kr0, kk * 16, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < kDkvQueries / 8; ++nt) {
-        const __nv_bfloat16* pq = &qs[(nt * 8 + g) * kMmaStride + kk * 16 + t4 * 2];
-        mma_16816(st[nt], ka, ld32(pq), ld32(pq + 8));
-        const __nv_bfloat16* pd = &dos[(nt * 8 + g) * kMmaStride + kk * 16 + t4 * 2];
-        mma_16816(dpt[nt], va, ld32(pd), ld32(pd + 8));
-      }
-    }
-
-    // P^T, and dS^T = P^T * (dP^T - di); st[nt][e] lies on key kr0 + g +
-    // (e >> 1) * 8 and query nt * 8 + t4 * 2 + (e & 1) of the tiles
-    const bool diag = a.causal && m0 < n0 + kDkvKeys;
-#pragma unroll
-    for (int nt = 0; nt < kDkvQueries / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kr0 + g + (e >> 1) * 8;
-        const int col = nt * 8 + t4 * 2 + (e & 1);
-        float p = exp2f(st[nt][e] * a.scale_log2 - lse_s[col]);
-        if (diag && n0 + key > m0 + col) p = 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - di_s[col]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q: the C fragments of two adjacent score
-    // tiles are the A fragment of one 16-query step
-#pragma unroll
-    for (int j = 0; j < kDkvQueries / 16; ++j) {
-      const uint32_t pa[4] = {pack_f32(st[2 * j][0], st[2 * j][1]),
-                              pack_f32(st[2 * j][2], st[2 * j][3]),
-                              pack_f32(st[2 * j + 1][0], st[2 * j + 1][1]),
-                              pack_f32(st[2 * j + 1][2], st[2 * j + 1][3])};
-      const uint32_t da[4] = {pack_f32(dpt[2 * j][0], dpt[2 * j][1]),
-                              pack_f32(dpt[2 * j][2], dpt[2 * j][3]),
-                              pack_f32(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
-                              pack_f32(dpt[2 * j + 1][2], dpt[2 * j + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b_frag_rows(b0, b1, dos, j * 16, dt * 8, g, t4);
-        mma_16816(dv_acc[dt], pa, b0, b1);
-        load_b_frag_rows(b0, b1, qs, j * 16, dt * 8, g, t4);
-        mma_16816(dk_acc[dt], da, b0, b1);
-      }
-    }
-  }
-
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
-  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
-  const long long row = n0 + kr0 + g;
-#pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    *reinterpret_cast<__nv_bfloat162*>(dk + row * a.sdk.t + c) =
-        __floats2bfloat162_rn(dk_acc[dt][0] * a.sm_scale,
-                              dk_acc[dt][1] * a.sm_scale);
-    *reinterpret_cast<__nv_bfloat162*>(dk + (row + 8) * a.sdk.t + c) =
-        __floats2bfloat162_rn(dk_acc[dt][2] * a.sm_scale,
-                              dk_acc[dt][3] * a.sm_scale);
-    *reinterpret_cast<__nv_bfloat162*>(dv + row * a.sdv.t + c) =
-        __floats2bfloat162_rn(dv_acc[dt][0], dv_acc[dt][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dv + (row + 8) * a.sdv.t + c) =
-        __floats2bfloat162_rn(dv_acc[dt][2], dv_acc[dt][3]);
-  }
 }
 
 __global__ void __launch_bounds__(kMmaThreads)
@@ -659,6 +637,230 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// ------------------------------- bf16 dK/dV (wgmma + TMA, warp-specialised)
+
+constexpr int kWgKeys = 128;     // keys per block, 64 per consumer warpgroup
+constexpr int kWgQueries = 64;   // queries per tile of the loop
+constexpr int kWgThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kWgStages = 3;
+constexpr int kWgConsumerWarps = 8;
+constexpr uint32_t kKvHalf = kWgKeys * 64 * 2;        // 128 rows x 64 columns
+constexpr uint32_t kKvBytes = 2 * kKvHalf;            // one 128 x 128 tile
+constexpr uint32_t kQHalf = kWgQueries * 64 * 2;      // 64 rows x 64 columns
+constexpr uint32_t kQBytes = 2 * kQHalf;              // one 64 x 128 tile
+constexpr uint32_t kRowBytes = kWgQueries * 4;        // a tile's lse or di
+// shared memory from a 1024-byte aligned base: K, V, then per stage Q and
+// dO, then per stage lse and di, then the mbarriers
+constexpr uint32_t kSmK = 0;
+constexpr uint32_t kSmV = kKvBytes;
+constexpr uint32_t kSmStages = 2 * kKvBytes;
+constexpr uint32_t kSmRows = kSmStages + kWgStages * 2 * kQBytes;
+constexpr uint32_t kSmBar = kSmRows + kWgStages * 2 * kRowBytes;
+constexpr size_t kWgSmemBytes =
+    kSmBar + 8 * (1 + 2 * kWgStages) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                                    const __grid_constant__ CUtensorMap map_k,
+                                    const __grid_constant__ CUtensorMap map_v,
+                                    const __grid_constant__ CUtensorMap map_do,
+                                    Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128B swizzle repeats every 1024 bytes: tiles start on that grid
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t kv_full = base + kSmBar;
+  // stage s: Q at q_at(s), dO kQBytes after it; lse and di; full(s) and
+  // empty(s) barriers
+  auto q_at = [&](int s) { return base + kSmStages + s * 2 * kQBytes; };
+  auto rows_at = [&](int s) {
+    return reinterpret_cast<const float*>(smem_raw + (base - raw) + kSmRows +
+                                          s * 2 * kRowBytes);
+  };
+  auto full = [&](int s) { return kv_full + 8 + 8 * s; };
+  auto empty = [&](int s) { return kv_full + 8 + 8 * kWgStages + 8 * s; };
+
+  const int wg = threadIdx.x / 128;
+  const int T = a.seq_len;
+  const Work w = block_work((T + kWgKeys - 1) / kWgKeys, a.heads, a.batch);
+  const int n0 = w.tile * kWgKeys, h = w.h, b = w.b;
+  // under causal attention no query before n0 sees the block's keys; n0 is
+  // a multiple of 128, so the first query tile starts there
+  const int m_begin = a.causal ? n0 : 0;
+  const int n_q = (T - m_begin) / kWgQueries;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWgConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread loads K and V, then keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * kKvBytes);
+      tma_load(base + kSmK, &map_k, kv_full, 0, n0, h, b);
+      tma_load(base + kSmK + kKvHalf, &map_k, kv_full, 64, n0, h, b);
+      tma_load(base + kSmV, &map_v, kv_full, 0, n0, h, b);
+      tma_load(base + kSmV + kKvHalf, &map_v, kv_full, 64, n0, h, b);
+      const long long row_bh = ((long long)b * a.heads + h) * T;
+      for (int i = 0; i < n_q; ++i) {
+        const int s = i % kWgStages;
+        const int m0 = m_begin + i * kWgQueries;
+        // the first pass over the ring finds every stage free
+        mbar_wait(empty(s), ((i / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kQBytes + 2 * kRowBytes);
+        tma_load(q_at(s), &map_q, full(s), 0, m0, h, b);
+        tma_load(q_at(s) + kQHalf, &map_q, full(s), 64, m0, h, b);
+        tma_load(q_at(s) + kQBytes, &map_do, full(s), 0, m0, h, b);
+        tma_load(q_at(s) + kQBytes + kQHalf, &map_do, full(s), 64, m0, h, b);
+        const uint32_t rows = smem_u32(rows_at(s));
+        bulk_load(rows, a.lse + row_bh + m0, kRowBytes, full(s));
+        bulk_load(rows + kRowBytes, a.di + row_bh + m0, kRowBytes, full(s));
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys n0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int key0 = n0 + wg * 64;
+    const int kr = warp * 16 + (lane >> 2);  // the lane's keys: key0 + kr, + 8
+    const int c2 = (lane & 3) * 2;  // the lane's query pair in each 8
+    // this warpgroup's 64 rows of K and V in each 64-column half
+    const uint32_t k_rows = base + kSmK + wg * 64 * 128;
+    const uint32_t v_rows = base + kSmV + wg * 64 * 128;
+
+    float dv[64], dk[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) dv[e] = dk[e] = 0.f;
+    float st[32];    // S^T of the current tile, then P^T
+    float dpt[32];   // dP^T, then dS^T
+    uint32_t pa[kWgQueries / 16][4], da[kWgQueries / 16][4];  // bf16 A
+
+    // S^T = K Q^T (or dP^T = V dO^T) over Dh in 8 steps of 16; steps 4-7
+    // read the second 64-column halves.  Both K-major: 8-row groups 1024
+    // bytes apart.
+    auto gemm_t = [&](float(&d)[32], uint32_t a_rows, uint32_t b_tile) {
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk)
+        wgmma_ss_n64(d,
+                     wgmma_desc(a_rows + (kk / 4) * kKvHalf + (kk % 4) * 32,
+                                16, 1024),
+                     wgmma_desc(b_tile + (kk / 4) * kQHalf + (kk % 4) * 32,
+                                16, 1024),
+                     kk > 0);
+      wgmma_commit();
+    };
+    // d += A X over the tile's queries in 4 steps of 16, X (dO or Q) read
+    // MN-major: 8-query groups 1024 bytes apart (SBO), the two 64-column
+    // halves kQHalf apart (LBO)
+    auto gemm_acc = [&](float(&d)[64], const uint32_t(&f)[kWgQueries / 16][4],
+                        uint32_t x_tile) {
+#pragma unroll
+      for (int kk = 0; kk < kWgQueries / 16; ++kk)
+        wgmma_rs_tn(d, f[kk], wgmma_desc(x_tile + kk * 16 * 128, kQHalf, 1024));
+    };
+    // called once every wgmma of this warp that read stage s has completed
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % kWgStages;
+      const int m0 = m_begin + i * kWgQueries;
+      const uint32_t qt = q_at(s), dot = qt + kQBytes;
+      mbar_wait(full(s), (i / kWgStages) & 1);
+      // keys beyond T (the ragged last key tile) have no gradient to store;
+      // under causal attention a query tile below the keys adds nothing
+      if (key0 < T && (!a.causal || m0 + kWgQueries > key0)) {
+        // the fences: before each batch of wgmma, since the threads wrote
+        // its register operands; around the accumulators, so the compiler
+        // moves none of them while a wgmma is in flight
+        fence_acc(st);
+        fence_acc(dpt);
+        wgmma_fence();
+        gemm_t(st, k_rows, qt);
+        gemm_t(dpt, v_rows, dot);
+        wgmma_wait<1>();  // S^T is in; dP^T may still run
+        fence_acc(st);
+        // P^T: st[4n + e] lies on key key0 + kr + 8 (e >> 1) and query
+        // m0 + 8n + c2 + (e & 1); only the tile on the warpgroup's diagonal
+        // (m0 == key0) has keys above queries
+        const float* lse_s = rows_at(s);
+        const float* di_s = lse_s + kWgQueries;
+        const bool diag = a.causal && m0 == key0;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * n + c2);
+          const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2_approx(fmaf(st[4 * n + e], a.scale_log2,
+                                       -l2[e & 1]));
+            if (diag && kr + 8 * (e >> 1) > 8 * n + c2 + (e & 1)) p = 0.f;
+            st[4 * n + e] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc(dpt);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 d = *reinterpret_cast<const float2*>(di_s + 8 * n + c2);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] -
+                                              ((e & 1) ? d.y : d.x));
+        }
+        // queries 16kk..16kk+15 are the accumulator's groups 2kk, 2kk + 1
+#pragma unroll
+        for (int kk = 0; kk < kWgQueries / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pa[kk][e] = pack_f32(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+            da[kk][e] = pack_f32(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+          }
+        fence_acc(dv);
+        fence_acc(dk);
+        wgmma_fence();
+        gemm_acc(dv, pa, dot);
+        gemm_acc(dk, da, qt);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dv);
+        fence_acc(dk);
+      }
+      release(s);
+    }
+
+    __nv_bfloat16* dk_bh =
+        static_cast<__nv_bfloat16*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
+    __nv_bfloat16* dv_bh =
+        static_cast<__nv_bfloat16*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + kr + 8 * r;
+      if (key >= T) continue;
+      __nv_bfloat16* dk_row = dk_bh + (long long)key * a.sdk.t;
+      __nv_bfloat16* dv_row = dv_bh + (long long)key * a.sdv.t;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * n + c2) =
+            __floats2bfloat162_rn(dk[4 * n + 2 * r] * a.sm_scale,
+                                  dk[4 * n + 2 * r + 1] * a.sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * n + c2) =
+            __floats2bfloat162_rn(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // Shared checks and argument packing of the two entry points.  strides holds
 // (b, t, h) in elements for each operand in `order`.
 int pack_args(Args* a, const long long* strides, Strides* const* order,
@@ -672,6 +874,8 @@ int pack_args(Args* a, const long long* strides, Strides* const* order,
     order[i]->t = strides[3 * i + 1];
     order[i]->h = strides[3 * i + 2];
   }
+  a->batch = batch;
+  a->heads = heads;
   a->seq_len = seq_len;
   a->sm_scale = sm_scale;
   a->scale_log2 = sm_scale * kLog2e;
@@ -695,8 +899,11 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 18 host values, (b, t, h) in
 // elements for q, k, v, do, dk and dv in that order.  lse and di are (B, H, T)
-// fp32, contiguous.  Launches on `stream` and does not synchronise; returns
-// cudaGetLastError() after the launch (0 on success).
+// fp32, contiguous (in bf16 also 16-byte aligned: the kernel bulk-copies
+// their rows).  Launches on `stream` and does not synchronise; returns
+// cudaGetLastError() after the launch (0 on success), or the error that
+// stopped it before (cudaErrorInvalidValue for arguments the kernels do not
+// take, including a bf16 operand whose tensor map cannot be encoded).
 int bigdl_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
                                   const float* di, void* dk, void* dv,
@@ -720,9 +927,23 @@ int bigdl_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch(flash_bwd_dkv_fma_kernel, dim3(seq_len / kFmaBlock, heads, batch),
                   kFmaThreads, kFmaDkvSmemBytes, a, stream);
-  return launch(flash_bwd_dkv_mma_bf16_kernel,
-                dim3(seq_len / kDkvKeys, heads, batch), kMmaThreads,
-                kMmaDkvSmemBytes, a, stream);
+  CUtensorMap mq, mk, mv, mdo;
+  if (reinterpret_cast<uintptr_t>(lse) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(di) % 16 != 0 ||
+      !encode_map(&mq, q, a.sq, batch, seq_len, heads, kWgQueries) ||
+      !encode_map(&mk, k, a.sk, batch, seq_len, heads, kWgKeys) ||
+      !encode_map(&mv, v, a.sv, batch, seq_len, heads, kWgKeys) ||
+      !encode_map(&mdo, dout, a.sdo, batch, seq_len, heads, kWgQueries))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_bf16_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (seq_len + kWgKeys - 1) / kWgKeys * heads * batch;
+  flash_bwd_dkv_wgmma_bf16_kernel<<<grid, kWgThreads, kWgSmemBytes,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, a);
+  return (int)cudaGetLastError();
 }
 
 // As above; strides: 15 host values, for q, k, v, do and dq in that order.
@@ -745,9 +966,15 @@ int bigdl_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   a.lse = lse;
   a.di = di;
   a.dq = dq;
-  if (dtype == 0)
-    return launch(flash_bwd_dq_fma_kernel, dim3(seq_len / kFmaBlock, heads, batch),
-                  kFmaThreads, kFmaDqSmemBytes, a, stream);
+  if (dtype == 0) {
+    const dim3 grid((seq_len + kTfRows - 1) / kTfRows * heads * batch);
+    if (aligned16(q, a.sq) && aligned16(k, a.sk) && aligned16(v, a.sv) &&
+        aligned16(dout, a.sdo))
+      return launch(flash_bwd_dq_tf32x3_kernel<16>, grid, kTfThreads,
+                    kTfDqSmemBytes, a, stream);
+    return launch(flash_bwd_dq_tf32x3_kernel<4>, grid, kTfThreads,
+                  kTfDqSmemBytes, a, stream);
+  }
   return launch(flash_bwd_dq_mma_bf16_kernel,
                 dim3(seq_len / kDqQueries, heads, batch), kMmaThreads,
                 kMmaDqSmemBytes, a, stream);

@@ -5,8 +5,10 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into ``build/bigdl_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``), then loaded with
 ``ctypes``.  Nothing here runs at import: a kernel's wrapper builds its library
 at its first launch on a CUDA tensor, and ``chip_smoke.py`` builds every source
-up front, all at once.  A library is named after a hash of its source and
-flags, so an unchanged source is built once per checkout.
+up front, all at once.  A library is named after a hash of its source, of
+every header (``*.cuh``) under ``csrc`` and of the flags, so an unchanged
+source is built once per checkout and an edit to a shared header rebuilds
+every source.
 """
 
 from __future__ import annotations
@@ -52,9 +54,16 @@ def nvcc() -> str:
     return path
 
 
+def _headers() -> List[str]:
+    """Every header under ``csrc``: a source may include any of them."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def _target(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    for name in (source, *_headers()):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
@@ -72,7 +81,8 @@ def build(sources: List[str]) -> Dict[str, Built]:
             out[src] = Built(target, 0.0, "")
             continue
         tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+               os.path.join(CSRC_DIR, src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[src] = (proc, target, tmp, time.perf_counter())

@@ -230,6 +230,10 @@ def _check_bwd(q, do, lse, di) -> None:
             raise ValueError(f"flash_attention's backward takes {name} as a "
                              f"contiguous (B, H, T) fp32 tensor on "
                              f"{q.device}, got {tuple(x.shape)} {x.dtype}")
+        # the bf16 dK/dV kernel bulk-copies rows of lse and di
+        if q.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"flash_attention's bf16 backward takes {name} "
+                             "at a 16-byte aligned address")
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal: bool,

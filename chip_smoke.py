@@ -13,8 +13,9 @@ Phases, each fatal on any fault:
    call's and the card's bound for the same work: the forward (also at a
    ragged T = 1984, a multiple of 64 and not of the kernels' 128-row tiles;
    achieved TFLOP/s and share of the bound of its route), and the dK/dV and
-   dQ backward kernels (causal and not, fp32 and bf16, two launches
-   bit-identical);
+   dQ backward kernels (also at T 64, 192 and 1984 at B1/H2, where a
+   128-row tile is ragged; causal and not, fp32 and bf16, two launches
+   bit-identical; achieved TFLOP/s and share of the bound of each route);
 4. serving: the 134M transformer LM (d_model 1024, 8 heads of 128, 8 layers,
    vocab 16384, T 2048; random weights from a seed) with ``flash=True``,
    served through ``ServingEngine``; every result checked, one row held
@@ -54,13 +55,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # FMA outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-#: the forward kernels' routes: (unit, passes).  The fp32 forward runs each
-#: product as three TF32 products on the tensor cores (3xTF32); the fp32
-#: backward kernels stay FMA.
+#: the kernels' routes: (unit, passes).  The fp32 forward and the fp32 dQ
+#: run each product as three TF32 products on the tensor cores (3xTF32);
+#: the fp32 dK/dV stays FMA.
 FWD_ROUTE = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3)}
+BWD_ROUTE = {("dkv", "bfloat16"): ("bfloat16", 1),
+             ("dq", "bfloat16"): ("bfloat16", 1),
+             ("dkv", "float32"): ("float32", 1),
+             ("dq", "float32"): ("tf32", 3)}
 
 VOCAB, D_MODEL, N_HEAD, N_LAYERS, SEQ = 16384, 1024, 8, 8, 2048
 RAGGED_SEQ = SEQ - 64   # a multiple of 64 (the wrapper's rule), not of 128
+#: the backward's short and ragged lengths (a 128-key or 128-query tile
+#: partly or wholly beyond T), checked at a small B and H
+BWD_SHORT_SEQS, BWD_SHORT_BH = (64, 192, RAGGED_SEQ), (1, 2)
 SEED = 0
 DEVICE = "cuda"
 N_REQUESTS, MAX_BATCH, BF16_STEPS = 16, 8, 5
@@ -217,17 +225,25 @@ def attention_bound_ms(b, t, h, dh, dtype: str, causal: bool,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bwd_bound_ms(b, t, h, dh, dtype: str, causal: bool, kind: str):
-    """(bound_ms, bound_by) for one backward kernel: dK/dV does four
-    products (S, dP, dV, dK), dQ three (S, dP, dQ), 2*Dh operations each per
-    (query, key) pair the mask keeps; q, k, v, do, lse and di read once, the
-    gradients written once."""
+def bwd_flops(b, t, h, dh, causal: bool, kind: str) -> float:
+    """dK/dV does four products (S, dP, dV, dK), dQ three (S, dP, dQ),
+    2*Dh operations each per (query, key) pair the mask keeps."""
     pairs = t * (t + 1) // 2 if causal else t * t
-    products, outputs = (4, 2) if kind == "dkv" else (3, 1)
-    flops = 2.0 * products * b * h * dh * pairs
+    return 2.0 * (4 if kind == "dkv" else 3) * b * h * dh * pairs
+
+
+def bwd_bound_ms(b, t, h, dh, dtype: str, causal: bool, kind: str,
+                 unit: str | None = None, passes: int = 1):
+    """(bound_ms, bound_by) for one backward kernel: its operations
+    (``bwd_flops``) run ``passes`` times on ``unit`` (default: once at the
+    peak of ``dtype``); q, k, v, do, lse and di read once, the gradients
+    written once."""
+    outputs = 2 if kind == "dkv" else 1
+    flops = passes * bwd_flops(b, t, h, dh, causal, kind)
     act = b * t * h * dh * (2 if dtype == "bfloat16" else 4)
     nbytes = (4 + outputs) * act + 2 * 4.0 * b * h * t
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS[unit or dtype]
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -237,12 +253,54 @@ def rel_err(out, ref) -> float:
     return ((out.float() - ref).abs().max() / ref.abs().max()).item()
 
 
+def backward_case(q, k, v, do, causal: bool, scale: float, rtol: float,
+                  tag: str) -> dict:
+    """The dK/dV and dQ kernels on one input against the plain backward:
+    the forward's lse within 1e-3 of the plain one, two launches
+    bit-identical, max|diff|/max|ref| of dq, dk and dv within ``rtol``.
+    Returns the errors, the kernel's lse and di, and the plain forward's
+    output and lse."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, with_lse=True)
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, causal, scale,
+                                                  return_lse=True)
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"forward lse {tag}: max abs err {lse_err} > "
+                             "1e-3")
+    di = fa.attention_di(o, do)
+    runs = []
+    for _ in range(2):
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal,
+                                            scale)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, causal, scale)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise AssertionError(f"backward kernels {tag}: two launches differ")
+    ref = fa.flash_attention_bwd_reference(q, k, v, ref_o, ref_lse, do,
+                                           causal, scale)
+    names = ("dq", "dk", "dv")
+    errs = {n: rel_err(x, r) for n, x, r in zip(names, runs[0], ref)}
+    abs_errs = {n: (x.float() - r).abs().max().item()
+                for n, x, r in zip(names, runs[0], ref)}
+    if not max(errs.values()) <= rtol:
+        raise AssertionError(f"backward kernels {tag}: relative errors "
+                             f"{errs} > {rtol}")
+    return {"errs": errs, "abs_errs": abs_errs, "lse_err": lse_err,
+            "lse": lse, "ref_o": ref_o, "ref_lse": ref_lse, "di": di}
+
+
 def phase_backward_kernels(card: str):
     """The dK/dV and dQ kernels against the plain backward at
     (8, 2048, 8, 128), causal and not, fp32 and bf16: relative error, two
     launches bit-identical, the forward's lse against the plain one, and
-    each kernel's time beside its bound, the plain backward's and SDPA's
-    backward."""
+    each kernel's time beside the bound of its route (fp32 dQ: 3xTF32 on
+    the tensor cores, the FMA bound printed beside), the plain backward's
+    and SDPA's backward; then the same checks at the short and ragged T of
+    BWD_SHORT_SEQS, where a 128-row tile lies partly or wholly beyond T."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.kernels import flash_attention as fa
@@ -257,42 +315,15 @@ def phase_backward_kernels(card: str):
                        .to(dtype) for _ in range(4))
         for causal in (True, False):
             tag = f"{dname} causal={causal}"
-            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale,
-                                            with_lse=True)
-            ref_o, ref_lse = fa.flash_attention_reference(
-                q, k, v, causal, scale, return_lse=True)
-            lse_err = (lse - ref_lse).abs().max().item()
-            if not lse_err <= 1e-3:
-                raise AssertionError(f"forward lse {tag}: max abs err "
-                                     f"{lse_err} > 1e-3")
-            di = fa.attention_di(o, do)
-            runs = []
-            for _ in range(2):
-                dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di,
-                                                    causal, scale)
-                dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, causal,
-                                               scale)
-                runs.append((dq, dk, dv))
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(*runs)):
-                raise AssertionError(f"backward kernels {tag}: two launches "
-                                     "differ")
-            ref = fa.flash_attention_bwd_reference(q, k, v, ref_o, ref_lse,
-                                                   do, causal, scale)
-            errs = {n: rel_err(x, r) for n, x, r in zip(("dq", "dk", "dv"),
-                                                         runs[0], ref)}
-            abs_errs = {n: (x.float() - r).abs().max().item()
-                        for n, x, r in zip(("dq", "dk", "dv"), runs[0], ref)}
-            if not max(errs.values()) <= rtol:
-                raise AssertionError(f"backward kernels {tag}: relative "
-                                     f"errors {errs} > {rtol}")
-            del runs, ref, dq, dk, dv
+            c = backward_case(q, k, v, do, causal, scale, rtol, tag)
+            lse, di = c["lse"], c["di"]
             dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, do, lse, di, causal, scale))
             dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, di, causal, scale))
             plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
-                q, k, v, ref_o, ref_lse, do, causal, scale), warmup=1, reps=5)
+                q, k, v, c["ref_o"], c["ref_lse"], do, causal, scale),
+                warmup=1, reps=5)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                           for x in (q, k, v))
             sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
@@ -301,25 +332,50 @@ def phase_backward_kernels(card: str):
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 sdpa_out, (qt, kt, vt), dot, retain_graph=True))
             del sdpa_out, qt, kt, vt
-            bounds = {kind: bwd_bound_ms(b, t, h, dh, dname, causal, kind)
-                      for kind in ("dkv", "dq")}
+            notes = {}
+            for kind, ms in (("dkv", dkv_ms), ("dq", dq_ms)):
+                unit, passes = BWD_ROUTE[(kind, dname)]
+                bound, by = bwd_bound_ms(b, t, h, dh, dname, causal, kind,
+                                         unit, passes)
+                fma_ms = bwd_bound_ms(b, t, h, dh, dname, causal, kind)[0]
+                fma = "" if unit == dname else f", FMA bound {fma_ms:.4f} ms"
+                tflops = bwd_flops(b, t, h, dh, causal, kind) / ms / 1e9
+                notes[kind] = (f"{ms:.3f} ms ({tflops:.1f} TFLOP/s, "
+                               f"{100 * bound / ms:.1f}% of the {unit} "
+                               f"x{passes} bound {bound:.4f} ms, {by}{fma})")
+                if causal:   # the LM's attention: the numbers the record keeps
+                    errs = c["abs_errs"]
+                    err = (max(errs["dk"], errs["dv"]) if kind == "dkv"
+                           else errs["dq"])
+                    records[(kind, dname)] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib_ms}
+            errs = c["errs"]
             log(f"[kernels] backward {tag}: relative err dq {errs['dq']:.2e} "
                 f"dk {errs['dk']:.2e} dv {errs['dv']:.2e} (limit {rtol}), "
                 f"bit-identical over two launches, lse max abs err "
-                f"{lse_err:.2e}; dK/dV {dkv_ms:.3f} ms (bound "
-                f"{bounds['dkv'][0]:.4f} ms, {bounds['dkv'][1]}), dQ "
-                f"{dq_ms:.3f} ms (bound {bounds['dq'][0]:.4f} ms, "
-                f"{bounds['dq'][1]}), plain backward {plain_ms:.3f} ms, sdpa "
+                f"{c['lse_err']:.2e}; dK/dV {notes['dkv']}, dQ "
+                f"{notes['dq']}, plain backward {plain_ms:.3f} ms, sdpa "
                 f"backward {lib_ms:.3f} ms on {card}")
-            if causal:   # the LM's attention: the numbers the record keeps
-                for kind, ms, err in (
-                        ("dkv", dkv_ms, max(abs_errs["dk"], abs_errs["dv"])),
-                        ("dq", dq_ms, abs_errs["dq"])):
-                    records[(kind, dname)] = {
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bounds[kind][0],
-                        "bound_by": bounds[kind][1], "library_ms": lib_ms}
-            del o, lse, ref_o, ref_lse, di
+            del c
+    # short and ragged T at a small B and H, from a generator of their own
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bs, hs = BWD_SHORT_BH
+    for dtype, rtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        dname = str(dtype).replace("torch.", "")
+        for ts in BWD_SHORT_SEQS:
+            q, k, v, do = (torch.randn(bs, ts, hs, dh, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            for causal in (True, False):
+                tag = f"{dname} ({bs}, {ts}, {hs}, {dh}) causal={causal}"
+                errs = backward_case(q, k, v, do, causal, scale, rtol,
+                                     tag)["errs"]
+                log(f"[kernels] backward {tag}: relative err dq "
+                    f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+                    f"{errs['dv']:.2e} (limit {rtol}), bit-identical over two "
+                    "launches")
     return records
 
 

@@ -20,6 +20,14 @@ where ``chip_smoke.py`` holds them against the same plain backward.
 
 Tolerance: fp32 atol 1e-5 / rtol 1e-5 (two fp32 computations of the same
 sums in other orders).
+
+The bf16 dK/dV kernel's numerical design (``flash_bwd_dkv_wgmma_bf16_kernel``
+in ``bigdl_tpu_torch/csrc/flash_attention_bwd.cu``) is emulated too: bf16
+inputs, S and dP summed in fp32, P from the forward's fp32 ``lse`` and dS in
+fp32, both rounded to bf16 before ``dV = P^T dO`` and ``dK = s dS^T Q``
+(fp32 sums), the outputs rounded to bf16.  It is held against ``jax.vjp``
+of the attention on the same bf16 values in fp32 within max|diff| /
+max|ref| 2e-2, the card's bf16 backward gate.
 """
 
 import math
@@ -39,6 +47,7 @@ from bigdl_tpu_torch.nn import MultiHeadAttention
 from bigdl_tpu_torch.utils.convert import params_from_jax
 
 ATOL = RTOL = 1e-5
+RTOL_BF16 = 2e-2   # the card's bf16 backward gate, max|diff| / max|ref|
 DH = 128
 SCALE = 1.0 / math.sqrt(DH)
 SHAPES = [(128, 1), (256, 2)]     # (T, H)
@@ -165,3 +174,44 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         fa.flash_attention_bwd_dq(q, k, v, do, lse, lse, True, SCALE)
     assert fa._libs == {}
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).bfloat16().float()
+
+
+def dkv_bf16(q, k, v, do, causal: bool):
+    """The bf16 dK/dV kernel's arithmetic on (B, T, H, Dh) fp32 tensors that
+    hold bf16 values: (dk, dv) rounded to bf16."""
+    qf, kf, vf, dof = (x.transpose(1, 2) for x in (q, k, v, do))
+    # the forward kernel's outputs: lse in fp32, o rounded to bf16
+    o, lse = fa.flash_attention_reference(q, k, v, causal, SCALE,
+                                          return_lse=True)
+    di = (o.bfloat16().float() * do).sum(dim=-1).transpose(1, 2)[..., None]
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.exp2(s * (SCALE * 1.4426950408889634)
+                   - lse[..., None] * 1.4426950408889634)
+    if causal:
+        p = p * torch.ones(p.shape[-2:], dtype=torch.bool).tril()
+    ds = p * (dof @ vf.transpose(-1, -2) - di)
+    dv = p.bfloat16().float().transpose(-1, -2) @ dof
+    dk = ds.bfloat16().float().transpose(-1, -2) @ qf * SCALE
+    return tuple(x.transpose(1, 2).bfloat16().float() for x in (dk, dv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_dkv_design_holds_the_bf16_gate(causal):
+    q, k, v, do = (_bf16(x) for x in _inputs(256, 2, seed=30 + causal))
+
+    @jax.jit
+    def vjp_kv(a, b, c, d):
+        _, vjp = jax.vjp(lambda y, z: jax_sdpa(a, y, z, causal=causal), b, c)
+        return vjp(d)
+
+    ref = vjp_kv(*(jnp.asarray(x.numpy()) for x in (q, k, v, do)))
+    for name, out, r in zip(("dk", "dv"), dkv_bf16(q, k, v, do, causal), ref):
+        r = np.asarray(r)
+        err = np.abs(out.numpy() - r).max() / np.abs(r).max()
+        print(f"causal={causal} {name}: bf16 design max|diff|/max|ref| "
+              f"{err:.3e} (limit {RTOL_BF16})")
+        assert err <= RTOL_BF16

@@ -27,10 +27,21 @@ sequence length, causal and not.  Tolerances:
 Single-pass TF32 (``a_hi b_hi`` alone) is printed beside them, not
 asserted: its error against fp64 (measured here 1.0e-3 causal, 9.1e-5 not)
 is why the kernel splits.
+
+The fp32 dQ kernel (``flash_bwd_dq_tf32x3_kernel`` in
+``bigdl_tpu_torch/csrc/flash_attention_bwd.cu``) splits all three of its
+products the same way: ``S = Q K^T`` and ``dP = dO V^T`` with Q, K, dO and
+V split, ``P = exp2(S s log2e - lse log2e)`` from the forward's ``lse``,
+``dS = P (dP - di)``, and ``dQ = s dS K`` with dS and K split.  Its
+emulation here takes ``lse`` and ``o`` (for ``di``) from the emulated
+3xTF32 forward, as the kernel takes them from the forward kernel, and is
+held against ``jax.vjp`` of the same attention, max|diff| / max|ref|:
+within 1e-4 in fp32 (the card's fp32 backward gate) and 1e-5 in fp64.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +53,9 @@ from bigdl_tpu.nn.attention import \
 B, T, H, DH = 1, 2048, 1, 128
 ATOL_FP32 = 1e-4     # the card's fp32 forward gate
 ATOL_FP64 = 1e-5     # against fp64: ten times tighter
+RTOL_DQ_FP32 = 1e-4  # the card's fp32 backward gate, max|diff| / max|ref|
+RTOL_DQ_FP64 = 1e-5  # against fp64: ten times tighter
+LOG2E = 1.4426950408889634
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -84,6 +98,33 @@ def attention(q, k, v, causal: bool, mm) -> torch.Tensor:
     m = s.amax(dim=-1, keepdim=True) * scale_log2
     p = torch.exp2(s * scale_log2 - m)
     return mm(p, v) / p.sum(dim=-1, keepdim=True)
+
+
+def forward_lse(q, k, v, causal: bool, mm):
+    """The emulated forward's output and natural-log log-sum-exp, as the
+    kernel writes them: m and l in the exp2 domain, lse = (m + log2 l) ln 2."""
+    scale_log2 = (1.0 / math.sqrt(q.shape[-1])) * LOG2E
+    s = mm(q, k.T)
+    if causal:
+        keep = torch.ones(s.shape, dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True) * scale_log2
+    p = torch.exp2(s * scale_log2 - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return mm(p, v) / l, ((m + torch.log2(l)) / LOG2E)[:, 0]
+
+
+def dq_3xtf32(q, k, v, do, causal: bool) -> torch.Tensor:
+    """The fp32 dQ kernel's arithmetic on (T, Dh) fp32 operands."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = forward_lse(q, k, v, causal, mm_3xtf32)
+    di = (o * do).sum(dim=-1, keepdim=True)
+    s = mm_3xtf32(q, k.T)
+    p = torch.exp2(s * (scale * LOG2E) - lse[:, None] * LOG2E)
+    if causal:
+        p = p * torch.ones(p.shape, dtype=torch.bool).tril()
+    ds = p * (mm_3xtf32(do, v.T) - di)
+    return mm_3xtf32(ds, k) * scale
 
 
 def _qkv(seed: int):
@@ -134,3 +175,29 @@ def test_split_keeps_22_bits_and_low_bits_clear():
     rel = ((hi.double() + lo.double() - x.double()).abs()
            / x.double().abs()).max().item()
     assert rel <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_dq_holds_the_fp32_backward_gate(causal):
+    q, k, v, do = _qkv(50 + causal) + _qkv(60 + causal)[:1]
+
+    def vjp_dq(*xs):
+        _, vjp = jax.vjp(lambda a: jax_sdpa(a, xs[1], xs[2], causal=causal),
+                         xs[0])
+        return vjp(xs[3])[0]
+
+    ref32 = np.asarray(jax.jit(vjp_dq)(*(jnp.asarray(x)
+                                          for x in (q, k, v, do))))[0, :, 0]
+    with jax.enable_x64(True):
+        ref64 = np.asarray(jax.jit(vjp_dq)(
+            *(jnp.asarray(x.astype(np.float64))
+              for x in (q, k, v, do))))[0, :, 0]
+    out = dq_3xtf32(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v, do)),
+                    causal).numpy()
+    err32 = np.abs(out - ref32).max() / np.abs(ref32).max()
+    err64 = np.abs(out - ref64).max() / np.abs(ref64).max()
+    print(f"causal={causal}: 3xTF32 dQ max|diff|/max|ref| {err32:.3e} vs "
+          f"the JAX fp32 vjp (limit {RTOL_DQ_FP32}), {err64:.3e} vs fp64 "
+          f"(limit {RTOL_DQ_FP64})")
+    assert err32 <= RTOL_DQ_FP32
+    assert err64 <= RTOL_DQ_FP64

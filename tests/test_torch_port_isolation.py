@@ -67,6 +67,24 @@ def test_every_kernel_module_has_its_cuda_source():
         assert os.path.isfile(os.path.join(build.CSRC_DIR, src)), src
 
 
+def test_library_name_hashes_every_shared_header(tmp_path, monkeypatch):
+    # the sources include csrc/*.cuh: an edit to a header must name (and so
+    # build) a new library, never load the one built before the edit
+    for f in os.listdir(build.CSRC_DIR):
+        with open(os.path.join(build.CSRC_DIR, f), "rb") as src:
+            (tmp_path / f).write_bytes(src.read())
+    headers = sorted(p.name for p in tmp_path.glob("*.cuh"))
+    assert headers, "no shared header under csrc"
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    before = {s: build._target(s) for s in ("flash_attention_fwd.cu",
+                                             "flash_attention_bwd.cu")}
+    assert before == {s: build._target(s) for s in before}
+    with open(tmp_path / headers[0], "a") as f:
+        f.write("\n// edited\n")
+    after = {s: build._target(s) for s in before}
+    assert all(after[s] != before[s] for s in before)
+
+
 def test_build_directory_is_gitignored():
     with open(os.path.join(REPO, ".gitignore")) as f:
         lines = {ln.strip() for ln in f}
