@@ -102,6 +102,28 @@ def _not_in_slice(tp: bool, moe_experts: int, remat=False) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def _default_remat(remat):
+    """Resolve :func:`transformer_lm`'s ``remat`` argument against the
+    ``bigdl.remat.policy`` config preset, as the JAX package's
+    ``_default_remat`` does: an explicit argument wins; with the default
+    (``False``) the preset applies — ``None``, ``""``, ``"none"``,
+    ``"off"`` and ``"false"`` keep remat off, ``"nothing"`` and ``"true"``
+    resolve to ``True``, any other value (``"dots"``, ``"save_attn"``) is
+    returned as the policy name."""
+    if remat is not False:
+        return remat
+    from bigdl_tpu_torch.utils import config
+    v = config.get_property("bigdl.remat.policy", None)
+    if v in (None, False, ""):
+        return False
+    v = str(v).lower()
+    if v in ("none", "off", "false"):
+        return False
+    if v in ("nothing", "true"):
+        return True
+    return v
+
+
 def transformer_block(d_model: int, n_head: int, ff_mult: int = 4,
                       tp: bool = False, moe_experts: int = 0,
                       flash: bool = False, device: DeviceLike = "cuda",
@@ -133,8 +155,11 @@ def transformer_lm(vocab_size: int, d_model: int = 128, n_head: int = 4,
     ``flash=True`` sets every block's attention on the flash kernel (the
     JAX package's bench sets ``m.flash = True`` on each
     ``MultiHeadAttention`` after building).  Initial weights are drawn from
-    one CPU generator seeded with ``seed``."""
-    _not_in_slice(tp, moe_experts, remat)
+    one CPU generator seeded with ``seed``.  A ``remat`` left at its default
+    resolves against the ``bigdl.remat.policy`` preset
+    (:func:`_default_remat`); wherever it resolves to remat this raises
+    :class:`NotImplementedError`, since ``Remat`` is not ported."""
+    _not_in_slice(tp, moe_experts, _default_remat(remat))
     dev = default_device(device)
     g = torch.Generator().manual_seed(seed)
     m = (bnn.Sequential()

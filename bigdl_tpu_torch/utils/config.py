@@ -27,6 +27,9 @@ _DEFAULTS: Dict[str, Any] = {
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
+    # transformer_lm's remat argument left at its default: "nothing" /
+    # "dots" / "save_attn" ask for remat (not ported yet); None = no remat
+    "bigdl.remat.policy": None,
 }
 
 _OVERRIDES: Dict[str, Any] = {}

@@ -7,7 +7,12 @@ Phases, each fatal on any fault:
 
 1. the card: CUDA present; its name and power limit from ``nvidia-smi``;
 2. build: every CUDA source of the port, one ``nvcc`` each, all at once,
-   with each kernel's registers and spills from the compiler's report;
+   with each kernel's registers and spills from the compiler's report,
+   which must name all six kernels (``wgmma`` + TMA in bf16, 3xTF32
+   ``mma.sync`` in fp32): the forward's ``flash_fwd_wgmma_bf16_kernel`` and
+   ``flash_fwd_tf32x3_kernel``, dK/dV's ``flash_bwd_dkv_wgmma_bf16_kernel``
+   and ``flash_bwd_dkv_tf32x3_kernel``, dQ's
+   ``flash_bwd_dq_wgmma_bf16_kernel`` and ``flash_bwd_dq_tf32x3_kernel``;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    main path gives it, with its time, the plain version's, the library
    call's and the card's bound for the same work: the forward (also at a
@@ -31,9 +36,11 @@ Phases, each fatal on any fault:
    then one fp32 step with ``flash=True`` and one with ``flash=False``
    from the same weights and batch, whose gradients must agree.
 
-Prints the card's name and power limit, then one JSON line of kernels, then
-the result line ``{"ok": true, "device": {...}}`` last.  Exits non-zero
-without a result when CUDA is absent or the port is not beside this file.
+Prints the card's name and power limit, then one JSON line of kernels (the
+six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
+its launches on its main path), then the result line
+``{"ok": true, "device": {...}}`` last.  Exits non-zero without a result
+when CUDA is absent or the port is not beside this file.
 """
 
 from __future__ import annotations
@@ -55,14 +62,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # FMA outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-#: the kernels' routes: (unit, passes).  The fp32 forward and the fp32 dQ
-#: run each product as three TF32 products on the tensor cores (3xTF32);
-#: the fp32 dK/dV stays FMA.
+#: the kernels' routes: (unit, passes).  Every fp32 kernel (the forward,
+#: dK/dV and dQ) runs each product as three TF32 products on the tensor
+#: cores (3xTF32); its FMA bound is printed beside.
 FWD_ROUTE = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3)}
 BWD_ROUTE = {("dkv", "bfloat16"): ("bfloat16", 1),
              ("dq", "bfloat16"): ("bfloat16", 1),
-             ("dkv", "float32"): ("float32", 1),
+             ("dkv", "float32"): ("tf32", 3),
              ("dq", "float32"): ("tf32", 3)}
+#: the CUDA kernels each source compiles (a fresh build's report must name
+#: every one, with its registers and spills)
+SOURCE_KERNELS = {
+    "flash_attention_fwd.cu": ("flash_fwd_tf32x3_kernel",
+                               "flash_fwd_wgmma_bf16_kernel"),
+    "flash_attention_bwd.cu": ("flash_bwd_dkv_tf32x3_kernel",
+                               "flash_bwd_dkv_wgmma_bf16_kernel",
+                               "flash_bwd_dq_tf32x3_kernel",
+                               "flash_bwd_dq_wgmma_bf16_kernel"),
+}
 
 VOCAB, D_MODEL, N_HEAD, N_LAYERS, SEQ = 16384, 1024, 8, 8, 2048
 RAGGED_SEQ = SEQ - 64   # a multiple of 64 (the wrapper's rule), not of 128
@@ -201,9 +218,15 @@ def phase_build(card: str) -> None:
     for src, b in built.items():
         log(f"[build] {src}: nvcc {b.seconds:.1f} s on the machine of {card}"
             f"\n{b.log}")
-        for name, regs, stores, loads in kernel_resources(b.log):
+        report = kernel_resources(b.log)
+        for name, regs, stores, loads in report:
             log(f"[build] {name}: {regs} registers, spill stores {stores} "
                 f"bytes, spill loads {loads} bytes")
+        missing = [k for k in SOURCE_KERNELS[src]
+                   if not any(n.split("<")[0] == k for n, *_ in report)]
+        if b.log and missing:
+            raise AssertionError(f"the compiler's report on {src} names no "
+                                 f"{missing}")
 
 
 def attention_flops(b, t, h, dh, causal: bool) -> float:
@@ -297,9 +320,9 @@ def phase_backward_kernels(card: str):
     """The dK/dV and dQ kernels against the plain backward at
     (8, 2048, 8, 128), causal and not, fp32 and bf16: relative error, two
     launches bit-identical, the forward's lse against the plain one, and
-    each kernel's time beside the bound of its route (fp32 dQ: 3xTF32 on
-    the tensor cores, the FMA bound printed beside), the plain backward's
-    and SDPA's backward; then the same checks at the short and ragged T of
+    each kernel's time beside the bound of its route (fp32: 3xTF32 on the
+    tensor cores, the FMA bound printed beside), the plain backward's and
+    SDPA's backward; then the same checks at the short and ragged T of
     BWD_SHORT_SEQS, where a 128-row tile lies partly or wholly beyond T."""
     import torch
     import torch.nn.functional as F

@@ -27,7 +27,9 @@ inputs, S and dP summed in fp32, P from the forward's fp32 ``lse`` and dS in
 fp32, both rounded to bf16 before ``dV = P^T dO`` and ``dK = s dS^T Q``
 (fp32 sums), the outputs rounded to bf16.  It is held against ``jax.vjp``
 of the attention on the same bf16 values in fp32 within max|diff| /
-max|ref| 2e-2, the card's bf16 backward gate.
+max|ref| 2e-2, the card's bf16 backward gate.  So is the bf16 dQ kernel's
+(``flash_bwd_dq_wgmma_bf16_kernel``), which rounds the same dS to bf16
+before ``dQ = s dS K`` (fp32 sums), dQ rounded to bf16.
 """
 
 import math
@@ -180,9 +182,9 @@ def _bf16(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x).bfloat16().float()
 
 
-def dkv_bf16(q, k, v, do, causal: bool):
-    """The bf16 dK/dV kernel's arithmetic on (B, T, H, Dh) fp32 tensors that
-    hold bf16 values: (dk, dv) rounded to bf16."""
+def bwd_bf16(q, k, v, do, causal: bool):
+    """The bf16 backward kernels' arithmetic on (B, T, H, Dh) fp32 tensors
+    that hold bf16 values: (dq, dk, dv) rounded to bf16."""
     qf, kf, vf, dof = (x.transpose(1, 2) for x in (q, k, v, do))
     # the forward kernel's outputs: lse in fp32, o rounded to bf16
     o, lse = fa.flash_attention_reference(q, k, v, causal, SCALE,
@@ -193,10 +195,11 @@ def dkv_bf16(q, k, v, do, causal: bool):
                    - lse[..., None] * 1.4426950408889634)
     if causal:
         p = p * torch.ones(p.shape[-2:], dtype=torch.bool).tril()
-    ds = p * (dof @ vf.transpose(-1, -2) - di)
+    ds = (p * (dof @ vf.transpose(-1, -2) - di)).bfloat16().float()
+    dq = ds @ kf * SCALE
     dv = p.bfloat16().float().transpose(-1, -2) @ dof
-    dk = ds.bfloat16().float().transpose(-1, -2) @ qf * SCALE
-    return tuple(x.transpose(1, 2).bfloat16().float() for x in (dk, dv))
+    dk = ds.transpose(-1, -2) @ qf * SCALE
+    return tuple(x.transpose(1, 2).bfloat16().float() for x in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -209,9 +212,27 @@ def test_bf16_dkv_design_holds_the_bf16_gate(causal):
         return vjp(d)
 
     ref = vjp_kv(*(jnp.asarray(x.numpy()) for x in (q, k, v, do)))
-    for name, out, r in zip(("dk", "dv"), dkv_bf16(q, k, v, do, causal), ref):
+    for name, out, r in zip(("dk", "dv"), bwd_bf16(q, k, v, do, causal)[1:],
+                            ref):
         r = np.asarray(r)
         err = np.abs(out.numpy() - r).max() / np.abs(r).max()
         print(f"causal={causal} {name}: bf16 design max|diff|/max|ref| "
               f"{err:.3e} (limit {RTOL_BF16})")
         assert err <= RTOL_BF16
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_dq_design_holds_the_bf16_gate(causal):
+    q, k, v, do = (_bf16(x) for x in _inputs(256, 2, seed=40 + causal))
+
+    @jax.jit
+    def vjp_q(a, b, c, d):
+        _, vjp = jax.vjp(lambda x: jax_sdpa(x, b, c, causal=causal), a)
+        return vjp(d)[0]
+
+    r = np.asarray(vjp_q(*(jnp.asarray(x.numpy()) for x in (q, k, v, do))))
+    out = bwd_bf16(q, k, v, do, causal)[0].numpy()
+    err = np.abs(out - r).max() / np.abs(r).max()
+    print(f"causal={causal} dq: bf16 design max|diff|/max|ref| {err:.3e} "
+          f"(limit {RTOL_BF16})")
+    assert err <= RTOL_BF16

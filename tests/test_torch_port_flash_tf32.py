@@ -37,6 +37,12 @@ emulation here takes ``lse`` and ``o`` (for ``di``) from the emulated
 3xTF32 forward, as the kernel takes them from the forward kernel, and is
 held against ``jax.vjp`` of the same attention, max|diff| / max|ref|:
 within 1e-4 in fp32 (the card's fp32 backward gate) and 1e-5 in fp64.
+
+The fp32 dK/dV kernel (``flash_bwd_dkv_tf32x3_kernel``, same source) splits
+all four of its products, ``S^T = K Q^T``, ``dP^T = V dO^T``,
+``dV = P^T dO`` and ``dK = s dS^T Q``, from the same P and dS; one
+emulation gives dq, dk and dv, and dk and dv are held against ``jax.vjp``
+with respect to k and v with the same limits as dQ.
 """
 
 import math
@@ -114,8 +120,9 @@ def forward_lse(q, k, v, causal: bool, mm):
     return mm(p, v) / l, ((m + torch.log2(l)) / LOG2E)[:, 0]
 
 
-def dq_3xtf32(q, k, v, do, causal: bool) -> torch.Tensor:
-    """The fp32 dQ kernel's arithmetic on (T, Dh) fp32 operands."""
+def bwd_3xtf32(q, k, v, do, causal: bool):
+    """The fp32 backward kernels' arithmetic on (T, Dh) fp32 operands:
+    (dq, dk, dv), every product split."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = forward_lse(q, k, v, causal, mm_3xtf32)
     di = (o * do).sum(dim=-1, keepdim=True)
@@ -124,7 +131,8 @@ def dq_3xtf32(q, k, v, do, causal: bool) -> torch.Tensor:
     if causal:
         p = p * torch.ones(p.shape, dtype=torch.bool).tril()
     ds = p * (mm_3xtf32(do, v.T) - di)
-    return mm_3xtf32(ds, k) * scale
+    return (mm_3xtf32(ds, k) * scale, mm_3xtf32(ds.T, q) * scale,
+            mm_3xtf32(p.T, do))
 
 
 def _qkv(seed: int):
@@ -192,8 +200,8 @@ def test_3xtf32_dq_holds_the_fp32_backward_gate(causal):
         ref64 = np.asarray(jax.jit(vjp_dq)(
             *(jnp.asarray(x.astype(np.float64))
               for x in (q, k, v, do))))[0, :, 0]
-    out = dq_3xtf32(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v, do)),
-                    causal).numpy()
+    out = bwd_3xtf32(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v, do)),
+                     causal)[0].numpy()
     err32 = np.abs(out - ref32).max() / np.abs(ref32).max()
     err64 = np.abs(out - ref64).max() / np.abs(ref64).max()
     print(f"causal={causal}: 3xTF32 dQ max|diff|/max|ref| {err32:.3e} vs "
@@ -201,3 +209,29 @@ def test_3xtf32_dq_holds_the_fp32_backward_gate(causal):
           f"(limit {RTOL_DQ_FP64})")
     assert err32 <= RTOL_DQ_FP32
     assert err64 <= RTOL_DQ_FP64
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_dkv_holds_the_fp32_backward_gate(causal):
+    q, k, v, do = _qkv(70 + causal) + _qkv(80 + causal)[:1]
+
+    def vjp_kv(*xs):
+        _, vjp = jax.vjp(lambda b, c: jax_sdpa(xs[0], b, c, causal=causal),
+                         xs[1], xs[2])
+        return vjp(xs[3])
+
+    refs32 = jax.jit(vjp_kv)(*(jnp.asarray(x) for x in (q, k, v, do)))
+    with jax.enable_x64(True):
+        refs64 = [np.asarray(r)[0, :, 0] for r in jax.jit(vjp_kv)(
+            *(jnp.asarray(x.astype(np.float64)) for x in (q, k, v, do)))]
+    outs = bwd_3xtf32(*(torch.from_numpy(x[0, :, 0]) for x in (q, k, v, do)),
+                      causal)[1:]
+    for name, out, r32, r64 in zip(("dk", "dv"), outs, refs32, refs64):
+        out, r32 = out.numpy(), np.asarray(r32)[0, :, 0]
+        err32 = np.abs(out - r32).max() / np.abs(r32).max()
+        err64 = np.abs(out - r64).max() / np.abs(r64).max()
+        print(f"causal={causal} {name}: 3xTF32 max|diff|/max|ref| "
+              f"{err32:.3e} vs the JAX fp32 vjp (limit {RTOL_DQ_FP32}), "
+              f"{err64:.3e} vs fp64 (limit {RTOL_DQ_FP64})")
+        assert err32 <= RTOL_DQ_FP32
+        assert err64 <= RTOL_DQ_FP64

@@ -13,6 +13,9 @@ bf16's spacing is 1/32): the two frameworks round intermediates to bf16 at
 different places.
 """
 
+import contextlib
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +23,15 @@ import pytest
 import torch
 
 from bigdl_tpu.models.transformer import PositionOutOfRange as JaxPOR
+from bigdl_tpu.models.transformer import _default_remat as jax_default_remat
 from bigdl_tpu.models.transformer import transformer_lm as jax_lm
 from bigdl_tpu.optim.optimizer import \
     mixed_precision_forward as jax_mixed_precision_forward
 from bigdl_tpu_torch.models.transformer import (PositionOutOfRange,
                                                 transformer_lm)
 from bigdl_tpu_torch.optim.optimizer import mixed_precision_forward
+from bigdl_tpu.utils import config as jconfig
+from bigdl_tpu_torch.utils import config as pconfig
 from bigdl_tpu_torch.utils.convert import params_from_jax
 
 VOCAB, D_MODEL, N_HEAD, N_LAYERS, MAX_LEN = 64, 128, 1, 2, 256
@@ -129,3 +135,65 @@ def test_same_seed_same_weights():
     pa, pb, pc = (list(m.parameters()) for m in (a, b, c))
     assert all(torch.equal(x, y) for x, y in zip(pa, pb))
     assert not all(torch.equal(x, y) for x, y in zip(pa, pc))
+
+
+REMAT_KEY, REMAT_ENV = "bigdl.remat.policy", "BIGDL_REMAT_POLICY"
+REMAT_PRESETS = [None, "off", "none", "false", "nothing", "true", "dots",
+                 "save_attn"]
+
+
+@contextlib.contextmanager
+def remat_preset(value, via: str):
+    """The ``bigdl.remat.policy`` preset set in both packages, through
+    ``set_property`` or through the environment (``None``: unset), and
+    every override and the environment restored after."""
+    saved = [(mod, REMAT_KEY in mod._OVERRIDES,
+              mod._OVERRIDES.get(REMAT_KEY)) for mod in (jconfig, pconfig)]
+    env = os.environ.get(REMAT_ENV)
+    try:
+        if via == "property":
+            for mod in (jconfig, pconfig):
+                mod.set_property(REMAT_KEY, value)
+        else:
+            for mod in (jconfig, pconfig):
+                mod.clear_property(REMAT_KEY)
+            os.environ.pop(REMAT_ENV, None)
+            if value is not None:
+                os.environ[REMAT_ENV] = value
+        yield
+    finally:
+        for mod, had, old in saved:
+            if had:
+                mod.set_property(REMAT_KEY, old)
+            else:
+                mod.clear_property(REMAT_KEY)
+        if env is None:
+            os.environ.pop(REMAT_ENV, None)
+        else:
+            os.environ[REMAT_ENV] = env
+
+
+@pytest.mark.parametrize("via", ["property", "env"])
+@pytest.mark.parametrize("preset", REMAT_PRESETS)
+def test_remat_preset_raises_where_the_reference_remats(preset, via):
+    """The port raises exactly where the JAX package's ``_default_remat``
+    resolves the preset to remat, and builds otherwise."""
+    with remat_preset(preset, via):
+        remats = bool(jax_default_remat(False))
+        if remats:
+            with pytest.raises(NotImplementedError, match="remat"):
+                transformer_lm(VOCAB, device="cpu", **SHAPE)
+        else:
+            assert transformer_lm(VOCAB, device="cpu", **SHAPE) is not None
+    assert remats == (preset in ("nothing", "true", "dots", "save_attn"))
+
+
+@pytest.mark.parametrize("remat,preset", [(None, "dots"), (True, "off")])
+def test_explicit_remat_argument_wins_over_the_preset(remat, preset):
+    with remat_preset(preset, "property"):
+        assert jax_default_remat(remat) is remat
+        if remat:
+            with pytest.raises(NotImplementedError, match="remat"):
+                transformer_lm(VOCAB, device="cpu", remat=remat, **SHAPE)
+        else:
+            transformer_lm(VOCAB, device="cpu", remat=remat, **SHAPE)
