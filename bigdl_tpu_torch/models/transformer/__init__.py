@@ -37,8 +37,13 @@ class PositionOutOfRange(ValueError):
 
 
 class PositionalEncoding(Module):
-    """Sinusoidal position signal added to (B, T, D) embeddings.  The
-    decode path's ``offset`` and ``rows`` come with LM serving."""
+    """Sinusoidal position signal added to (B, T, D) embeddings.
+
+    ``forward(input, offset=k)`` reads table rows ``k .. k+T`` instead of
+    ``0 .. T``, and :meth:`rows` reads the rows of explicit positions (the
+    decode step's, one per slot).  A position past the table raises
+    :class:`PositionOutOfRange`; a tensor of positions is left to the
+    caller's admission checks, as the JAX package leaves a traced one."""
 
     def __init__(self, d_model: int, max_len: int = 4096,
                  device: Optional[torch.device] = None):
@@ -55,11 +60,23 @@ class PositionalEncoding(Module):
     def max_seq_len(self) -> int:
         return int(self.pe.shape[0])
 
-    def forward(self, input: torch.Tensor) -> torch.Tensor:
+    def rows(self, positions) -> torch.Tensor:
+        """Table rows for explicit positions.  Host positions (ints,
+        sequences, numpy arrays) are range-checked; a tensor is indexed
+        as it is."""
+        if isinstance(positions, torch.Tensor):
+            return self.pe[positions]
+        pos = np.asarray(positions)
+        if pos.size and int(pos.max()) >= self.max_seq_len:
+            raise PositionOutOfRange(int(pos.max()), self.max_seq_len)
+        return self.pe[torch.as_tensor(pos, dtype=torch.int64,
+                                       device=self.pe.device)]
+
+    def forward(self, input: torch.Tensor, offset: int = 0) -> torch.Tensor:
         t = input.shape[1]
-        if t > self.max_seq_len:
-            raise PositionOutOfRange(t - 1, self.max_seq_len)
-        return input + self.pe[:t][None].to(input.dtype)
+        if offset + t > self.max_seq_len:
+            raise PositionOutOfRange(offset + t - 1, self.max_seq_len)
+        return input + self.pe[offset:offset + t][None].to(input.dtype)
 
 
 class LayerNorm(Module):

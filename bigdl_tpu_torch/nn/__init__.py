@@ -3,6 +3,7 @@ the layers the transformer LM is built from and its loss."""
 
 from bigdl_tpu_torch.nn.activation import LogSoftMax, ReLU
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
+                                          paged_attention,
                                           scaled_dot_product_attention)
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           TimeDistributedCriterion)
@@ -12,4 +13,4 @@ from bigdl_tpu_torch.nn.module import Container, Criterion, Module, Sequential
 __all__ = ["ClassNLLCriterion", "Container", "Criterion", "Linear",
            "LogSoftMax", "LookupTable", "Module", "MultiHeadAttention",
            "ReLU", "Sequential", "TimeDistributedCriterion",
-           "scaled_dot_product_attention"]
+           "paged_attention", "scaled_dot_product_attention"]

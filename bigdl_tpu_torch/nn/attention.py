@@ -1,5 +1,5 @@
 """Attention (``bigdl_tpu/nn/attention.py``: ``scaled_dot_product_attention``
-:37, ``MultiHeadAttention`` :158).
+:37, ``paged_attention`` :58, ``MultiHeadAttention`` :158).
 
 Shapes follow the JAX package: (B, T, D) activations, per-head (B, T, H, Dh)
 q/k/v.  ``flash=True`` runs :func:`bigdl_tpu_torch.kernels.flash_attention.
@@ -21,11 +21,13 @@ from bigdl_tpu_torch.nn.module import Module, make_generator
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, causal: bool = False
+                                 v: torch.Tensor, causal: bool = False,
+                                 mask: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """(B, T, H, Dh) q/k/v -> (B, T, H, Dh); softmax over the key axis.
     The causal mask is bottom-right aligned (query i attends keys up to
-    i + Tk - Tq), and masked scores take the dtype's finite minimum, so a
+    i + Tk - Tq); ``mask`` (broadcast to (B, H, Tq, Tk), True = keep)
+    masks further.  Masked scores take the dtype's finite minimum, so a
     fully masked row softmaxes to uniform values instead of NaN."""
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
@@ -35,8 +37,25 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
         cm = torch.ones(tq, tk, dtype=torch.bool,
                         device=scores.device).tril(diagonal=tk - tq)
         scores = scores.masked_fill(~cm, neg_big)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, neg_big)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def paged_attention(q: torch.Tensor, k_ctx: torch.Tensor,
+                    v_ctx: torch.Tensor, valid: torch.Tensor
+                    ) -> torch.Tensor:
+    """Decode-step attention over a context gathered from the paged KV
+    cache: (B, T, H, Dh) ``q`` (T = 1 on the decode path) against the
+    (B, S, H, Dh) ``k_ctx``/``v_ctx`` rows of each sequence's block table,
+    under the (B, S) mask ``valid`` of real context positions.  The
+    numerics of :func:`scaled_dot_product_attention` with an explicit
+    mask: an invalid key's probability underflows to 0.0, and a fully
+    masked row (an inactive decode slot) gives finite junk that the host
+    discards."""
+    return scaled_dot_product_attention(q, k_ctx, v_ctx, causal=False,
+                                        mask=valid[:, None, None, :])
 
 
 class MultiHeadAttention(Module):
@@ -95,6 +114,32 @@ class MultiHeadAttention(Module):
         bsz, t, _ = y.shape
         return y.reshape(bsz, t, self.n_head, self.head_dim)
 
+    # -- the decode-cache path (serving/lm.py) ----------------------------
+
+    def project_step(self, x: torch.Tensor):
+        """Per-head q, k, v of one decode or prefill span, each
+        (B, T, H, Dh): the serving path scatters k and v into the paged
+        pool between projection and attention, so the current token is in
+        the cache before the gather and attends to itself."""
+        return (self._project(x, "wq", "bq"), self._project(x, "wk", "bk"),
+                self._project(x, "wv", "bv"))
+
+    def attend_cached(self, q: torch.Tensor, k_ctx: torch.Tensor,
+                      v_ctx: torch.Tensor, valid: torch.Tensor
+                      ) -> torch.Tensor:
+        """:func:`paged_attention` of (B, T, H, Dh) ``q`` over the gathered
+        (B, S, H, Dh) context under the (B, S) mask ``valid``, then the
+        output projection: (B, T, D)."""
+        out = paged_attention(q, k_ctx, v_ctx, valid)
+        return self._output(out)
+
+    def _output(self, out: torch.Tensor) -> torch.Tensor:
+        bsz, t = out.shape[0], out.shape[1]
+        out = out.reshape(bsz, t, -1) @ self.wo
+        if self.with_bias:
+            out = out + self.bo
+        return out
+
     def forward(self, input):
         if isinstance(input, (list, tuple)):
             q_src, kv_src = input[0], input[1]
@@ -109,8 +154,4 @@ class MultiHeadAttention(Module):
                                   sm_scale=1.0 / math.sqrt(self.head_dim))
         else:
             out = scaled_dot_product_attention(q, k, v, causal=self.causal)
-        bsz, t = out.shape[0], out.shape[1]
-        out = out.reshape(bsz, t, -1) @ self.wo
-        if self.with_bias:
-            out = out + self.bo
-        return out
+        return self._output(out)

@@ -24,6 +24,25 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.serving.pollInterval": 0.05,    # batcher idle wake period, seconds
     "bigdl.serving.warmupBatches": 3,      # dispatch-EMA warmup (first-call exemption)
     "bigdl.serving.gracePeriod": 5.0,      # drain window for stop, seconds
+    # LM token serving (bigdl_tpu_torch/serving/lm.py): continuous batching
+    # over a paged KV cache, one fixed (maxBatch, 1) decode shape (one CUDA
+    # graph), a bucketed prefill plan, streamed tokens
+    "bigdl.lm.maxBatch": 8,                # concurrent decode slots (the fixed decode batch)
+    "bigdl.lm.maxContext": 256,            # prompt + generated tokens ceiling per sequence
+    "bigdl.lm.blockSize": 16,              # KV-cache tokens per block
+    "bigdl.lm.cacheBlocks": 0,             # KV pool blocks incl. dump block; 0 = derive
+    # maxBatch x blocks_per_seq(maxContext) + 1
+    "bigdl.lm.prefillBuckets": None,       # "16,32,64": prompt pad-up plan; None = pow2
+    # ladder from blockSize to maxContext
+    "bigdl.lm.maxNewTokens": 64,           # default generation cap per request
+    "bigdl.lm.deadlineMs": 5000.0,         # default end-to-end per-request deadline
+    "bigdl.lm.maxQueueDepth": 128,         # admission queue bound (reject past it)
+    "bigdl.lm.admissionDeadlineFactor": 0,  # reject when projected wait > f x deadline; 0 off
+    "bigdl.lm.stallFactor": 0,             # hung-decode watchdog (not ported: > 0 raises)
+    "bigdl.lm.warmupSteps": 3,             # decode-EMA warmup (first-call exemption)
+    "bigdl.lm.gracePeriod": 5.0,           # drain window for stop, seconds
+    "bigdl.lm.pollInterval": 0.01,         # scheduler idle wake period, seconds
+    "bigdl.lm.quantize": "off",            # "int8" tier (not ported: raises)
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError

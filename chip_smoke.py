@@ -34,7 +34,29 @@ Phases, each fatal on any fault:
    each flash kernel launched 8 times a step, the loss of one fixed batch
    falling; step time, tokens/s, peak memory and a profile of one step;
    then one fp32 step with ``flash=True`` and one with ``flash=False``
-   from the same weights and batch, whose gradients must agree.
+   from the same weights and batch, whose gradients must agree;
+7. LM serving: the same model, built afresh from the seed, served through
+   ``LMServingEngine`` (``max_batch`` 8, ``block_size`` 16, ``max_context``
+   2048: a paged KV pool of 1025 blocks, 1 GiB, and prefill buckets 16 to
+   2048) in fp32, the decode step captured as one CUDA graph at warmup.
+   Gates: ``generate`` against ``generate_sequential`` for a 1000-id prompt
+   (16 new tokens; decode crosses a block boundary) and a 5-id prompt (40
+   new tokens; prefill buckets 16, 32 and 64), identical tokens and
+   log-probs within 1e-4, and the 1000-id prompt's sequential log-probs
+   against the model's own forward with ``flash=False`` (identical greedy
+   tokens, 1e-4); one decode step replayed from the graph against the same
+   step run eagerly on a copy of the pools, identical tokens and log-probs
+   within 1e-5; 16 requests of ``sample_lm_workload`` (prompts of 128, 256
+   or 512 ids, 32 or 64 new tokens) through ``run_lm_open_loop`` at 4x the
+   sequential baseline's request rate, then 48 more submitted at once:
+   every one completed with its token budget, the accounting identity
+   exact, every block free after ``close()``, no flash kernel launched, and
+   the 16-request run's tokens/s at least 1.5 times the sequential baseline
+   over the same requests; one graph capture in all.  Logged: decode-step
+   time from the graph and eagerly beside its byte bound (the rows the
+   active slots need) and the bytes of the gather over every row, prefill
+   time per bucket, the rates of both runs with their slot occupancy, TTFT
+   and inter-token gaps, pool bytes and peak memory.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
@@ -95,6 +117,16 @@ GRAD_RTOL = 1e-2        # per parameter: ||diff|| / ||ref||
 GRAD_ZERO = 1e-4        # the key biases' exact-zero gradients, against the
                         # largest gradient entry of the model
 LOSS_RTOL = 1e-5        # the two fp32 losses
+LM_BLOCK = 16           # phase 7: KV-cache block; max_context is SEQ
+#: phase 7's paged-against-sequential prompts: (prompt ids, new tokens)
+LM_PARITY = ((1000, 16), (5, 40))
+LM_PARITY_ATOL = 1e-4   # log-probs, paged decode against the full forward
+LM_GRAPH_ATOL = 1e-5    # log-probs, graph replay against eager decode
+LM_GRAPH_PROMPTS = (700, 33, 1500)   # active slots of the graph check
+LM_REQUESTS = 16
+LM_FULL_REQUESTS = 48   # the saturated run: all submitted at once (bench.py:2359)
+LM_WORKLOAD = dict(prompt_lens=(128, 256, 512), output_lens=(32, 64))
+LM_SPEEDUP = 1.5        # open loop over sequential tokens/s (bench.py:2400)
 TPU_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNEL_FILES = {   # kind -> (source, the TPU kernel it replaces)
     "fwd": ("bigdl_tpu_torch/csrc/flash_attention_fwd.cu", f"{TPU_FLASH}:589"),
@@ -103,6 +135,13 @@ KERNEL_FILES = {   # kind -> (source, the TPU kernel it replaces)
     "bwd_dq": ("bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
                f"{TPU_FLASH}:1287"),
 }
+#: kernel-name fragments -> the share of an LM decode step they are counted
+#: in (the paged scatter and gather run as PyTorch's indexing kernels)
+DECODE_CATEGORIES = (
+    ("paged gather and scatter", ("index",)),
+    ("GEMMs", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("softmax", ("softmax",)),
+)
 #: kernel-name fragments -> the share of a training step they are counted in
 STEP_CATEGORIES = (
     ("flash forward", ("flash_fwd",)),
@@ -765,6 +804,275 @@ def phase_fp32_grads(card: str, model) -> dict:
     return launches
 
 
+def lm_parity(eng, model, card: str) -> None:
+    """``generate`` (prefill, then decode steps from the graph) against
+    ``generate_sequential`` (one full forward per token) for LM_PARITY's
+    prompts: identical tokens, log-probs within LM_PARITY_ATOL.  Both share
+    the engine's step code, so the first prompt's sequential log-probs are
+    also held against the model's own forward with ``flash=False`` (the
+    module path, which phase 4 holds against the flash kernels): identical
+    greedy tokens, log-probs within LM_PARITY_ATOL."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 6)
+    for i, (n, new) in enumerate(LM_PARITY):
+        prompt = rng.integers(1, VOCAB + 1, n)
+        paged, lp_paged = eng.generate(prompt, max_new_tokens=new,
+                                       return_logps=True)
+        full, lp_full = eng.generate_sequential(prompt, max_new_tokens=new,
+                                                return_logps=True)
+        # paged log-probs cover tokens 2..N: the first comes from prefill
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(lp_paged, lp_full[1:]))
+        log(f"[lm] generate against generate_sequential, {n}-id prompt, "
+            f"{new} new tokens: tokens identical {paged == full}, max "
+            f"|d log-prob| {err:.3e} (atol {LM_PARITY_ATOL}) on {card}")
+        if paged != full or not err <= LM_PARITY_ATOL:
+            raise AssertionError(f"paged decode differs from the full "
+                                 f"forward: {paged} vs {full}, err {err}")
+        if i:
+            continue
+        # the module path over the whole generated sequence: row n - 1 + j
+        # predicts token j
+        seq = np.concatenate([prompt, full[:-1]]).astype(np.float32)
+        set_flash(model, False)
+        try:
+            with torch.inference_mode():
+                rows = model(torch.from_numpy(seq[None]).to(DEVICE))[0]
+                rows = rows[n - 1:].cpu().numpy()
+        finally:
+            set_flash(model, True)
+        err = float(np.abs(rows - np.stack(lp_full)).max())
+        tokens = [int(t) + 1 for t in rows.argmax(-1)]
+        log(f"[lm] generate_sequential against the model's forward "
+            f"(flash=False), {n}-id prompt: tokens identical "
+            f"{tokens == full}, max |d log-prob| {err:.3e} (atol "
+            f"{LM_PARITY_ATOL}) on {card}")
+        if tokens != full or not err <= LM_PARITY_ATOL:
+            raise AssertionError(f"the engine's full forward differs from "
+                                 f"the model's: {tokens} vs {full}, err "
+                                 f"{err}")
+
+
+def lm_graph_check(eng, card: str) -> tuple:
+    """One decode step replayed from the CUDA graph against the same step
+    run eagerly on a copy of the pools, three slots active at
+    LM_GRAPH_PROMPTS' positions and five idle: identical tokens, active
+    log-probs within LM_GRAPH_ATOL.  Returns (graph ms, eager ms, one
+    iteration's host ms): the step's device time from back-to-back
+    replays and eager runs, and one ``_decode_step`` call (input copy,
+    replay, pull)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 7)
+    inputs = eng._idle_inputs()
+    seqs = []
+    for slot, n in enumerate(LM_GRAPH_PROMPTS):
+        seq_id = -1000 - slot
+        eng.cache.allocate(seq_id, n + 1)
+        seqs.append(seq_id)
+        tok, row = eng._prefill_step_raw(seq_id, rng.integers(1, VOCAB + 1,
+                                                              n))
+        inputs[slot, :3] = (tok, n, 1)
+        inputs[slot, 3:] = row
+    try:
+        pool_k, pool_v = eng.cache.k.clone(), eng.cache.v.clone()
+        dev_in = torch.from_numpy(inputs).to(DEVICE)
+        graph_lp = eng._decode_step(inputs)
+        with torch.no_grad():
+            eager_lp = eng._run_decode(pool_k, pool_v, dev_in).cpu().numpy()
+            active = inputs[:, 2] == 1
+            same = bool((graph_lp[active].argmax(-1) ==
+                         eager_lp[active].argmax(-1)).all())
+            err = float(np.abs(graph_lp[active] - eager_lp[active]).max())
+            pool_err = max((eng.cache.k - pool_k).abs().max().item(),
+                           (eng.cache.v - pool_v).abs().max().item())
+            log(f"[lm] decode step, graph against eager from a copy of the "
+                f"pools ({len(seqs)} of {eng.max_batch} slots active): "
+                f"tokens identical {same}, max |d log-prob| {err:.3e} (atol "
+                f"{LM_GRAPH_ATOL}), pools max |diff| {pool_err:.3e}")
+            if not (same and err <= LM_GRAPH_ATOL):
+                raise AssertionError(f"graph replay differs from eager "
+                                     f"decode: tokens {same}, err {err}")
+            graph_ms = time_ms(eng._graph.replay, reps=20)
+            eager_ms = time_ms(lambda: eng._run_decode(pool_k, pool_v,
+                                                       dev_in), reps=20)
+            profile("LM decode step (graph replay)", eng._graph.replay,
+                    card, DECODE_CATEGORIES)
+            profile("LM decode step (eager)", lambda: eng._run_decode(
+                pool_k, pool_v, dev_in), card, DECODE_CATEGORIES)
+        del pool_k, pool_v
+        walls = []
+        for _ in range(20):
+            t = time.perf_counter()
+            eng._decode_step(inputs)
+            walls.append((time.perf_counter() - t) * 1e3)
+    finally:
+        for seq_id in seqs:
+            eng.cache.free_seq(seq_id)
+    return graph_ms, eager_ms, statistics.median(walls)
+
+
+def lm_prefill_ms(eng) -> dict:
+    """Bucket -> median ms of three prefills of a prompt that fills the
+    bucket (host clock around the engine's prefill: the input copies, the
+    step, the pull of the last row)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 8)
+    out = {}
+    for b in eng._buckets:
+        eng.cache.allocate(-2000, b)
+        prompt = rng.integers(1, VOCAB + 1, b)
+        try:
+            walls = []
+            for _ in range(3):
+                t = time.perf_counter()
+                eng._prefill_step_raw(-2000, prompt)
+                walls.append((time.perf_counter() - t) * 1e3)
+        finally:
+            eng.cache.free_seq(-2000)
+        out[b] = statistics.median(walls)
+    return out
+
+
+def phase_lm_serving(card: str, model) -> dict:
+    """The main path of the LM-serving slice: LM_REQUESTS requests streamed
+    through ``LMServingEngine`` over the fp32 134M LM by
+    ``run_lm_open_loop``, after the parity, graph and baseline runs, then
+    LM_FULL_REQUESTS submitted at once.  Returns the flash launch counts of
+    both runs (all must be 0)."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.serving import (LMServingEngine, run_lm_open_loop,
+                                         sample_lm_workload)
+    from bigdl_tpu_torch.serving.engine import OUTCOMES
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    eng = LMServingEngine(model, max_batch=MAX_BATCH, block_size=LM_BLOCK,
+                          max_context=SEQ, deadline_ms=600_000.0,
+                          device=DEVICE)
+    try:
+        log(f"[lm] pool {eng.cache.n_blocks} blocks of {LM_BLOCK} tokens, "
+            f"{eng.cache.pool_nbytes / 2**30:.2f} GiB; prefill buckets "
+            f"{eng._buckets}")
+        t = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        log(f"[lm] warmup {time.perf_counter() - t:.2f} s, decode graph "
+            f"captures {eng.decode_captures} on {card}")
+        lm_parity(eng, model, card)
+        graph_ms, eager_ms, iter_ms = lm_graph_check(eng, card)
+        ratio = eager_ms / graph_ms
+        # the step needs every weight but the embedding table once, K and V
+        # of each active slot's rows up to its position in each layer, and
+        # writes the (B, vocab) log-probs; the gather design reads all SEQ
+        # rows of every slot instead
+        weights = (sum(p.numel() for p in model.parameters()) -
+                   model.layers[0].weight.numel())
+        rows = sum(n + 1 for n in LM_GRAPH_PROMPTS)
+        nbytes = 4 * (weights + 2 * N_LAYERS * rows * D_MODEL +
+                      MAX_BATCH * VOCAB)
+        gather_bytes = 4 * (weights + 2 * N_LAYERS * MAX_BATCH * SEQ *
+                            D_MODEL + MAX_BATCH * VOCAB)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        gather_ms = gather_bytes / PEAK_BYTES * 1e3
+        log(f"[lm] decode step B{MAX_BATCH}, {len(LM_GRAPH_PROMPTS)} slots "
+            f"active over {rows} context rows: graph {graph_ms:.3f} ms, "
+            f"eager {eager_ms:.3f} ms ({ratio:.2f}x); bytes bound "
+            f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB; graph at "
+            f"{100 * bound_ms / graph_ms:.1f}% of it); the gather of all "
+            f"{SEQ} rows of {MAX_BATCH} slots moves {gather_bytes / 1e9:.3f} "
+            f"GB, {gather_ms:.3f} ms at the memory rate; one iteration from "
+            f"host inputs to host log-probs {iter_ms:.3f} ms (median of 20) "
+            f"on {card}")
+        prefill = lm_prefill_ms(eng)
+        log("[lm] prefill ms by bucket: " + ", ".join(
+            f"{b}: {ms:.2f}" for b, ms in prefill.items()) + f" on {card}")
+
+        reqs = sample_lm_workload(LM_REQUESTS, VOCAB, seed=7, **LM_WORKLOAD)
+        t = time.perf_counter()
+        base = [eng.generate_sequential(p, max_new_tokens=o)
+                for p, o in reqs]
+        base_s = time.perf_counter() - t
+        base_tps = sum(map(len, base)) / base_s
+        if any(fa.launches.values()):
+            raise AssertionError(f"LM serving launched flash kernels: "
+                                 f"{fa.launches}")
+        # arrivals at 4x the baseline's request rate, as bench.py offers:
+        # arrival-bound, the slots are mostly idle; then LM_FULL_REQUESTS
+        # submitted at once, which keeps every slot busy while the queue lasts
+        rate = 4.0 * LM_REQUESTS / base_s
+        full_reqs = sample_lm_workload(LM_FULL_REQUESTS, VOCAB, seed=8,
+                                       **LM_WORKLOAD)
+        eng.start()
+        fa.reset_launches()
+        runs = []
+        for label, rs, hz in (("open loop", reqs, rate),
+                              ("all at once", full_reqs, 0.0)):
+            at = eng.stats()
+            rec = run_lm_open_loop(eng, rs, rate_hz=hz, seed=11)
+            runs.append((label, rs, hz, rec, at, eng.stats()))
+    finally:
+        eng.close()
+    launches = dict(fa.launches)
+    stats = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[lm] sequential baseline: {sum(map(len, base))} tokens in "
+        f"{base_s:.3f} s = {base_tps:,.1f} tokens/s on {card}")
+    for label, rs, hz, rec, at, after in runs:
+        streams = [s for _, s in rec["streams"]]
+        steps = after["decode_steps"] - at["decode_steps"]
+        decoded = (after["tokens_out"] - at["tokens_out"] -
+                   (after["prefills"] - at["prefills"]))
+        per_step = decoded / max(1, steps)
+        arrivals = f"{hz:.2f} requests/s" if hz else "once"
+        log(f"[lm] {label}, {len(rs)} requests at {arrivals}: "
+            f"{rec['tokens_total']} tokens in {rec['elapsed_s']:.3f} s = "
+            f"{rec['tokens_per_s']:,.1f} tokens/s "
+            f"({rec['tokens_per_s'] / base_tps:.2f}x the sequential "
+            f"baseline); {decoded} decoded tokens in {steps} decode steps "
+            f"({per_step:.2f} per step, slot occupancy "
+            f"{100 * per_step / MAX_BATCH:.1f}%); TTFT p50 "
+            f"{rec['p50_ttft_ms']:.2f} ms p99 {rec['p99_ttft_ms']:.2f} ms; "
+            f"inter-token p50 {rec['p50_itl_ms']:.2f} ms p99 "
+            f"{rec['p99_itl_ms']:.2f} ms on {card}")
+        if not (rec["completed"] == len(rs) and rec["unaccounted"] == 0 and
+                sum(rec[o] for o in OUTCOMES) == rec["submitted"]):
+            raise AssertionError(f"LM serving accounting is off ({label}): "
+                                 f"{ {o: rec[o] for o in OUTCOMES} }")
+        budgets = [(len(s.tokens()), o) for s, (_, o) in zip(streams, rs)]
+        if any(n != o for n, o in budgets):
+            raise AssertionError(f"stream lengths against budgets "
+                                 f"({label}): {budgets}")
+    rec = runs[0][3]
+    agree = sum(s is not None and s.tokens() == b
+                for (_, s), b in zip(rec["streams"], base))
+    speedup = rec["tokens_per_s"] / base_tps
+    log(f"[lm] open loop {speedup:.2f}x the sequential baseline (floor "
+        f"{LM_SPEEDUP}x); {agree} of {LM_REQUESTS} streams equal the "
+        f"sequential baseline's tokens; peak memory {peak / 2**30:.2f} GiB; "
+        f"graph captures {eng.decode_captures}; stats {stats}; launches "
+        f"{launches}")
+    if stats["unaccounted"] != 0:
+        raise AssertionError(f"LM serving accounting is off: {stats}")
+    if eng.cache.used_blocks != 0:
+        raise AssertionError(f"{eng.cache.used_blocks} KV blocks still "
+                             "held after close()")
+    if any(launches.values()):
+        raise AssertionError(f"LM serving launched flash kernels: "
+                             f"{launches}")
+    if not speedup >= LM_SPEEDUP:
+        raise AssertionError(f"open loop {rec['tokens_per_s']:.1f} tokens/s "
+                             f"is {speedup:.2f}x the sequential baseline, "
+                             f"under {LM_SPEEDUP}x")
+    if eng.decode_captures != 1:
+        raise AssertionError(f"decode graph captured {eng.decode_captures} "
+                             "times, not once")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
@@ -819,6 +1127,9 @@ def main() -> int:
         f"on {card}")
     trained = phase_training(card, model)
     fp32_step = phase_fp32_grads(card, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_lm_serving(card, lm(flash=True))
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step)

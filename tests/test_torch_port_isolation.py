@@ -5,9 +5,10 @@
 * Every kernel module names a CUDA source that exists; its build directory is
   listed in ``.gitignore``.
 * In a fresh process, importing every module of the port, building a model,
-  serving a request and taking a training step on the CPU builds no kernel,
-  starts no process, imports neither package, and changes no state global to
-  the process (torch's default dtype, thread count, RNG and TF32 flags,
+  serving a request, streaming tokens through ``LMServingEngine`` (offline
+  ``generate`` and a started scheduler) and taking a training step on the
+  CPU builds no kernel, starts no process, leaves no thread running, imports
+  neither package, and changes no state global to the process (torch's default dtype, thread count, RNG and TF32 flags,
   numpy's global RNG, the environment).  The tier-1 run shares worker
   processes between test files, so the port must not change what the other
   files see.
@@ -93,7 +94,7 @@ def test_build_directory_is_gitignored():
 
 
 _FRESH_PROCESS = r"""
-import importlib, os, pkgutil, subprocess, sys
+import importlib, os, pkgutil, subprocess, sys, threading
 
 def refuse(*args, **kwargs):
     raise AssertionError(f"a process was started: {args!r}")
@@ -121,7 +122,7 @@ from bigdl_tpu_torch.kernels import build, flash_attention
 from bigdl_tpu_torch.models.transformer import transformer_lm
 from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
 from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
-from bigdl_tpu_torch.serving import ServingEngine
+from bigdl_tpu_torch.serving import LMServingEngine, ServingEngine
 
 model = transformer_lm(16, d_model=128, n_head=1, n_layers=1, max_len=128,
                        flash=True, device="cpu")
@@ -130,6 +131,20 @@ with ServingEngine(model, max_batch=2, deadline_ms=60000.0,
                    device="cpu") as eng:
     eng.warmup(row)
     assert eng.submit(row).result(timeout=60).shape == (128, 16)
+
+lm = transformer_lm(16, d_model=16, n_head=2, n_layers=1, max_len=32,
+                    device="cpu")
+lm_kw = dict(max_batch=2, max_context=16, block_size=4, deadline_ms=60000.0,
+             device="cpu")
+prompt = np.arange(1, 6)
+with LMServingEngine(lm, **lm_kw) as eng:
+    eng.warmup()
+    tokens = eng.generate(prompt, max_new_tokens=4)
+    assert tokens == eng.generate_sequential(prompt, max_new_tokens=4)
+with LMServingEngine(lm, start=True, **lm_kw) as eng:
+    assert eng.submit(prompt, max_new_tokens=4).result(timeout=60) == tokens
+assert eng.decode_captures == 0 and not eng.scheduler_alive()
+assert threading.active_count() == 1, threading.enumerate()
 
 samples = [Sample(row, np.roll(row, -1)) for _ in range(2)]
 opt = Optimizer.create(
