@@ -1,5 +1,5 @@
 """Activation layers (``bigdl_tpu/nn/activation.py``: ``ReLU`` :30,
-``LogSoftMax`` :116)."""
+``Tanh`` :70, ``LogSoftMax`` :116)."""
 
 from __future__ import annotations
 
@@ -11,8 +11,19 @@ from bigdl_tpu_torch.nn.module import Module
 class ReLU(Module):
     """Rectified linear max(x, 0) (reference ``nn/ReLU.scala``)."""
 
+    layout_role = "agnostic"
+
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         return torch.relu(input)
+
+
+class Tanh(Module):
+    """Elementwise tanh (reference ``nn/Tanh.scala``)."""
+
+    layout_role = "agnostic"
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(input)
 
 
 class LogSoftMax(Module):

@@ -10,19 +10,20 @@ add their penalties to the training loss
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.nn.init import RandomUniform
 from bigdl_tpu_torch.nn.module import Module, make_generator
 
 
 class Linear(Module):
     """y = x W^T + b (reference ``nn/Linear.scala``), initialised
-    U(-1/sqrt(in), 1/sqrt(in)) like the JAX package's ``RandomUniform``."""
+    U(-1/sqrt(in), 1/sqrt(in)) by
+    :class:`~bigdl_tpu_torch.nn.init.RandomUniform`."""
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, w_regularizer=None,
@@ -36,12 +37,11 @@ class Linear(Module):
         self.w_regularizer = w_regularizer
         self.b_regularizer = b_regularizer
         g = make_generator(generator)
-        bound = 1.0 / math.sqrt(max(1, input_size))
-        w = torch.empty(output_size, input_size).uniform_(-bound, bound,
-                                                          generator=g)
+        draw = RandomUniform()
+        w = draw((output_size, input_size), input_size, generator=g)
         self.weight = nn.Parameter(w.to(device))
         if with_bias:
-            b = torch.empty(output_size).uniform_(-bound, bound, generator=g)
+            b = draw((output_size,), input_size, generator=g)
             self.bias = nn.Parameter(b.to(device))
         else:
             self.register_parameter("bias", None)

@@ -13,7 +13,7 @@ is what :func:`bigdl_tpu_torch.utils.convert.params_from_jax` walks.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -28,9 +28,37 @@ def make_generator(generator: Optional[torch.Generator]) -> torch.Generator:
         torch.Generator().manual_seed(0)
 
 
+def state_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A module's own state, the twin of the JAX package's module state
+    (BatchNorm's running statistics): its persistent buffers.  A
+    non-persistent buffer, such as a positional-encoding table, is a
+    constant."""
+    return {k: b for k, b in module.named_buffers(recurse=False)
+            if k not in module._non_persistent_buffers_set}
+
+
 class Module(nn.Module):
     """Base class of the port's layers: a ``torch.nn.Module`` with the
-    reference's ``evaluate()`` switch."""
+    reference's ``evaluate()`` switch and data-layout contract.
+
+    ``layout_role`` says how a layer relates to the layout of image
+    activations (:mod:`bigdl_tpu_torch.nn.layout`): ``"opaque"`` (the
+    default: it must see NCHW-ordered memory), ``"agnostic"`` (elementwise:
+    any memory format passes through) or ``"spatial"`` (it consumes image
+    maps in ``self.format`` and is re-pointed by :meth:`set_format`)."""
+
+    layout_role = "opaque"
+
+    def set_format(self, format: str) -> "Module":
+        """Re-point a spatial layer between ``"NCHW"`` and ``"NHWC"``."""
+        if self.layout_role != "spatial":
+            raise TypeError(f"{type(self).__name__} has no data format "
+                            f"(layout_role={self.layout_role!r})")
+        if format not in ("NCHW", "NHWC"):
+            raise ValueError(f"unknown data format {format!r}: expected "
+                             "'NCHW' or 'NHWC'")
+        self.format = format
+        return self
 
     def evaluate(self) -> "Module":
         """Inference mode (reference ``evaluate()``); ``train()`` undoes it."""

@@ -11,9 +11,10 @@ step is eager PyTorch on the model's device: the forward (bf16 through
 :func:`mixed_precision_forward` when asked), the loss plus the layers'
 regularizer penalties, ``torch.autograd.grad`` back to the fp32 master
 parameters, the ``OptimMethod``'s ``pure_update``, and the divergence guard:
-a step whose loss or gradients are not finite keeps every carry (parameters
-and optimizer slots) at its pre-step value and reports its loss as NaN.  The
-training loop keeps the reference's state keys (``epoch``, ``neval``,
+a step whose loss or gradients are not finite keeps every carry (parameters,
+optimizer slots and the module state, BatchNorm's running statistics, which
+the forward updates in place) at its pre-step value and reports its loss as
+NaN.  The training loop keeps the reference's state keys (``epoch``, ``neval``,
 ``Loss``, ``recordsProcessedThisEpoch``, ``consecutiveBadSteps``), its epoch
 rollover with a reshuffle at the record boundary, its end trigger, and raises
 :class:`DivergenceError` after ``bigdl.divergence.maxBadSteps`` consecutive
@@ -39,7 +40,7 @@ from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch)
 from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
                                     default_device, to_device)
-from bigdl_tpu_torch.nn.module import Container, Criterion
+from bigdl_tpu_torch.nn.module import Container, Criterion, state_buffers
 from bigdl_tpu_torch.optim import trigger as triggers
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
@@ -72,10 +73,13 @@ def mixed_precision_forward(model: torch.nn.Module, inputs,
     ``"bf16"``: the parameters and the floating inputs are cast down for
     the forward (the model's own fp32 parameters stay as they are) and the
     outputs come back as fp32; buffers keep their dtype, as the JAX package
-    keeps module state in fp32.  The casts are differentiable, so under
-    autograd the gradients come back to the fp32 master parameters.  As in
-    the JAX package, float token ids are cast too, so ids above 256 round to
-    bf16's grid.  Any other precision is a plain forward."""
+    keeps module state in fp32.  BatchNorm widens its bf16-rounded affine
+    parameters back to its fp32 statistics' dtype and normalises in fp32
+    (:mod:`bigdl_tpu_torch.nn.normalization`).  The casts are
+    differentiable, so under autograd the gradients come back to the fp32
+    master parameters.  As in the JAX package, float token ids are cast
+    too, so ids above 256 round to bf16's grid.  Any other precision is a
+    plain forward."""
     if precision != "bf16":
         return model(inputs)
     params = cast_floats(dict(model.named_parameters()), torch.bfloat16)
@@ -114,6 +118,13 @@ def select_tree(ok, new_tree, old_tree):
         else:
             torch.where(ok, new, old, out=old)
     return old_tree
+
+
+def module_state(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The model's floating state tensors (:func:`state_buffers` of each
+    module), which a training-mode forward updates in place."""
+    return [b for m in model.modules() for b in state_buffers(m).values()
+            if b.is_floating_point()]
 
 
 def regularization_penalty(module: torch.nn.Module) -> Optional[torch.Tensor]:
@@ -167,8 +178,10 @@ class Optimizer:
 
     ``device`` (default ``"cuda"``, raising without CUDA) is where the model
     lies and the steps run.  ``history`` gets one record per iteration:
-    ``neval``, ``epoch``, ``loss`` (NaN for a skipped step), ``records``
-    and the iteration's wall ``seconds`` (fetch to host-read loss)."""
+    ``neval``, ``epoch``, ``loss`` (NaN for a skipped step), ``records``,
+    the iteration's wall ``seconds`` (fetch to host-read loss) and
+    ``fetch_seconds``, the part of them spent fetching the batch and
+    copying it to the device."""
 
     def __init__(self, model: torch.nn.Module, dataset: AbstractDataSet,
                  criterion: Criterion, device: DeviceLike = "cuda"):
@@ -225,6 +238,7 @@ class Optimizer:
         while not self.end_when(state):
             t0 = time.perf_counter()
             inputs, targets, bsz = fetch_batch()
+            fetch_s = time.perf_counter() - t0
             # the rollover (reshuffle, new iterator) happens at the record
             # boundary as the batch that crosses it is taken, as the
             # reference's batch producer does
@@ -242,7 +256,7 @@ class Optimizer:
             state["Loss"] = loss
             self.history.append({"neval": neval, "epoch": state["epoch"],
                                  "loss": loss, "records": bsz,
-                                 "seconds": dt})
+                                 "seconds": dt, "fetch_seconds": fetch_s})
             logger.info(
                 "[Epoch %d %d/%d][Iteration %d] Train %d in %.4f seconds. "
                 "Throughput is %.1f records/second. Loss is %.6f.",
@@ -295,10 +309,13 @@ class LocalOptimizer(Optimizer):
     """Single-process trainer (reference ``optim/LocalOptimizer.scala:41``):
     one step per iteration on the model's device."""
 
-    def _step(self, params, slots, inputs, targets, hyper, guard: bool
-              ) -> torch.Tensor:
+    def _step(self, params, slots, mstate, inputs, targets, hyper,
+              guard: bool) -> torch.Tensor:
         """Forward, loss + penalties, gradients, update and divergence
-        guard; returns the loss (NaN when the guard skipped the update)."""
+        guard; returns the loss (NaN when the guard skipped the update).
+        ``mstate`` is :func:`module_state`; under the guard it is
+        snapshotted first, to be put back after a bad step."""
+        saved = [b.clone() for b in mstate] if guard else []
         out = mixed_precision_forward(self.model, inputs, self.precision)
         loss = self.criterion.apply(out, targets)
         penalty = regularization_penalty(self.model)
@@ -313,6 +330,8 @@ class LocalOptimizer(Optimizer):
             ok = all_finite(loss, grads) if guard else True
             select_tree(ok, new_params, params)
             select_tree(ok, new_slots, slots)
+            for live, kept in zip(mstate, saved):
+                torch.where(ok, live, kept, out=live)
             loss = loss.detach()
             if ok is not True:
                 loss = torch.where(ok, loss, torch.full_like(loss, math.nan))
@@ -321,6 +340,7 @@ class LocalOptimizer(Optimizer):
     def _optimize(self) -> torch.nn.Module:
         self.model.train()
         params = list(self.model.parameters())
+        mstate = module_state(self.model)
         slots = self.optim_method.slots(params)
         self.optim_method.state.setdefault("epoch", 1)
         guard = config.get_bool("bigdl.divergence.guard", True)
@@ -337,7 +357,8 @@ class LocalOptimizer(Optimizer):
                     batch.size())
 
         def run_step(inputs, targets, hyper):
-            return self._step(params, slots, inputs, targets, hyper, guard)
+            return self._step(params, slots, mstate, inputs, targets, hyper,
+                              guard)
 
         reset_epoch()
         self._drive(fetch_batch, run_step, reset_epoch,

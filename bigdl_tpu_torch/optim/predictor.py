@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import copy
 from typing import List
 
 import numpy as np
@@ -10,23 +11,27 @@ import torch
 
 from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
                                     default_device, to_device)
-from bigdl_tpu_torch.optim.evaluator import _eval_forward
+from bigdl_tpu_torch.nn.fuse import fold_conv_bn
+from bigdl_tpu_torch.optim.evaluator import eval_mode
 from bigdl_tpu_torch.utils import compile_cache
 
 
 class Predictor:
-    """Inference over an array of rows with the model on ``device``.
+    """Inference over an array of rows with the model on ``device``, in eval
+    mode (the model's own mode is put back after each ``predict``).
 
-    ``fold_bn=True`` (serve a clone with every conv+BatchNorm pair folded)
-    belongs to the convnet slice and raises :class:`NotImplementedError`."""
+    ``fold_bn=True`` serves a copy of the model in eval mode with every
+    conv + BatchNorm pair folded into the convolution
+    (:func:`bigdl_tpu_torch.nn.fuse.fold_conv_bn`): one convolution per
+    pair, no separate normalisation.  The caller's model is untouched, since
+    folding freezes BN at its running statistics."""
 
     def __init__(self, model: torch.nn.Module, fold_bn: bool = False,
                  device: DeviceLike = "cuda"):
-        if fold_bn:
-            raise NotImplementedError("fold_bn=True needs the convnet layers, "
-                                      "which are not ported yet")
         self.device = default_device(device)
         check_on_device(model, self.device)
+        if fold_bn:
+            model = fold_conv_bn(copy.deepcopy(model).eval())
         self.model = model
 
     def predict(self, rows, batch_size: int = 32) -> np.ndarray:
@@ -34,14 +39,14 @@ class Predictor:
         ``bigdl.compile.buckets`` plan, as the JAX package's do, and the
         padded rows are sliced off."""
         rows = np.asarray(rows)
-        fwd = _eval_forward(self.model)
         buckets = compile_cache.configured_buckets()
         outs: List[np.ndarray] = []
-        for i in range(0, rows.shape[0], batch_size):
-            batch = rows[i:i + batch_size]
-            n = batch.shape[0]
-            eff = compile_cache.bucket_size(n, buckets) if buckets else n
-            out = fwd(to_device(compile_cache.pad_batch(batch, n, eff),
-                                self.device))
-            outs.append(compile_cache.slice_rows(out.cpu().numpy(), n))
+        with eval_mode(self.model) as fwd:
+            for i in range(0, rows.shape[0], batch_size):
+                batch = rows[i:i + batch_size]
+                n = batch.shape[0]
+                eff = compile_cache.bucket_size(n, buckets) if buckets else n
+                out = fwd(to_device(compile_cache.pad_batch(batch, n, eff),
+                                    self.device))
+                outs.append(compile_cache.slice_rows(out.cpu().numpy(), n))
         return np.concatenate(outs, axis=0) if outs else np.empty((0,))

@@ -189,8 +189,8 @@ class ServingEngine:
     """Continuous micro-batching inference server over one model, which
     must already lie on ``device`` (default ``"cuda"``; the tests pass
     ``"cpu"``).  All knobs default from ``bigdl.serving.*``; constructor
-    arguments override per-engine.  ``fold_bn=True`` belongs to the
-    convnet slice and raises."""
+    arguments override per-engine.  ``fold_bn=True`` serves a copy of the
+    model with every conv + BatchNorm pair folded, as ``Predictor`` does."""
 
     def __init__(self, model: torch.nn.Module, fold_bn: bool = False,
                  max_batch: Optional[int] = None,

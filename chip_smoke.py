@@ -56,17 +56,42 @@ Phases, each fatal on any fault:
    time from the graph and eagerly beside its byte bound (the rows the
    active slots need) and the bytes of the gather over every row, prefill
    time per bucket, the rates of both runs with their slot occupancy, TTFT
-   and inter-token gaps, pool bytes and peak memory.
+   and inter-token gaps, pool bytes and peak memory;
+8. the convnet slice, with ``torch.backends.cudnn.benchmark`` on for the
+   phase only (logged, put back after): ImageNet ResNet-50 as
+   ``bench.py:3364-3375`` trains it (``model_init(resnet(1000, 50))``,
+   channels-last, random weights from the seed, ``LogSoftMax`` appended,
+   one fixed batch of 128 images uniform(-1, 1) at 224 x 224, SGD(0.01,
+   momentum 0.9), bf16), 13 iterations through
+   ``Optimizer.create(...).optimize()``.  Gates: every loss finite and the
+   last below the first, every BatchNorm running statistic finite and
+   moved, no flash kernel launched in the phase.  Logged: step time and
+   images/s (median of iterations 3-12) with the batch fetch apart, peak
+   memory, model FLOPs utilisation against the dense bf16 peak at 2 FLOPs
+   per multiply-add (the multiply-adds counted from the model's own conv
+   and Linear shapes), a profile of one step by category, and
+   ``all_finite``'s launches.  Then one training-mode step at B2, TF32 off,
+   on the card against the port's CPU path from the same weights and batch
+   (see :func:`phase_resnet_check`: fp32 log-probs within 1e-4 and the
+   gradient's norm within 1e-3 relative, the fp32 gradient and statistics
+   as close to a float64 step as the CPU's fp32 ones, float64 card against
+   CPU within 1e-8);
+   ``Predictor(fold_bn=True)`` against the unfolded eval forward (fp32, B8,
+   TF32 off, within 1e-4 of max |log-prob|), with the caller's model
+   keeping its BNs; and bf16 B128 inference images/s, folded and
+   unfolded.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
-its launches on its main path), then the result line
+its launches on its main path; phase 8 runs none of them), then the result
+line
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -127,6 +152,22 @@ LM_REQUESTS = 16
 LM_FULL_REQUESTS = 48   # the saturated run: all submitted at once (bench.py:2359)
 LM_WORKLOAD = dict(prompt_lens=(128, 256, 512), output_lens=(32, 64))
 LM_SPEEDUP = 1.5        # open loop over sequential tokens/s (bench.py:2400)
+#: phase 8: bench.py's ResNet-50 protocol (:3364-3375, --batch 128 :3098)
+R50_CLASSES, R50_IMAGE = 1000, (3, 224, 224)
+R50_BATCH, R50_STEPS = 128, 13   # the median of iterations 3-12 is timed
+R50_TIMED = slice(2, 12)
+R50_CHECK_BATCH = 2     # rows of the card-against-CPU step
+R50_LOGP_ATOL = 1e-4    # fp32 log-probs, card against CPU
+R50_GRAD_RTOL = 1e-3    # fp32 gradient norm, card against CPU; and the
+R50_STATS_ATOL = 1e-5   # floors, with running statistics, of ...
+R50_F32_SLACK = 1.5     # ... the card's error from the float64 step: at
+                        # most this times the CPU's fp32 error
+R50_F64_TOL = 1e-8      # float64, card against CPU: log-probs and
+                        # statistics absolute, gradients ||diff|| / ||ref||
+R50_ZERO_GRAD = 1e-4    # conv biases before a BN (exact gradient 0),
+                        # against the largest gradient entry
+R50_FOLD_BATCH = 8
+R50_FOLD_RTOL = 1e-4    # folded against unfolded, of max |log-prob|
 TPU_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNEL_FILES = {   # kind -> (source, the TPU kernel it replaces)
     "fwd": ("bigdl_tpu_torch/csrc/flash_attention_fwd.cu", f"{TPU_FLASH}:589"),
@@ -150,6 +191,22 @@ STEP_CATEGORIES = (
     ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("optimizer update", ("multi_tensor_apply", "foreach")),
     ("casts and copies", ("copy", "convert")),
+)
+
+
+#: kernel-name fragments -> the share of a ResNet-50 training step they are
+#: counted in (cuDNN names its implicit-GEMM kernels by pass)
+R50_CATEGORIES = (
+    ("conv forward", ("fprop",)),
+    ("conv data-gradient", ("dgrad",)),
+    ("conv weight-gradient", ("wgrad",)),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_")),
+    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("optimizer update", ("multi_tensor_apply", "foreach")),
+    ("casts and copies", ("copy", "convert")),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce",)),
+    ("elementwise and ReLU", ("elementwise", "threshold", "where")),
 )
 
 
@@ -189,7 +246,8 @@ def profile(label: str, fn, card: str, categories=()) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's (profiled) wall time; with
     ``categories`` ((name, fragments) pairs) also the device time of the
-    kernels whose names hold each category's fragments."""
+    kernels whose names hold each category's fragments, and of the
+    operators that launched the most of it."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -225,6 +283,12 @@ def profile(label: str, fn, card: str, categories=()) -> None:
         log(f"[profile] {label} by category: " + "; ".join(
             f"{n} {ms:.3f} ms x{c} ({100 * ms / busy:.1f}%)"
             for n, (ms, c) in sums.items()))
+        ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if str(e.device_type).endswith("CPU") and
+                      e.self_device_time_total > 0), reverse=True)
+        log(f"[profile] {label} by operator: " + "; ".join(
+            f"{key} x{count} {ms:.3f} ms" for ms, count, key in ops[:8]))
 
 
 def kernel_resources(log_text: str) -> list:
@@ -1073,6 +1137,339 @@ def phase_lm_serving(card: str, model) -> dict:
     return launches
 
 
+def resnet50(device: str):
+    """bench.py's model: model_init(resnet(1000, 50, imagenet)),
+    channels-last, random weights from SEED, LogSoftMax appended."""
+    import torch
+    from bigdl_tpu_torch.models import model_init, resnet
+    from bigdl_tpu_torch.nn import LogSoftMax, Sequential
+    body = resnet(R50_CLASSES, depth=50, dataset="imagenet", device=device,
+                  seed=SEED)
+    model_init(body, generator=torch.Generator().manual_seed(SEED))
+    return Sequential().add(body).add(LogSoftMax())
+
+
+def r50_batch(n: int, seed: int):
+    """n images uniform(-1, 1) and labels 1..1000 from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n,) + R50_IMAGE).astype(np.float32)
+    y = rng.integers(1, R50_CLASSES + 1, n).astype(np.float32)
+    return x, y
+
+
+def r50_macs(model) -> int:
+    """Multiply-adds of one image's forward, from the model's own
+    convolution and Linear shapes (hooks over a B1 eval forward)."""
+    import torch
+    from bigdl_tpu_torch.nn import Linear, SpatialConvolution
+    total = [0]
+
+    def count(m, inputs, out):
+        per_output = (m.weight[0].numel() if isinstance(m, SpatialConvolution)
+                      else m.input_size)
+        total[0] += out.numel() * per_output
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (SpatialConvolution, Linear))]
+    was = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros((1,) + R50_IMAGE, device=DEVICE))
+    finally:
+        model.train(was)
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def bn_stats(model) -> list:
+    from bigdl_tpu_torch.nn import SpatialBatchNormalization
+    return [b.detach().clone() for m in model.modules()
+            if isinstance(m, SpatialBatchNormalization)
+            for b in (m.running_mean, m.running_var)]
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN convolutions and cuBLAS matmuls in the block (on
+    by default for convolutions); both flags are put back after."""
+    import torch
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+def phase_resnet_training(card: str, model) -> dict:
+    """The convnet slice's main path: ResNet-50 trained through
+    Optimizer.create(...).optimize() in bf16, B128 at 224 x 224, SGD(0.01,
+    momentum 0.9), on one fixed batch.  Returns the run's flash launches
+    (all must be 0)."""
+    import torch
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.optim.optimizer import all_finite
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    x, y = r50_batch(R50_BATCH, SEED + 5)
+    samples = [Sample(x[i], y[i]) for i in range(R50_BATCH)]
+    macs = r50_macs(model)
+    before = bn_stats(model)
+    RandomGenerator.RNG().set_seed(SEED)
+    opt = (Optimizer.create(model, samples, ClassNLLCriterion(),
+                            batch_size=R50_BATCH, device=DEVICE)
+           .set_optim_method(SGD(0.01, momentum=0.9))
+           .set_precision("bf16")
+           .set_end_when(max_iteration(R50_STEPS)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    hist = opt.history
+    losses = [h["loss"] for h in hist]
+    timed = hist[R50_TIMED]
+    step_s = statistics.median(h["seconds"] for h in timed)
+    fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
+    rate = R50_BATCH / step_s
+    # FLOPs at 2 per multiply-add; a trained image costs its forward and a
+    # backward of twice the forward's
+    flops = 3 * 2 * macs
+    log(f"[resnet] {len(hist)} steps of bf16 B{R50_BATCH} in {wall:.2f} s "
+        f"(the first with cuDNN's autotuning); losses "
+        f"{[round(v, 4) for v in losses]}; step ms "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; fetch ms "
+        f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
+    log(f"[resnet] step {step_s * 1e3:.2f} ms (median of iterations 3-12), "
+        f"{rate:,.1f} images/s, of which the batch fetch (a stack of "
+        f"{R50_BATCH} samples and its copy to the card) {fetch_s * 1e3:.2f} "
+        f"ms; without it {R50_BATCH / (step_s - fetch_s):,.1f} images/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; {macs / 1e9:.3f} G "
+        f"multiply-adds per image forward, {flops / 1e9:.2f} GFLOP per "
+        f"trained image at 2 FLOPs per multiply-add: "
+        f"{rate * flops / 1e12:.1f} TFLOP/s, model FLOPs utilisation "
+        f"{100 * rate * flops / PEAK_FLOPS['bfloat16']:.2f}% of the dense "
+        f"bf16 peak ({PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s) on {card}; "
+        f"launches {launches}")
+    if not (all(math.isfinite(v) for v in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError(f"ResNet-50 losses {losses}: not all finite, "
+                             "or the last not below the first")
+    after = bn_stats(model)
+    if not all(torch.isfinite(a).all() for a in after) or any(
+            torch.equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("BatchNorm running statistics not finite, or "
+                             "some did not move")
+    if any(launches.values()):
+        raise AssertionError(f"ResNet-50 training launched flash kernels: "
+                             f"{launches}")
+    opt.set_end_when(max_iteration(R50_STEPS + 1))
+    profile(f"bf16 ResNet-50 training step B{R50_BATCH}", opt.optimize,
+            card, R50_CATEGORIES)
+    grads = [torch.ones_like(p) for p in model.parameters()]
+    loss = torch.zeros((), device=DEVICE)
+    all_finite(loss, grads)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        all_finite(loss, grads)
+    host_ms = (time.perf_counter() - t) * 1e2
+    torch.cuda.synchronize()
+    log(f"[resnet] all_finite over {len(grads)} gradient tensors: "
+        f"{host_ms:.2f} ms of host enqueue a call (mean of 10, unprofiled)")
+    profile(f"all_finite over the step's {len(grads)} gradient tensors",
+            lambda: all_finite(loss, grads), card)
+    return launches
+
+
+def r50_step(model, x, y, device: str, dtype) -> tuple:
+    """One training-mode forward and backward of ``model``: its log-probs,
+    gradients and the running statistics the forward wrote, in float64 on
+    the host."""
+    import torch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    model.train()
+    logp = model(torch.from_numpy(x).to(device, dtype))
+    loss = ClassNLLCriterion().apply(logp, torch.from_numpy(y).to(device))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return (logp.detach().double().cpu(), [g.double().cpu() for g in grads],
+            [s.double().cpu() for s in bn_stats(model)])
+
+
+def phase_resnet_check(card: str) -> None:
+    """An independent path for phase 8: one training-mode step at
+    R50_CHECK_BATCH on the card against the same step of the port on the
+    CPU (the path tier-1 holds against the JAX package), from the same
+    weights and batch, TF32 off, in fp32 and in float64.
+
+    In fp32 this step is ill-conditioned: the CPU's fp32 gradient differs
+    from its float64 one by about 2e-2 of its norm and its running
+    statistics by about 6e-5 (measured on the CPU of a machine with an
+    NVIDIA H100 80GB HBM3), so no fp32 path can agree with another to 1e-3
+    and 1e-5 entry by entry.  The fp32 gates are therefore: log-probs
+    within R50_LOGP_ATOL of the CPU's; the gradient's norm within
+    R50_GRAD_RTOL of the CPU's (relative); the card's gradient and
+    statistics no farther from the CPU's float64 step than R50_F32_SLACK
+    times the CPU fp32 step is (or than the floors R50_GRAD_RTOL and
+    R50_STATS_ATOL).  Float64 carries the exact check: the card's
+    log-probs, gradient and statistics within R50_F64_TOL of the CPU's.
+    Conv biases before a BN have an exact gradient of 0 and are checked
+    apart; the gradient is every other parameter's, as one vector."""
+    import copy
+    import torch
+    from bigdl_tpu_torch.nn import SpatialConvolution
+
+    cpu = resnet50("cpu")
+    x, y = r50_batch(R50_CHECK_BATCH, SEED + 6)
+    runs = {}
+    with tf32_off():
+        for dev, dtype in (("cpu", torch.float32), (DEVICE, torch.float32),
+                           ("cpu", torch.float64), (DEVICE, torch.float64)):
+            runs[(dev, dtype)] = r50_step(
+                copy.deepcopy(cpu).to(dev, dtype), x, y, dev, dtype)
+    names = [n for n, _ in cpu.named_parameters()]
+    # every convolution feeds a BN, which cancels its bias: exact gradient 0
+    conv_biases = {f"{n}.bias" for n, m in cpu.named_modules()
+                   if isinstance(m, SpatialConvolution)}
+    pre_bn = [n in conv_biases for n in names]
+
+    def rel(a, b) -> float:
+        return ((a - b).norm() / b.norm()).item()
+
+    def errors(a, b) -> tuple:
+        """(log-probs max abs, gradient ||diff|| / ||ref||, the worst
+        tensor, statistics max abs, gradient |norm - ref norm| / ref
+        norm)."""
+        (lp_a, g_a, s_a), (lp_b, g_b, s_b) = runs[a], runs[b]
+        kept = [(n, p, q) for n, p, q, z in zip(names, g_a, g_b, pre_bn)
+                if not z]
+        n, p, q = max(kept, key=lambda t: rel(t[1], t[2]))
+        u, v = (torch.cat([t[i].flatten() for t in kept]) for i in (1, 2))
+        return ((lp_a - lp_b).abs().max().item(), rel(u, v),
+                f"{n} {rel(p, q):.2e}",
+                max((x - y).abs().max().item() for x, y in zip(s_a, s_b)),
+                (abs(u.norm() - v.norm()) / v.norm()).item())
+
+    def show(e: tuple) -> str:
+        return (f"log-probs {e[0]:.2e}, gradient {e[1]:.2e} (worst "
+                f"{e[2]}; norm {e[4]:.2e}), statistics {e[3]:.2e}")
+
+    f32, f64 = torch.float32, torch.float64
+    direct = errors((DEVICE, f32), ("cpu", f32))
+    card32 = errors((DEVICE, f32), ("cpu", f64))
+    cpu32 = errors(("cpu", f32), ("cpu", f64))
+    exact = errors((DEVICE, f64), ("cpu", f64))
+    g32 = [g for run in (runs[("cpu", f32)], runs[(DEVICE, f32)])
+           for g in run[1]]
+    top = max(g.abs().max().item() for g in runs[("cpu", f64)][1])
+    zeros = max(g.abs().max().item() for g, z in zip(
+        g32, pre_bn + pre_bn) if z) / top
+    grad_limit = max(R50_F32_SLACK * cpu32[1], R50_GRAD_RTOL)
+    stats_limit = max(R50_F32_SLACK * cpu32[3], R50_STATS_ATOL)
+    log(f"[resnet] step B{R50_CHECK_BATCH}, TF32 off (log-probs and "
+        f"statistics max abs, gradient ||diff||/||ref||) on {card}:\n"
+        f"    fp32 card against CPU: {show(direct)}\n"
+        f"    fp32 card against CPU float64: {show(card32)}\n"
+        f"    fp32 CPU against CPU float64: {show(cpu32)}\n"
+        f"    float64 card against CPU: {show(exact)}\n"
+        f"    conv biases before a BN at most {zeros:.2e} of the largest "
+        "entry")
+    log(f"[resnet] gates: fp32 log-probs {direct[0]:.2e} <= "
+        f"{R50_LOGP_ATOL}; fp32 gradient norm {direct[4]:.2e} <= "
+        f"{R50_GRAD_RTOL}; fp32 gradient from float64 {card32[1]:.2e} <= "
+        f"{grad_limit:.2e}; fp32 statistics from float64 {card32[3]:.2e} <= "
+        f"{stats_limit:.2e}; float64 card against CPU {exact[0]:.2e}, "
+        f"{exact[1]:.2e}, {exact[3]:.2e} <= {R50_F64_TOL}; pre-BN biases "
+        f"{zeros:.2e} <= {R50_ZERO_GRAD}")
+    if not (direct[0] <= R50_LOGP_ATOL and direct[4] <= R50_GRAD_RTOL and
+            card32[1] <= grad_limit and
+            card32[3] <= stats_limit and
+            max(exact[0], exact[1], exact[3]) <= R50_F64_TOL and
+            zeros <= R50_ZERO_GRAD):
+        raise AssertionError("ResNet-50 step: the card and the CPU "
+                             "disagree")
+
+
+def phase_resnet_inference(card: str, model) -> None:
+    """Predictor(fold_bn=True) against the unfolded eval forward (fp32,
+    R50_FOLD_BATCH, TF32 off), then bf16 B128 inference images/s, folded
+    and unfolded, with the batch on the card (bench.py:297-302)."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.nn import SpatialBatchNormalization
+    from bigdl_tpu_torch.optim import Predictor
+    from bigdl_tpu_torch.optim.optimizer import mixed_precision_forward
+
+    def n_bn(m):
+        return sum(isinstance(c, SpatialBatchNormalization)
+                   for c in m.modules())
+
+    pred = Predictor(model, fold_bn=True, device=DEVICE)
+    if n_bn(pred.model) or n_bn(model) != 53:
+        raise AssertionError("fold_bn: the served copy kept a BN, or the "
+                             "caller's model lost its own")
+    x, _ = r50_batch(R50_BATCH, SEED + 7)
+    with tf32_off():
+        folded = pred.predict(x[:R50_FOLD_BATCH], batch_size=R50_FOLD_BATCH)
+        with torch.inference_mode():
+            ref = model.eval()(torch.from_numpy(
+                x[:R50_FOLD_BATCH]).to(DEVICE)).cpu().numpy()
+    err = float(np.abs(folded - ref).max() / np.abs(ref).max())
+    log(f"[resnet] Predictor(fold_bn=True) against the unfolded eval "
+        f"forward, fp32 B{R50_FOLD_BATCH}: max|diff|/max|ref| {err:.2e} "
+        f"(limit {R50_FOLD_RTOL}) on {card}")
+    if not err <= R50_FOLD_RTOL:
+        raise AssertionError(f"folded forward differs: {err}")
+    xb = torch.from_numpy(x).to(DEVICE)
+    with torch.inference_mode():
+        for label, m in (("unfolded", model), ("folded", pred.model)):
+            ms = time_ms(lambda: mixed_precision_forward(m, xb, "bf16"))
+            log(f"[resnet] bf16 inference B{R50_BATCH}, {label}: {ms:.2f} "
+                f"ms, {R50_BATCH / ms * 1e3:,.1f} images/s on {card}")
+        profile(f"bf16 inference B{R50_BATCH}, folded",
+                lambda: mixed_precision_forward(pred.model, xb, "bf16"),
+                card, R50_CATEGORIES)
+
+
+def phase_resnet(card: str) -> dict:
+    """Phase 8: ResNet-50 trained, checked against the CPU and served, with
+    cuDNN's autotuner on for the phase only.  Returns the flash launches of
+    the training run."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    log(f"[resnet] torch.backends.cudnn.benchmark set to True for phase 8 "
+        f"(was {saved}); put back after")
+    try:
+        t = time.perf_counter()
+        model = resnet50(DEVICE)
+        log(f"[resnet] {sum(p.numel() for p in model.parameters()):,} "
+            f"parameters built in {time.perf_counter() - t:.1f} s on {card}")
+        fa.reset_launches()
+        launches = phase_resnet_training(card, model)
+        phase_resnet_check(card)
+        phase_resnet_inference(card, model)
+        if any(fa.launches.values()):
+            raise AssertionError(f"phase 8 launched flash kernels: "
+                                 f"{dict(fa.launches)}")
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
@@ -1130,6 +1527,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_lm_serving(card, lm(flash=True))
+    torch.cuda.empty_cache()
+    phase_resnet(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step)

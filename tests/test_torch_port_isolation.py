@@ -6,10 +6,12 @@
   listed in ``.gitignore``.
 * In a fresh process, importing every module of the port, building a model,
   serving a request, streaming tokens through ``LMServingEngine`` (offline
-  ``generate`` and a started scheduler) and taking a training step on the
-  CPU builds no kernel, starts no process, leaves no thread running, imports
-  neither package, and changes no state global to the process (torch's default dtype, thread count, RNG and TF32 flags,
-  numpy's global RNG, the environment).  The tier-1 run shares worker
+  ``generate`` and a started scheduler), taking a training step on the
+  CPU, and building a CIFAR ResNet-20, training it one bf16 step and
+  predicting with ``fold_bn=True`` builds no kernel, starts no process,
+  leaves no thread running, imports neither package, and changes no state
+  global to the process (torch's default dtype, thread count, RNG, TF32
+  flags and ``cudnn.benchmark``, numpy's global RNG, the environment).  The tier-1 run shares worker
   processes between test files, so the port must not change what the other
   files see.
 """
@@ -108,7 +110,7 @@ def global_state():
             torch.random.get_rng_state().tolist(),
             repr(np.random.get_state()),
             torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark,
             torch.get_float32_matmul_precision(), dict(os.environ))
 
 before = global_state()
@@ -119,9 +121,11 @@ for info in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
 import chip_smoke
 from bigdl_tpu_torch.dataset import LocalDataSet, Sample, SampleToMiniBatch
 from bigdl_tpu_torch.kernels import build, flash_attention
+from bigdl_tpu_torch.models import model_init, resnet
 from bigdl_tpu_torch.models.transformer import transformer_lm
-from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
-from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+from bigdl_tpu_torch.nn import (ClassNLLCriterion, LogSoftMax, Sequential,
+                                TimeDistributedCriterion)
+from bigdl_tpu_torch.optim import SGD, Optimizer, Predictor, max_iteration
 from bigdl_tpu_torch.serving import LMServingEngine, ServingEngine
 
 model = transformer_lm(16, d_model=128, n_head=1, n_layers=1, max_len=128,
@@ -154,6 +158,17 @@ opt = Optimizer.create(
 opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
 opt.set_end_when(max_iteration(1)).optimize()
 assert len(opt.history) == 1 and np.isfinite(opt.history[0]["loss"])
+
+net = Sequential().add(model_init(resnet(10, 20, device="cpu"))).add(
+    LogSoftMax())
+images = np.ones((2, 3, 32, 32), np.float32)
+opt = Optimizer.create(net, [Sample(x, np.float32(3)) for x in images],
+                       ClassNLLCriterion(), batch_size=2, device="cpu")
+opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
+opt.set_end_when(max_iteration(1)).optimize()
+assert np.isfinite(opt.history[0]["loss"])
+out = Predictor(net, fold_bn=True, device="cpu").predict(images)
+assert out.shape == (2, 10) and np.isfinite(out).all()
 
 assert global_state() == before, "process-global state changed"
 leaked = sorted(n for n in sys.modules

@@ -197,7 +197,8 @@ def test_entry_points_check_their_device(models):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ServingEngine(pm)       # default device: cuda
-    with pytest.raises(NotImplementedError):
-        ServingEngine(pm, fold_bn=True, device="cpu")
+    # fold_bn serves a folded copy in eval mode; the caller's model stays
+    eng = ServingEngine(pm, fold_bn=True, start=False, device="cpu")
+    assert eng.model is not pm and not eng.model.training
     with pytest.raises(ValueError, match="not on"):
         Predictor(pm, device="meta")
