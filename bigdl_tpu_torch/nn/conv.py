@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from bigdl_tpu_torch.nn.init import RandomUniform
+from bigdl_tpu_torch.nn.init import RandomUniform, redraw as _redraw
 from bigdl_tpu_torch.nn.module import Module, make_generator
 from bigdl_tpu_torch.ops import convolution as _conv
 
@@ -59,8 +59,9 @@ class SpatialConvolution(Module):
         self.with_bias = with_bias
         g = make_generator(generator)
         shape = (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w)
-        fan_in = shape[1] * kernel_h * kernel_w
+        fan_in, _ = self._fans
         draw = RandomUniform()
+        self._given = (init_weight is not None, init_bias is not None)
         if init_weight is not None:
             w = torch.as_tensor(init_weight,
                                 dtype=torch.float32).reshape(shape)
@@ -76,6 +77,27 @@ class SpatialConvolution(Module):
             self.register_parameter("bias", None)
         self.format = "NCHW"
         self.set_format(format)
+
+    @property
+    def _fans(self):
+        """(fan_in, fan_out) of the JAX package's layer (``conv.py:71``)."""
+        taps = self.kernel_h * self.kernel_w
+        return (self.n_input_plane // self.n_group * taps,
+                self.n_output_plane // self.n_group * taps)
+
+    @torch.no_grad()
+    def set_init_method(self, weight_init=None, bias_init=None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> "SpatialConvolution":
+        """Redraw the weight with ``weight_init`` and the bias with
+        ``bias_init`` (each ``(shape, fan_in, fan_out, generator)``, e.g.
+        :class:`~bigdl_tpu_torch.nn.init.Xavier`) from ``generator``, the
+        weight first; a tensor given at construction is kept.  The JAX
+        package draws lazily, at its first forward; here parameters exist
+        from construction, so they are drawn again."""
+        _redraw(self, weight_init, bias_init, generator, self._fans,
+                self._given)
+        return self
 
     def set_format(self, format: str) -> "SpatialConvolution":
         super().set_format(format)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bigdl_tpu_torch.nn.init import RandomUniform
+from bigdl_tpu_torch.nn.init import RandomUniform, redraw as _redraw
 from bigdl_tpu_torch.nn.module import Module, make_generator
 
 
@@ -45,6 +45,18 @@ class Linear(Module):
             self.bias = nn.Parameter(b.to(device))
         else:
             self.register_parameter("bias", None)
+
+    @torch.no_grad()
+    def set_init_method(self, weight_init=None, bias_init=None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> "Linear":
+        """Redraw the weight and bias as
+        :meth:`SpatialConvolution.set_init_method
+        <bigdl_tpu_torch.nn.conv.SpatialConvolution.set_init_method>`
+        does, with fan_in = ``input_size`` and fan_out = ``output_size``."""
+        _redraw(self, weight_init, bias_init, generator,
+                (self.input_size, self.output_size))
+        return self
 
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         return F.linear(input, self.weight, self.bias)

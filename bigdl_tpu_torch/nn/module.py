@@ -13,6 +13,7 @@ is what :func:`bigdl_tpu_torch.utils.convert.params_from_jax` walks.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -37,6 +38,28 @@ def state_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
             if k not in module._non_persistent_buffers_set}
 
 
+def is_stochastic(model: nn.Module) -> bool:
+    """Some module of ``model`` draws from the random stream in training."""
+    return any(getattr(m, "stochastic", False) for m in model.modules())
+
+
+@contextlib.contextmanager
+def random_stream(model: nn.Module, generator: torch.Generator):
+    """For the block, every stochastic module of ``model`` draws from
+    ``generator``, in the order the forward reaches them; after it, they
+    have no stream again.  The trainer's per-step stream (the JAX
+    package passes ``rng`` down ``apply`` instead): a module without one
+    draws nothing, as the JAX package's ``Dropout`` with ``rng=None``."""
+    mods = [m for m in model.modules() if getattr(m, "stochastic", False)]
+    for m in mods:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.generator = None
+
+
 class Module(nn.Module):
     """Base class of the port's layers: a ``torch.nn.Module`` with the
     reference's ``evaluate()`` switch and data-layout contract.
@@ -48,6 +71,15 @@ class Module(nn.Module):
     maps in ``self.format`` and is re-pointed by :meth:`set_format`)."""
 
     layout_role = "opaque"
+    #: a training-mode forward draws from the random stream
+    #: (:func:`random_stream`); the twin of the JAX package's
+    #: ``is_stochastic`` layers (``Dropout``)
+    stochastic = False
+
+    def is_stochastic(self) -> bool:
+        """True if this module or one inside it draws from the random
+        stream in training (reference ``Module.is_stochastic``)."""
+        return is_stochastic(self)
 
     def set_format(self, format: str) -> "Module":
         """Re-point a spatial layer between ``"NCHW"`` and ``"NHWC"``."""

@@ -1,6 +1,7 @@
-"""Batch normalisation (``bigdl_tpu/nn/normalization.py``:
-``BatchNormalization`` :27, ``SpatialBatchNormalization`` :106; reference
-``nn/BatchNormalization.scala:50``).
+"""Normalisation layers (``bigdl_tpu/nn/normalization.py``:
+``BatchNormalization`` :27, ``SpatialBatchNormalization`` :106,
+``SpatialCrossMapLRN`` :144; reference ``nn/BatchNormalization.scala:50``,
+``nn/SpatialCrossMapLRN.scala``).
 
 The JAX package threads the running statistics through ``apply`` as module
 state.  Here they are registered buffers, ``running_mean`` and
@@ -94,3 +95,39 @@ class SpatialBatchNormalization(BatchNormalization):
                          init_bias, init_running_mean, init_running_var,
                          device=device, generator=generator)
         self.format = format
+
+
+class SpatialCrossMapLRN(Module):
+    """AlexNet-style local response normalisation across channels
+    (reference ``nn/SpatialCrossMapLRN.scala``): x / (k + alpha / size *
+    window)^beta, where ``window`` sums x^2 over ``size`` neighbouring
+    channels, ``(size - 1) // 2`` before and the rest after, zero past the
+    edges (the JAX package's padding; torch's ``local_response_norm``
+    puts ``size // 2`` before, which differs for an even size).  Computed
+    in the input's dtype.  Shapes are logical, so the channels are dim 1
+    (dim 0 of an unbatched map) in either memory format, and the output
+    keeps the input's."""
+
+    layout_role = "spatial"
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0, format: str = "NCHW"):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+        self.format = format
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ch = input.dim() - 3
+        c = input.shape[ch]
+        half = (self.size - 1) // 2
+        # F.pad's last pair pads the channels of a (..., C, H, W) map
+        padded = F.pad(input * input,
+                       (0, 0, 0, 0, half, self.size - 1 - half))
+        window = padded.narrow(ch, 0, c)
+        for i in range(1, self.size):
+            window = window + padded.narrow(ch, i, c)
+        denom = (self.k + self.alpha / self.size * window) ** self.beta
+        return input / denom

@@ -10,11 +10,13 @@ The JAX package fuses one training step into one jitted program.  Here the
 step is eager PyTorch on the model's device: the forward (bf16 through
 :func:`mixed_precision_forward` when asked), the loss plus the layers'
 regularizer penalties, ``torch.autograd.grad`` back to the fp32 master
-parameters, the ``OptimMethod``'s ``pure_update``, and the divergence guard:
-a step whose loss or gradients are not finite keeps every carry (parameters,
-optimizer slots and the module state, BatchNorm's running statistics, which
-the forward updates in place) at its pre-step value and reports its loss as
-NaN.  The training loop keeps the reference's state keys (``epoch``, ``neval``,
+parameters (a model with ``Dropout`` draws its masks from a device
+generator seeded with the step's counter, as the JAX package keys each step
+with ``PRNGKey(neval - 1)``, :1246), the ``OptimMethod``'s
+``pure_update``, and the divergence guard: a step whose loss or gradients
+are not finite keeps every carry (parameters, optimizer slots and the
+module state, BatchNorm's running statistics, which the forward updates in
+place) at its pre-step value and reports its loss as NaN.  The training loop keeps the reference's state keys (``epoch``, ``neval``,
 ``Loss``, ``recordsProcessedThisEpoch``, ``consecutiveBadSteps``), its epoch
 rollover with a reshuffle at the record boundary, its end trigger, and raises
 :class:`DivergenceError` after ``bigdl.divergence.maxBadSteps`` consecutive
@@ -40,7 +42,8 @@ from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch)
 from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
                                     default_device, to_device)
-from bigdl_tpu_torch.nn.module import Container, Criterion, state_buffers
+from bigdl_tpu_torch.nn.module import (Container, Criterion, is_stochastic,
+                                       random_stream, state_buffers)
 from bigdl_tpu_torch.optim import trigger as triggers
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
@@ -226,7 +229,9 @@ class Optimizer:
         """The training loop (reference ``optim/DistriOptimizer.scala:141-344``,
         ``LocalOptimizer.scala:78``): fetch, step, bookkeeping and logging,
         epoch rollover.  ``fetch_batch() -> (inputs, targets, batch_size)``;
-        ``run_step(inputs, targets, hyper) -> loss`` (a 0-dim tensor);
+        ``run_step(inputs, targets, hyper, seed) -> loss`` (a 0-dim tensor;
+        ``seed`` is the step's random-stream counter, ``neval - 1``, the
+        JAX package's ``rng_counter``);
         ``reset_epoch()`` reshuffles and restarts the data iterator."""
         state = _initial_loop_state()
         # a second optimize() continues the counters the OptimMethod carries
@@ -248,7 +253,7 @@ class Optimizer:
                 reset_epoch()
             self.optim_method.state["epoch"] = state["epoch"]
             hyper = self.optim_method.hyper()
-            loss_t = run_step(inputs, targets, hyper)
+            loss_t = run_step(inputs, targets, hyper, state["neval"] - 1)
             self.optim_method.step_done()
             loss = float(loss_t)     # the one host read of the iteration
             dt = time.perf_counter() - t0
@@ -339,6 +344,10 @@ class LocalOptimizer(Optimizer):
 
     def _optimize(self) -> torch.nn.Module:
         self.model.train()
+        # one generator on the device, seeded afresh each step: the same
+        # seed and data give the same masks, run after run
+        stream = (torch.Generator(device=self.device)
+                  if is_stochastic(self.model) else None)
         params = list(self.model.parameters())
         mstate = module_state(self.model)
         slots = self.optim_method.slots(params)
@@ -356,9 +365,14 @@ class LocalOptimizer(Optimizer):
                     _to_device(batch.get_target(), self.device),
                     batch.size())
 
-        def run_step(inputs, targets, hyper):
-            return self._step(params, slots, mstate, inputs, targets, hyper,
-                              guard)
+        def run_step(inputs, targets, hyper, seed):
+            if stream is None:
+                return self._step(params, slots, mstate, inputs, targets,
+                                  hyper, guard)
+            stream.manual_seed(seed)
+            with random_stream(self.model, stream):
+                return self._step(params, slots, mstate, inputs, targets,
+                                  hyper, guard)
 
         reset_epoch()
         self._drive(fetch_batch, run_step, reset_epoch,

@@ -79,12 +79,34 @@ Phases, each fatal on any fault:
    ``Predictor(fold_bn=True)`` against the unfolded eval forward (fp32, B8,
    TF32 off, within 1e-4 of max |log-prob|), with the caller's model
    keeping its BNs; and bf16 B128 inference images/s, folded and
-   unfolded.
+   unfolded;
+9. the rest of ``models/perf.py``'s convnet table, with
+   ``torch.backends.cudnn.benchmark`` on for the phase only: AlexNet
+   (``alexnet_owt``), VGG-16, VGG-19 and Inception-v1 (no auxiliary heads)
+   at full width, built from seed 0 on the CPU and copied to the card,
+   each trained through perf.py's protocol (``train_throughput``: bf16,
+   SGD(0.01, momentum 0.9), 2 warm-up iterations then 10 timed ones
+   through ``Optimizer.create(...).optimize()``) on one fixed batch of 128
+   images at 224 x 224, every Dropout active.  Logged: images/s and step
+   time (median of the timed iterations, the batch fetch apart), peak
+   memory, MFU against the dense bf16 peak at 2 FLOPs per multiply-add
+   (counted from the model's shapes), the losses, a profile of one more
+   step by category; ``per_layer_report`` in bf16 at B128 for VGG-16 and
+   Inception-v1.  Gates, each fatal: every
+   loss finite; the loss falling for the models of ``ZOO_FALLING``; no
+   flash kernel launched in the phase; a B2 training-mode step with every
+   Dropout at p = 0, TF32 off, on the card against the port's CPU path
+   from the same weights and batch (fp32 log-probs within 1e-4, gradient
+   norm within 1e-3 relative; both fp32 steps' distances from a CPU float64
+   step logged); ``Predictor`` on the card against the CPU's eval forward
+   of the trained weights (fp32, B8, TF32 off, 1e-4); one bf16 Dropout step
+   of 8 images run twice from the same weights and seed, bit-identical
+   (cuDNN deterministic for the check) and unlike the step at p = 0.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
-its launches on its main path; phase 8 runs none of them), then the result
-line
+its launches on its main path; phases 8 and 9 run none of them), then the
+result line
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
@@ -168,6 +190,22 @@ R50_ZERO_GRAD = 1e-4    # conv biases before a BN (exact gradient 0),
                         # against the largest gradient entry
 R50_FOLD_BATCH = 8
 R50_FOLD_RTOL = 1e-4    # folded against unfolded, of max |log-prob|
+#: phase 9: the rest of perf.py's convnet table (bigdl_tpu/models/perf.py
+#: :38-48), each trained through its training protocol
+ZOO_MODELS = ("alexnet", "vgg16", "vgg19", "inception_v1")
+ZOO_BATCH, ZOO_TIMED = 128, 10    # after perf.py's 2 warm-up iterations
+ZOO_PER_LAYER = ("vgg16", "inception_v1")
+#: models whose fixed-batch loss must fall: none.  In the first chip call
+#: of this phase all four stayed at ln 1000 = 6.908 over 12 steps (random
+#: labels, lr 0.01, Torch's default init or Xavier), moving by at most
+#: 0.002 against a step-to-step spread of 0.003, so a fall is noise
+ZOO_FALLING = ()
+ZOO_CHECK_BATCH = 2     # rows of the card-against-CPU step
+ZOO_LOGP_ATOL = 1e-4    # fp32 log-probs, card against CPU
+ZOO_GRAD_RTOL = 1e-3    # fp32 gradient norm, card against CPU
+ZOO_PRED_BATCH = 8
+ZOO_PRED_ATOL = 1e-4    # Predictor on the card against the CPU forward
+ZOO_DROP_BATCH = 8      # the Dropout step run twice
 TPU_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNEL_FILES = {   # kind -> (source, the TPU kernel it replaces)
     "fwd": ("bigdl_tpu_torch/csrc/flash_attention_fwd.cu", f"{TPU_FLASH}:589"),
@@ -194,8 +232,9 @@ STEP_CATEGORIES = (
 )
 
 
-#: kernel-name fragments -> the share of a ResNet-50 training step they are
-#: counted in (cuDNN names its implicit-GEMM kernels by pass)
+#: kernel-name fragments -> the share of a convnet training step (ResNet-50,
+#: phase 8; the zoo, phase 9) they are counted in (cuDNN names its
+#: implicit-GEMM kernels by pass)
 R50_CATEGORIES = (
     ("conv forward", ("fprop",)),
     ("conv data-gradient", ("dgrad",)),
@@ -1158,9 +1197,10 @@ def r50_batch(n: int, seed: int):
     return x, y
 
 
-def r50_macs(model) -> int:
+def r50_macs(model, image=R50_IMAGE) -> int:
     """Multiply-adds of one image's forward, from the model's own
-    convolution and Linear shapes (hooks over a B1 eval forward)."""
+    convolution and Linear shapes (hooks over a B1 eval forward of an
+    ``image``-shaped input)."""
     import torch
     from bigdl_tpu_torch.nn import Linear, SpatialConvolution
     total = [0]
@@ -1174,7 +1214,7 @@ def r50_macs(model) -> int:
     was = model.training
     try:
         with torch.no_grad():
-            model.eval()(torch.zeros((1,) + R50_IMAGE, device=DEVICE))
+            model.eval()(torch.zeros((1,) + image, device=DEVICE))
     finally:
         model.train(was)
         for h in hooks:
@@ -1470,6 +1510,279 @@ def phase_resnet(card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, without the autotuner, in the
+    block; both flags are put back after."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def set_dropout(model, p: float):
+    from bigdl_tpu_torch.nn import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.set_p(p)
+    return model
+
+
+def zoo_training(card: str, name: str, model) -> bool:
+    """perf.py's training protocol on one fixed batch of ZOO_BATCH images:
+    bf16, SGD(0.01, momentum 0.9), 2 warm-up iterations then ZOO_TIMED
+    timed ones through Optimizer.create(...).optimize(), every Dropout
+    active.  Logs images/s, step time (the batch fetch apart), peak
+    memory, MFU and the losses, then profiles one more step by category;
+    fails on a non-finite loss, on a flash launch, and on a loss that does
+    not fall for a model of ZOO_FALLING.  Returns whether the last loss is
+    below the first."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.models import perf
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    image = perf._MODELS[name][1]
+    samples = perf.records(name, ZOO_BATCH, seed=SEED + 9)
+    macs = r50_macs(model, image)
+    RandomGenerator.RNG().set_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t = time.perf_counter()
+    opt, timed_s = perf.train_throughput(
+        model, samples, perf.criterion(name), ZOO_BATCH, ZOO_TIMED, "bf16",
+        DEVICE)
+    wall = time.perf_counter() - t
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    hist = opt.history
+    losses = [h["loss"] for h in hist]
+    timed = hist[2:]
+    step_s = statistics.median(h["seconds"] for h in timed)
+    fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
+    rate = ZOO_BATCH / step_s
+    bare = ZOO_BATCH / (step_s - fetch_s)
+    flops = 3 * 2 * macs
+    mfu = [100 * r * flops / PEAK_FLOPS["bfloat16"] for r in (rate, bare)]
+    falling = losses[-1] < losses[0]
+    log(f"[zoo] {name}: {len(hist)} steps of bf16 B{ZOO_BATCH} in "
+        f"{wall:.2f} s, the timed {len(timed)} in {timed_s:.2f} s "
+        f"({ZOO_BATCH * len(timed) / timed_s:,.1f} images/s as perf.py "
+        f"reports it); losses {[round(v, 4) for v in losses]}; step ms "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; fetch ms "
+        f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
+    log(f"[zoo] {name}: step {step_s * 1e3:.2f} ms (median of iterations "
+        f"3-{len(hist)}), {rate:,.1f} images/s, of which the batch fetch "
+        f"{fetch_s * 1e3:.2f} ms; without it {bare:,.1f} images/s; peak "
+        f"memory {peak / 2**30:.2f} GiB; {macs / 1e9:.3f} G multiply-adds "
+        f"per image forward, {flops / 1e9:.2f} GFLOP per trained image: "
+        f"{rate * flops / 1e12:.1f} TFLOP/s, MFU {mfu[0]:.2f}% of "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s (without the fetch "
+        f"{mfu[1]:.2f}%); loss {'fell' if falling else 'did not fall'}; "
+        f"launches {launches} on {card}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{name} training launched flash kernels: "
+                             f"{launches}")
+    if name in ZOO_FALLING and not falling:
+        raise AssertionError(f"{name}: the fixed batch's loss did not "
+                             f"fall: {losses}")
+    opt.set_end_when(max_iteration(len(hist) + 1))
+    profile(f"bf16 {name} training step B{ZOO_BATCH}", opt.optimize, card,
+            R50_CATEGORIES)
+    return falling
+
+
+def zoo_per_layer(card: str, name: str, model) -> None:
+    """perf.py's per_layer_report at ZOO_BATCH in bf16 on the card, MFU
+    against the dense bf16 peak; the rows go to the log."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models import perf
+
+    x = torch.from_numpy(np.stack([s.feature for s in perf.records(
+        name, ZOO_BATCH, seed=SEED + 9)])).to(DEVICE)
+    log(f"[zoo] {name}: per-layer forward attribution, bf16 B{ZOO_BATCH}, "
+        f"{'train' if model.training else 'eval'} mode, on {card}:")
+    rows = perf.per_layer_report(model, x,
+                                 peak_tflops=PEAK_FLOPS["bfloat16"] / 1e12,
+                                 file=sys.stderr, precision="bf16")
+    heavy = sorted(rows, key=lambda r: -r["ms"])[:5]
+    log(f"[zoo] {name}: {len(rows)} leaves, {sum(r['ms'] for r in rows):.3f}"
+        f" ms; the five longest: " + "; ".join(
+            f"#{r['index']} {r['type']} {r['ms']:.3f} ms "
+            f"{100 * r.get('mfu', 0):.1f}% MFU" for r in heavy))
+
+
+def zoo_step(model, x, y, device: str, dtype) -> tuple:
+    """One training-mode forward and backward: log-probs and gradients in
+    float64 on the host."""
+    import torch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    model.train()
+    logp = model(torch.from_numpy(x).to(device, dtype))
+    loss = ClassNLLCriterion().apply(logp, torch.from_numpy(y).to(device))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return logp.detach().double().cpu(), [g.double().cpu() for g in grads]
+
+
+def zoo_check(card: str, name: str, cpu_model) -> None:
+    """One B2 training-mode step with every Dropout at p = 0, TF32 off, on
+    the card against the port's CPU path from the same weights and batch:
+    fp32 log-probs within ZOO_LOGP_ATOL, the gradient's norm within
+    ZOO_GRAD_RTOL relative.  Both fp32 steps' distances from the CPU's
+    float64 step are logged beside."""
+    import copy
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models import perf
+
+    batch = perf.records(name, ZOO_CHECK_BATCH, seed=SEED + 11)
+    x = np.stack([s.feature for s in batch])
+    y = np.stack([s.label for s in batch]).reshape(-1)
+    runs = {}
+    with tf32_off():
+        for dev, dtype in (("cpu", torch.float32), (DEVICE, torch.float32),
+                           ("cpu", torch.float64)):
+            m = set_dropout(copy.deepcopy(cpu_model), 0.0).to(dev, dtype)
+            runs[(dev, dtype)] = zoo_step(m, x, y, dev, dtype)
+            del m
+
+    def vec(run):
+        return torch.cat([g.flatten() for g in run[1]])
+
+    card32, cpu32, cpu64 = (runs[k] for k in (
+        (DEVICE, torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64)))
+    lp = (card32[0] - cpu32[0]).abs().max().item()
+    g_card, g_cpu, g64 = vec(card32), vec(cpu32), vec(cpu64)
+    norm = (abs(g_card.norm() - g_cpu.norm()) / g_cpu.norm()).item()
+    whole = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+    log(f"[zoo] {name}: step B{ZOO_CHECK_BATCH}, TF32 off, fp32 card "
+        f"against CPU: log-probs {lp:.2e} (limit {ZOO_LOGP_ATOL}), gradient "
+        f"norm {norm:.2e} (limit {ZOO_GRAD_RTOL}), whole gradient "
+        f"||diff||/||ref|| {whole:.2e}; from the CPU's float64 step: card "
+        f"{((g_card - g64).norm() / g64.norm()).item():.2e}, CPU "
+        f"{((g_cpu - g64).norm() / g64.norm()).item():.2e}, log-probs "
+        f"{(card32[0] - cpu64[0]).abs().max().item():.2e} and "
+        f"{(cpu32[0] - cpu64[0]).abs().max().item():.2e}; on {card}")
+    if not (lp <= ZOO_LOGP_ATOL and norm <= ZOO_GRAD_RTOL):
+        raise AssertionError(f"{name} step: the card and the CPU disagree")
+
+
+def zoo_predict(card: str, name: str, model) -> None:
+    """Predictor on the card (eval mode, fp32, TF32 off) against the CPU's
+    eval forward of a copy of the same weights."""
+    import copy
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models import perf
+    from bigdl_tpu_torch.optim import Predictor
+
+    x = np.stack([s.feature for s in perf.records(
+        name, ZOO_PRED_BATCH, seed=SEED + 12)])
+    with tf32_off():
+        got = Predictor(model, device=DEVICE).predict(
+            x, batch_size=ZOO_PRED_BATCH)
+    with torch.inference_mode():
+        ref = copy.deepcopy(model).to("cpu").eval()(
+            torch.from_numpy(x)).numpy()
+    err = float(np.abs(got - ref).max())
+    log(f"[zoo] {name}: Predictor on the card against the CPU eval "
+        f"forward, fp32 B{ZOO_PRED_BATCH}: max abs {err:.2e} (limit "
+        f"{ZOO_PRED_ATOL}; max |log-prob| {np.abs(ref).max():.3f}); "
+        f"training mode kept: {model.training}")
+    if not (got.shape == ref.shape and err <= ZOO_PRED_ATOL and
+            model.training):
+        raise AssertionError(f"{name}: Predictor disagrees with the CPU")
+
+
+def zoo_dropout_repeat(card: str, name: str, cpu_model) -> None:
+    """One bf16 step of ZOO_DROP_BATCH images through
+    Optimizer.create(...).optimize() with every Dropout active, run twice
+    from the same weights and seed: bit-identical weights after it (cuDNN
+    deterministic for the check); the same step at p = 0 must differ."""
+    import copy
+    import torch
+    from bigdl_tpu_torch.models import perf
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    samples = perf.records(name, ZOO_DROP_BATCH, seed=SEED + 10)
+    runs = []
+    with cudnn_deterministic():
+        for p in (None, None, 0.0):
+            m = copy.deepcopy(cpu_model).to(DEVICE)
+            if p is not None:
+                set_dropout(m, p)
+            RandomGenerator.RNG().set_seed(SEED)
+            (Optimizer.create(m, samples, perf.criterion(name),
+                              batch_size=ZOO_DROP_BATCH, device=DEVICE)
+             .set_optim_method(SGD(0.01, momentum=0.9))
+             .set_precision("bf16").set_end_when(max_iteration(1))
+             .optimize())
+            runs.append([t.detach().clone() for t in m.parameters()])
+            del m
+    same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    moved = not all(torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
+    log(f"[zoo] {name}: one Dropout step run twice from one seed "
+        f"bit-identical: {same}; differs from the step at p = 0: {moved}")
+    if not (same and moved):
+        raise AssertionError(f"{name}: Dropout steps not reproducible, or "
+                             "Dropout did nothing")
+
+
+def phase_zoo(card: str) -> None:
+    """Phase 9: AlexNet, VGG-16, VGG-19 and Inception-v1 through perf.py's
+    training protocol, each checked against the CPU, served and its
+    Dropout step repeated, with cuDNN's autotuner on for the phase only;
+    no flash kernel may launch."""
+    import copy
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.models import perf
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    log(f"[zoo] torch.backends.cudnn.benchmark set to True for phase 9 "
+        f"(was {saved}); put back after")
+    fa.reset_launches()
+    fell = {}
+    try:
+        for name in ZOO_MODELS:
+            t = time.perf_counter()
+            cpu_model = perf.build_model(name, device="cpu")
+            model = copy.deepcopy(cpu_model).to(DEVICE)
+            log(f"[zoo] {name}: {sum(p.numel() for p in model.parameters()):,}"
+                f" parameters built in {time.perf_counter() - t:.1f} s, "
+                f"seed {SEED}, on {card}")
+            fell[name] = zoo_training(card, name, model)
+            if name in ZOO_PER_LAYER:
+                zoo_per_layer(card, name, model)
+            zoo_predict(card, name, model)
+            del model
+            torch.cuda.empty_cache()
+            zoo_check(card, name, cpu_model)
+            zoo_dropout_repeat(card, name, cpu_model)
+            torch.cuda.empty_cache()
+            log(f"[zoo] {name}: {time.perf_counter() - t:.1f} s in all")
+        if any(fa.launches.values()):
+            raise AssertionError(f"phase 9 launched flash kernels: "
+                                 f"{dict(fa.launches)}")
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    log(f"[zoo] fixed-batch loss fell: {fell}")
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
@@ -1529,6 +1842,8 @@ def main() -> int:
     phase_lm_serving(card, lm(flash=True))
     torch.cuda.empty_cache()
     phase_resnet(card)
+    torch.cuda.empty_cache()
+    phase_zoo(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step)
