@@ -39,20 +39,32 @@ class ChainedTransformer(Transformer):
 
 
 class SampleToMiniBatch(Transformer):
-    """Group a Sample stream into MiniBatches of ``batch_size``
-    (reference ``SampleToMiniBatch``, ``dataset/Transformer.scala:309``).
-    An incomplete trailing batch is emitted (the looped training iterator
-    never produces one).  The per-partition split of a global batch comes
-    with ``ShardedDataSet``."""
+    """Group a Sample stream into MiniBatches (reference
+    ``SampleToMiniBatch``, ``dataset/Transformer.scala:309``).
 
-    def __init__(self, batch_size: int):
-        self.batch_size = batch_size
+    ``total_batch`` is the global batch size; each iterator's batch is
+    ``total_batch / partition_num``, as the reference divides per partition
+    (``dataset/Utils.scala:25``).  An incomplete trailing batch is emitted
+    (the looped training iterator never produces one).  The padding of
+    ragged samples (``feature_padding``/``label_padding``) is not ported."""
+
+    def __init__(self, total_batch: int, partition_num: int = 1,
+                 feature_padding=None, label_padding=None):
+        if feature_padding is not None or label_padding is not None:
+            raise NotImplementedError(
+                "SampleToMiniBatch padding (PaddingParam) is not ported yet")
+        if total_batch % partition_num != 0:
+            raise ValueError(
+                f"total batch size {total_batch} must be divisible by "
+                f"partition number {partition_num} (reference "
+                "dataset/Utils.scala:25)")
+        self.batch_per_partition = total_batch // partition_num
 
     def __call__(self, it: Iterator[Sample]) -> Iterator[MiniBatch]:
         buf: List[Sample] = []
         for s in it:
             buf.append(s)
-            if len(buf) == self.batch_size:
+            if len(buf) == self.batch_per_partition:
                 yield MiniBatch.from_samples(buf)
                 buf = []
         if buf:

@@ -12,9 +12,16 @@ Run on a card::
 ``--per-layer`` prints each leaf's forward time, FLOPs and MFU
 (:func:`per_layer_report`) instead of running the training loop.  The
 entry point runs on CUDA and raises without it; ``main(argv,
-device="cpu")`` runs it on the CPU.  ``--partitions`` above 1 needs
-``DistriOptimizer``, which the port does not have yet, and raises
-:class:`NotImplementedError`.
+device="cpu")`` runs it on the CPU.  ``--partitions N`` above 1 trains
+data-parallel through ``DistriOptimizer`` over ``N`` ranks, one process
+each, with ``-b`` the global batch::
+
+    torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.perf -m vgg16 \\
+        --precision bf16 -b 512 --partitions 4
+
+It joins the ``torchrun`` group through ``Engine.init_distributed`` (a
+caller that built the group itself keeps it) and raises
+:class:`ValueError` when the group's size is not ``N``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 import logging
 import math
+import os
 import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -31,8 +39,9 @@ import torch
 from torch.func import functional_call
 
 from bigdl_tpu_torch import models, nn
-from bigdl_tpu_torch.dataset import LocalDataSet, Sample, SampleToMiniBatch
-from bigdl_tpu_torch.engine import DeviceLike, default_device
+from bigdl_tpu_torch.dataset import (LocalDataSet, Sample, SampleToMiniBatch,
+                                     ShardedDataSet)
+from bigdl_tpu_torch.engine import DeviceLike, Engine, default_device
 from bigdl_tpu_torch.nn.table import _axis
 from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
 from bigdl_tpu_torch.optim.optimizer import cast_floats
@@ -108,14 +117,19 @@ def criterion(name: str) -> nn.Criterion:
 def train_throughput(model: nn.Module, samples: List[Sample],
                      crit: nn.Criterion, batch_size: int, iterations: int,
                      precision: Optional[str] = None,
-                     device: DeviceLike = "cuda") -> Tuple[Optimizer, float]:
-    """The harness's training protocol (``perf.py:234-252``): SGD(0.01,
+                     device: DeviceLike = "cuda",
+                     partitions: int = 1) -> Tuple[Optimizer, float]:
+    """The harness's training protocol (``perf.py:231-252``): SGD(0.01,
     momentum 0.9) through ``Optimizer.create(...).optimize()``, a warm-up
     run of 2 iterations, then a timed run of ``iterations`` more.  Returns
     the optimizer (its ``history`` holds every iteration, the timed ones
     last) and the timed run's wall seconds; each iteration ends in a host
-    read of its loss, so the wall time covers the device's work."""
-    ds = LocalDataSet(samples).transform(SampleToMiniBatch(batch_size))
+    read of its loss, so the wall time covers the device's work.
+    ``partitions`` above 1 shards the samples over that many ranks of the
+    default process group, ``batch_size`` being the global batch."""
+    ds = (ShardedDataSet(samples, partitions) if partitions > 1
+          else LocalDataSet(samples)).transform(
+        SampleToMiniBatch(batch_size, partitions))
     opt = Optimizer.create(model, ds, crit, device=device)
     opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
     opt.set_precision(precision)
@@ -266,7 +280,8 @@ def main(argv=None, device: DeviceLike = "cuda"):
     p.add_argument("-b", "--batch-size", type=int, default=64)
     p.add_argument("-i", "--iterations", type=int, default=20)
     p.add_argument("--partitions", type=int, default=1,
-                   help=">1: DistriOptimizer (not in the port yet: raises)")
+                   help=">1: DistriOptimizer over that many ranks (launch "
+                        "with torchrun --nproc_per_node N)")
     p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
                    help="compute precision of the step (fp32 matches the "
                         "reference harness)")
@@ -280,12 +295,16 @@ def main(argv=None, device: DeviceLike = "cuda"):
                    help="the card's peak for the per-layer MFU column (989 "
                         "for an H100 SXM in bf16)")
     args = p.parse_args(argv)
-    if args.partitions > 1:
-        raise NotImplementedError(
-            f"--partitions {args.partitions}: data-parallel training needs "
-            "DistriOptimizer, which the port does not have yet")
     _init_logging()
     dev = default_device(device)
+    if args.partitions > 1:
+        if "WORLD_SIZE" in os.environ:
+            Engine.init_distributed(device=dev)
+        if Engine.node_number() != args.partitions:
+            raise ValueError(
+                f"--partitions {args.partitions} needs as many ranks, but "
+                f"this run has {Engine.node_number()}: launch it with "
+                f"torchrun --nproc_per_node {args.partitions}")
     precision = "bf16" if args.precision == "bf16" else None
     model = build_model(args.model, args.layout.upper(), dev)
     if args.per_layer:
@@ -297,8 +316,9 @@ def main(argv=None, device: DeviceLike = "cuda"):
         return per_layer_report(model, x, peak_tflops=args.peak_tflops,
                                 precision=precision)
     opt, dt = train_throughput(
-        model, records(args.model, args.batch_size * 2), criterion(args.model),
-        args.batch_size, args.iterations, precision, dev)
+        model, records(args.model, max(args.batch_size, args.partitions) * 2),
+        criterion(args.model), args.batch_size, args.iterations, precision,
+        dev, args.partitions)
     print(f"[{args.model}] steady-state throughput "
           f"{args.batch_size * args.iterations / dt:.1f} records/second "
           f"({dt / args.iterations * 1e3:.1f} ms/iteration, batch "

@@ -61,6 +61,11 @@ class OptimMethod:
             self._slots = self.init_slots(params)
         return self._slots
 
+    def set_slots(self, slots: Dict[str, Tensors]) -> None:
+        """Adopt per-parameter slots (a data-parallel run publishes its
+        gathered shards here)."""
+        self._slots = slots
+
     def step_done(self) -> None:
         """Advance the host counters after a step."""
         self.state["evalCounter"] = self.state.get("evalCounter", 0) + 1

@@ -2,9 +2,10 @@
 factory, and the single-process ``LocalOptimizer``
 (``bigdl_tpu/optim/optimizer.py``: ``mixed_precision_forward`` :102,
 ``all_finite`` :145, ``select_tree`` :165, ``regularization_penalty`` :174,
-``Optimizer`` :246, ``Optimizer.create`` :1569, ``LocalOptimizer`` :1613, the
-training loop ``_drive`` :865; reference ``optim/Optimizer.scala:42,268``,
-``optim/LocalOptimizer.scala:41``).
+``Optimizer`` :246, ``_sync_dataset_epoch`` :667, ``Optimizer.create`` :1569,
+``LocalOptimizer`` :1613, the training loop ``_drive`` :865; reference
+``optim/Optimizer.scala:42,268``, ``optim/LocalOptimizer.scala:41``).  The
+data-parallel trainer is :mod:`bigdl_tpu_torch.parallel.distri_optimizer`.
 
 The JAX package fuses one training step into one jitted program.  Here the
 step is eager PyTorch on the model's device: the forward (bf16 through
@@ -25,6 +26,9 @@ bad steps.  It reads each step's loss on the host once.
 Not ported yet: checkpoints, validation, the failure-retry loop, telemetry
 and the step-time account, integrity fingerprints, the microbatch re-plan
 after a device OOM, the compile cache, preemption and the batch prefetcher.
+The keys that ask for the last three (``bigdl.integrity.everyN``,
+``bigdl.elastic.handleSignals``, ``bigdl.prefetch.depth``) raise
+:class:`NotImplementedError` (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.func import functional_call
 
-from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, LocalDataSet
+from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, LocalDataSet,
+                                             ShardedDataSet)
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch)
 from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
@@ -165,7 +170,22 @@ def _yields_minibatches(ds: AbstractDataSet) -> bool:
         if isinstance(t, ChainedTransformer):
             return any(has_batcher(s) for s in t.stages)
         return False
+    if isinstance(ds, ShardedDataSet):   # every shard has the same chain
+        ds = next(iter(ds.shards.values()))
     return any(has_batcher(t) for t in getattr(ds, "transformers", ()))
+
+
+def refuse_unported() -> None:
+    """Raise :class:`NotImplementedError` where a config key asks a
+    trainer for a feature the port does not have yet."""
+    asked = [k for k in ("bigdl.integrity.everyN", "bigdl.prefetch.depth")
+             if config.get_int(k, 0) > 0]
+    if config.get_bool("bigdl.elastic.handleSignals", False):
+        asked.append("bigdl.elastic.handleSignals")
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: integrity fingerprints, the batch "
+            "prefetcher and elastic drain/resume are not ported yet")
 
 
 def _initial_loop_state() -> Dict[str, Any]:
@@ -223,6 +243,15 @@ class Optimizer:
 
     def _optimize(self) -> torch.nn.Module:
         raise NotImplementedError
+
+    def _sync_dataset_epoch(self) -> None:
+        """Set a ``ShardedDataSet``'s shuffle round to ``epoch - 1``, so
+        that the first reshuffle of a run that continues at epoch E draws
+        epoch E's permutation (shuffles are pure in ``(seed, round)``); a
+        ``LocalDataSet`` has no rounds."""
+        sync = getattr(self.dataset, "set_shuffle_round", None)
+        if sync is not None:
+            sync(self.optim_method.state.get("epoch", 1) - 1)
 
     def _drive(self, fetch_batch, run_step, reset_epoch,
                epoch_size: int) -> Dict[str, Any]:
@@ -296,17 +325,25 @@ class Optimizer:
                batch_size: Optional[int] = None,
                device: DeviceLike = "cuda") -> "Optimizer":
         """(reference ``Optimizer.apply:268``): a list of samples or a
-        ``LocalDataSet`` gives a :class:`LocalOptimizer`; ``batch_size``
-        adds a ``SampleToMiniBatch`` where the dataset has none.  The
-        distributed trainer is not ported yet."""
+        ``LocalDataSet`` gives a :class:`LocalOptimizer`, a
+        ``ShardedDataSet`` a :class:`~bigdl_tpu_torch.parallel.
+        distri_optimizer.DistriOptimizer` over the default process group;
+        ``batch_size`` (the global batch) adds a
+        ``SampleToMiniBatch(batch_size, partition_num)`` where the dataset
+        has none."""
         if isinstance(dataset, (list, tuple)):
             dataset = LocalDataSet(dataset)
-        if not isinstance(dataset, LocalDataSet):
+        if not isinstance(dataset, (LocalDataSet, ShardedDataSet)):
             raise NotImplementedError(
-                f"{type(dataset).__name__}: only LocalDataSet is ported; "
-                "the distributed trainer comes with ShardedDataSet")
+                f"{type(dataset).__name__}: only LocalDataSet and "
+                "ShardedDataSet are ported")
         if batch_size is not None and not _yields_minibatches(dataset):
-            dataset = dataset.transform(SampleToMiniBatch(batch_size))
+            dataset = dataset.transform(SampleToMiniBatch(
+                batch_size, getattr(dataset, "partition_num", 1)))
+        if isinstance(dataset, ShardedDataSet):
+            from bigdl_tpu_torch.parallel.distri_optimizer import \
+                DistriOptimizer
+            return DistriOptimizer(model, dataset, criterion, device=device)
         return LocalOptimizer(model, dataset, criterion, device=device)
 
 
@@ -343,6 +380,7 @@ class LocalOptimizer(Optimizer):
         return loss
 
     def _optimize(self) -> torch.nn.Module:
+        refuse_unported()
         self.model.train()
         # one generator on the device, seeded afresh each step: the same
         # seed and data give the same masks, run after run

@@ -46,6 +46,16 @@ _DEFAULTS: Dict[str, Any] = {
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
+    "bigdl.prefetch.depth": 0,               # batch prefetcher (not ported: > 0 raises)
+    # data parallelism (bigdl_tpu_torch/parallel/distri_optimizer.py)
+    "bigdl.parallel.overlap": True,          # False = monolithic baseline step
+    "bigdl.parallel.overlapBuckets": 4,      # column buckets of the flat vector per step
+    "bigdl.elastic.globalShuffle": True,     # one global epoch permutation
+    # (ShardedDataSet); False = partition-local blocks shuffled apart
+    "bigdl.elastic.handleSignals": False,    # graceful drain + resume (not ported: raises)
+    "bigdl.integrity.everyN": 0,             # fingerprints (not ported: > 0 raises)
+    "bigdl.chaos.extraAllGather": False,     # audit fault injection (not ported: raises)
+    "bigdl.chaos.dropBucketCollective": None,  # audit fault injection (not ported: raises)
     # transformer_lm's remat argument left at its default: "nothing" /
     # "dots" / "save_attn" ask for remat (not ported yet); None = no remat
     "bigdl.remat.policy": None,

@@ -4,7 +4,8 @@
 
 The port's own copy: numpy's MT19937, one instance per thread, so that one
 seed gives both packages the same shuffles.  It has what the port draws so
-far (the dataset's shuffle); the reference's other draws come with the
+far (the dataset's shuffle, and the seed that ``ShardedDataSet``'s pure
+per-round shuffle starts from); the reference's other draws come with the
 transforms that use them.  Device-side randomness is a ``torch.Generator``
 the caller passes; this class never touches torch's or numpy's global
 generators.
@@ -39,6 +40,9 @@ class RandomGenerator:
         self._seed = seed
         self._rng = np.random.RandomState(seed)
         return self
+
+    def get_seed(self) -> int:
+        return self._seed
 
     def shuffle(self, arr) -> None:
         self._rng.shuffle(arr)

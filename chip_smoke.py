@@ -2,6 +2,8 @@
 """Drive the PyTorch port (``bigdl_tpu_torch``) on one CUDA card, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp 4 nccl     # phase 10's data-parallel legs
+                                          # and the LM on 4 cards
 
 Phases, each fatal on any fault:
 
@@ -101,12 +103,41 @@ Phases, each fatal on any fault:
    step logged); ``Predictor`` on the card against the CPU's eval forward
    of the trained weights (fp32, B8, TF32 off, 1e-4); one bf16 Dropout step
    of 8 images run twice from the same weights and seed, bit-identical
-   (cuDNN deterministic for the check) and unlike the step at p = 0.
+   (cuDNN deterministic for the check) and unlike the step at p = 0;
+10. data-parallel training: ``Engine.init_distributed(backend="nccl",
+   init_method="file://...", rank=0, world_size=1)``, a real NCCL group of
+   one rank (NCCL refuses two ranks on one card), destroyed after.  The
+   134M LM, built afresh from the seed, trained DISTRI_STEPS bf16 steps
+   (SGD(0.01, momentum 0.9), B8/T2048) through ``Optimizer.create(model,
+   ShardedDataSet(samples, 1).transform(SampleToMiniBatch(8, 1)), crit)``,
+   a ``DistriOptimizer`` with 4 buckets.  Gates: the trainer's type,
+   finite losses, each bf16 flash kernel launched 8 times a step; one
+   profiled step of each schedule issues the bucketed schedule's 4
+   reduce-scatters and 4 all-gathers (the one-block schedule's 1 and 1)
+   and the all-gather that publishes the momentum, each seen on the host
+   and as NCCL's span on the card (at one rank NCCL copies, or does
+   nothing for an in-place gather); from the same weights and rows,
+   ``LocalOptimizer`` agrees within DISTRI_LOSS_RTOL / DISTRI_WEIGHT_ATOL
+   (expected: equal, and logged), the one-block schedule is bit-identical
+   to the bucketed one, and ``compression="bf16"`` stays within
+   DISTRI_BF16_LOSS_RTOL / DISTRI_BF16_UPDATE_RTOL of the fp32 wire.
+   Logged: step time and tokens/s beside ``LocalOptimizer``'s in this
+   phase and phase 6's, peak memory, the profiles by category with NCCL
+   apart.  Then ResNet-50 as phase 8 builds it, R50_DISTRI_STEPS bf16
+   iterations at B128 through a ``DistriOptimizer`` (finite losses, the
+   last below the first, every BatchNorm statistic finite and moved, no
+   flash launch; step time and images/s beside phase 8's).  Then the rank
+   logic at dp = 2 on CPU tensors over gloo, in two child processes of
+   this script (``--dp-rank``; a hard timeout, both killed when one
+   fails): the reference test's MLP and conv + BatchNorm model in both
+   schedules, the ranks and the schedules bit-identical, and weights,
+   momentum and statistics within rtol 2e-4 / atol 2e-5 of a
+   ``LocalOptimizer`` over the same full batch.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
-its launches on its main path; phases 8 and 9 run none of them), then the
-result line
+its launches on its main path and, as ``distri_launches``, in phase 10's LM
+run; phases 8 and 9 run none of them), then the result line
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
@@ -206,6 +237,19 @@ ZOO_GRAD_RTOL = 1e-3    # fp32 gradient norm, card against CPU
 ZOO_PRED_BATCH = 8
 ZOO_PRED_ATOL = 1e-4    # Predictor on the card against the CPU forward
 ZOO_DROP_BATCH = 8      # the Dropout step run twice
+#: phase 10: DistriOptimizer over a real NCCL group of one rank
+DISTRI_STEPS = 8
+DISTRI_BUCKETS = 4          # bigdl.parallel.overlapBuckets (its default)
+DISTRI_LOSS_RTOL = 1e-4     # DistriOptimizer against LocalOptimizer from
+DISTRI_WEIGHT_ATOL = 1e-4   # the same weights and rows (expected: equal)
+DISTRI_BF16_LOSS_RTOL = 1e-3    # the bf16 gradient wire against fp32's:
+DISTRI_BF16_UPDATE_RTOL = 2e-2  # losses, and ||dW_bf16 - dW|| / ||dW|| of
+                                # the trained weights' change dW
+R50_DISTRI_STEPS = 5
+#: phase 10's data-parallel legs over several ranks: (model, steps, lr)
+DP_LEGS = (("mlp", 6, 0.2), ("bn", 4, 0.1))
+DP_RTOL, DP_ATOL = 2e-4, 2e-5     # tests/test_distri_optimizer.py:111
+DP_TIMEOUT = 420.0          # seconds for all ranks, then they are killed
 TPU_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNEL_FILES = {   # kind -> (source, the TPU kernel it replaces)
     "fwd": ("bigdl_tpu_torch/csrc/flash_attention_fwd.cu", f"{TPU_FLASH}:589"),
@@ -230,6 +274,12 @@ STEP_CATEGORIES = (
     ("optimizer update", ("multi_tensor_apply", "foreach")),
     ("casts and copies", ("copy", "convert")),
 )
+
+#: a data-parallel LM step: NCCL's kernels and the device copies apart
+DISTRI_CATEGORIES = (
+    ("NCCL kernels", ("nccldevkernel",)),
+    ("device-to-device memcpy", ("memcpy",)),
+) + STEP_CATEGORIES
 
 
 #: kernel-name fragments -> the share of a convnet training step (ResNet-50,
@@ -281,12 +331,13 @@ def time_ms(fn, warmup: int = 3, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile(label: str, fn, card: str, categories=()) -> None:
+def profile(label: str, fn, card: str, categories=()):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of that call's (profiled) wall time; with
     ``categories`` ((name, fragments) pairs) also the device time of the
     kernels whose names hold each category's fragments, and of the
-    operators that launched the most of it."""
+    operators that launched the most of it.  Returns the profile's
+    ``key_averages()``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -297,15 +348,18 @@ def profile(label: str, fn, card: str, categories=()) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    # NCCL's ``nccl:*`` records span its kernels (or copies) on the card:
+    # counting them too would count that device time twice
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key)
          for e in prof.key_averages()
          if str(e.device_type).endswith("CUDA") and
-         e.self_device_time_total > 0), reverse=True)
+         e.self_device_time_total > 0 and not e.key.startswith("nccl:")),
+        reverse=True)
     if not rows:
         log(f"[profile] {label}: the profiler recorded no device time "
             "(not measured)")
-        return
+        return prof.key_averages()
     busy = sum(r[0] for r in rows)
     log(f"[profile] {label}: profiled wall {wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%) on {card}")
@@ -328,6 +382,7 @@ def profile(label: str, fn, card: str, categories=()) -> None:
                       e.self_device_time_total > 0), reverse=True)
         log(f"[profile] {label} by operator: " + "; ".join(
             f"{key} x{count} {ms:.3f} ms" for ms, count, key in ops[:8]))
+    return prof.key_averages()
 
 
 def kernel_resources(log_text: str) -> list:
@@ -749,13 +804,13 @@ def phase_mixed_precision(card: str, model) -> dict:
     return launches
 
 
-def lm_samples():
-    """16 rows of 2049 token ids from a numpy seed: features are ids
+def lm_samples(n: int = TRAIN_SAMPLES):
+    """``n`` rows of 2049 token ids from a numpy seed: features are ids
     0..2047, labels the next ids."""
     import numpy as np
     from bigdl_tpu_torch.dataset import Sample
     ids = np.random.default_rng(SEED + 3).integers(
-        1, VOCAB + 1, (TRAIN_SAMPLES, SEQ + 1)).astype(np.float32)
+        1, VOCAB + 1, (n, SEQ + 1)).astype(np.float32)
     return [Sample(r[:-1], r[1:]) for r in ids]
 
 
@@ -764,11 +819,11 @@ def lm_criterion():
     return TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
 
 
-def phase_training(card: str, model) -> dict:
+def phase_training(card: str, model) -> tuple:
     """The main path of the training slice: the 134M LM with flash=True
     trained through Optimizer.create(...).optimize() in bf16 with
     SGD(0.01, momentum 0.9), B8/T2048.  Returns the launch counts of the
-    run."""
+    run and its median step time in seconds."""
     import numpy as np
     import torch
     from bigdl_tpu_torch.dataset import LocalDataSet, SampleToMiniBatch
@@ -831,7 +886,7 @@ def phase_training(card: str, model) -> dict:
     opt.set_end_when(max_iteration(TRAIN_STEPS + 1))
     profile(f"bf16 training step B{TRAIN_BATCH}/T{SEQ}", opt.optimize, card,
             STEP_CATEGORIES)
-    return launches
+    return launches, step_s
 
 
 def phase_fp32_grads(card: str, model) -> dict:
@@ -1245,11 +1300,11 @@ def tf32_off():
             f.allow_tf32 = v
 
 
-def phase_resnet_training(card: str, model) -> dict:
+def phase_resnet_training(card: str, model) -> tuple:
     """The convnet slice's main path: ResNet-50 trained through
     Optimizer.create(...).optimize() in bf16, B128 at 224 x 224, SGD(0.01,
     momentum 0.9), on one fixed batch.  Returns the run's flash launches
-    (all must be 0)."""
+    (all must be 0) and its median step time in seconds."""
     import torch
     from bigdl_tpu_torch.dataset import Sample
     from bigdl_tpu_torch.kernels import flash_attention as fa
@@ -1330,7 +1385,7 @@ def phase_resnet_training(card: str, model) -> dict:
         f"{host_ms:.2f} ms of host enqueue a call (mean of 10, unprofiled)")
     profile(f"all_finite over the step's {len(grads)} gradient tensors",
             lambda: all_finite(loss, grads), card)
-    return launches
+    return launches, step_s
 
 
 def r50_step(model, x, y, device: str, dtype) -> tuple:
@@ -1482,10 +1537,10 @@ def phase_resnet_inference(card: str, model) -> None:
                 card, R50_CATEGORIES)
 
 
-def phase_resnet(card: str) -> dict:
+def phase_resnet(card: str) -> tuple:
     """Phase 8: ResNet-50 trained, checked against the CPU and served, with
     cuDNN's autotuner on for the phase only.  Returns the flash launches of
-    the training run."""
+    the training run and its median step time in seconds."""
     import torch
     from bigdl_tpu_torch.kernels import flash_attention as fa
 
@@ -1499,7 +1554,7 @@ def phase_resnet(card: str) -> dict:
         log(f"[resnet] {sum(p.numel() for p in model.parameters()):,} "
             f"parameters built in {time.perf_counter() - t:.1f} s on {card}")
         fa.reset_launches()
-        launches = phase_resnet_training(card, model)
+        launches, step_s = phase_resnet_training(card, model)
         phase_resnet_check(card)
         phase_resnet_inference(card, model)
         if any(fa.launches.values()):
@@ -1507,7 +1562,7 @@ def phase_resnet(card: str) -> dict:
                                  f"{dict(fa.launches)}")
     finally:
         torch.backends.cudnn.benchmark = saved
-    return launches
+    return launches, step_s
 
 
 @contextlib.contextmanager
@@ -1783,12 +1838,577 @@ def phase_zoo(card: str) -> None:
     log(f"[zoo] fixed-batch loss fell: {fell}")
 
 
+@contextlib.contextmanager
+def parallel_overlap(on: bool):
+    """``bigdl.parallel.overlap`` set to ``on`` in the block (bucketed or
+    one-block collectives), cleared after."""
+    from bigdl_tpu_torch.utils import config
+    config.set_property("bigdl.parallel.overlap", on)
+    try:
+        yield
+    finally:
+        config.clear_property("bigdl.parallel.overlap")
+
+
+def collective_calls(events, side: str = "CPU") -> dict:
+    """Calls of each collective in a profile's ``key_averages()`` on one
+    side: on the host, the largest count among the events whose names hold
+    it (torch records one call under several names: the c10d operator,
+    NCCL's or gloo's own record); on the card (``side="CUDA"``), the
+    device-side spans NCCL's records open (``nccl:*``)."""
+    kinds = (("reduce_scatter", ("reduce_scatter",)),
+             ("all_gather", ("allgather", "all_gather")))
+    return {kind: max([e.count for e in events
+                       if str(e.device_type).endswith(side) and
+                       (side == "CPU" or e.key.startswith("nccl:")) and
+                       any(f in e.key.lower() for f in frags)], default=0)
+            for kind, frags in kinds}
+
+
+def distri_lm_run(model, init, samples, distri: bool, overlap: bool = True,
+                  compression=None) -> tuple:
+    """DISTRI_STEPS bf16 steps of the LM with SGD(0.01, momentum 0.9) from
+    the weights ``init``, over a one-partition ShardedDataSet (the same
+    rows in the same order for either trainer): through
+    Optimizer.create(...) (a DistriOptimizer), a DistriOptimizer with
+    ``compression``, or a LocalOptimizer.  Returns the optimizer, the
+    run's flash launches, its peak memory and the trained weights."""
+    import torch
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Optimizer,
+                                       max_iteration)
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), init, strict=True):
+            p.copy_(v)
+    RandomGenerator.RNG().set_seed(SEED)
+    ds = ShardedDataSet(samples, 1).transform(SampleToMiniBatch(TRAIN_BATCH,
+                                                                1))
+    crit = lm_criterion()
+    if not distri:
+        opt = LocalOptimizer(model, ds, crit, device=DEVICE)
+    elif compression is not None:
+        opt = DistriOptimizer(model, ds, crit, compression=compression,
+                              device=DEVICE)
+    else:
+        opt = Optimizer.create(model, ds, crit, device=DEVICE)
+    (opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
+     .set_end_when(max_iteration(DISTRI_STEPS)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with parallel_overlap(overlap):
+        opt.optimize()
+    torch.cuda.synchronize()
+    return (opt, dict(fa.launches), torch.cuda.max_memory_allocated(),
+            [p.detach().clone() for p in model.parameters()])
+
+
+def distri_profile(card: str, opt, overlap: bool, buckets: int) -> None:
+    """Profile one more step of ``opt`` by category (NCCL apart) and gate
+    the collectives it issued: ``buckets`` reduce-scatters and as many
+    all-gathers, plus the all-gather that publishes SGD's one slot family
+    at the end of optimize(), each seen on the host and, as NCCL's
+    device-side span, on the card.  At one rank NCCL runs a reduce-scatter
+    or an out-of-place all-gather as a device-to-device copy and an
+    in-place all-gather (the one-block schedule's) or an all-reduce as
+    nothing, so no NCCL kernel runs and the in-place gather has no span."""
+    from bigdl_tpu_torch.optim import max_iteration
+    opt.set_end_when(max_iteration(len(opt.history) + 1))
+    name = "bucketed" if overlap else "one-block"
+    with parallel_overlap(overlap):
+        events = profile(f"bf16 DistriOptimizer step B{TRAIN_BATCH}/T{SEQ}, "
+                         f"{name} collectives", opt.optimize, card,
+                         DISTRI_CATEGORIES)
+    calls = collective_calls(events)
+    spans = collective_calls(events, "CUDA")
+    rows = [(e.key, str(e.device_type).rsplit(".", 1)[-1], e.count,
+             round(e.self_device_time_total / 1e3, 3)) for e in events
+            if any(f in e.key.lower() for f in ("nccl", "c10d", "memcpy"))]
+    log(f"[distri] {name} step: collective calls {calls}, their spans on "
+        f"the card {spans}; events (name, side, count, device ms) "
+        f"{sorted(rows)}")
+    expect = {"reduce_scatter": buckets, "all_gather": buckets + 1}
+    on_card = dict(expect, all_gather=buckets + 1 if overlap else 1)
+    if calls != expect or spans != on_card:
+        raise AssertionError(f"{name} step issued {calls} with spans "
+                             f"{spans}, expected {expect} and {on_card}")
+
+
+def phase_distri_lm(card: str, train_step_s: float) -> dict:
+    """Phase 10 (b): the 134M LM, built afresh from the seed, trained
+    through Optimizer.create(model, ShardedDataSet(samples,
+    1).transform(SampleToMiniBatch(8, 1)), crit) (a DistriOptimizer over
+    the one-rank NCCL group) in bf16; held against LocalOptimizer from the
+    same weights and rows, the one-block schedule and the bf16 wire.
+    Returns the launch counts of the main run."""
+    import torch
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+
+    model = lm(flash=True)
+    init = [p.detach().clone() for p in model.parameters()]
+    samples = lm_samples()
+    local, _, local_peak, w_local = distri_lm_run(model, init, samples,
+                                                  False)
+    opt, launches, peak, w_opt = distri_lm_run(model, init, samples, True)
+    losses = [h["loss"] for h in opt.history]
+    steps = [h["seconds"] for h in opt.history]
+    step_s = statistics.median(steps[1:])
+    local_s = statistics.median(h["seconds"] for h in local.history[1:])
+    tokens = TRAIN_BATCH * SEQ
+    log(f"[distri] DistriOptimizer over NCCL, 1 rank, {DISTRI_BUCKETS} "
+        f"buckets: {DISTRI_STEPS} steps of B{TRAIN_BATCH}/T{SEQ}; losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x * 1e3, 2) for x in steps]}")
+    log(f"[distri] step {step_s * 1e3:.2f} ms (median of steps 2-"
+        f"{DISTRI_STEPS}), {tokens / step_s:,.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; LocalOptimizer in this phase "
+        f"{local_s * 1e3:.2f} ms ({tokens / local_s:,.0f} tokens/s, peak "
+        f"{local_peak / 2**30:.2f} GiB), in "
+        f"phase 6 {train_step_s * 1e3:.2f} ms ({tokens / train_step_s:,.0f} "
+        f"tokens/s); launches {launches} on {card}")
+    if type(opt) is not DistriOptimizer:
+        raise AssertionError(f"Optimizer.create gave {type(opt).__name__}")
+    if len(losses) != DISTRI_STEPS or not all(math.isfinite(x)
+                                              for x in losses):
+        raise AssertionError(f"DistriOptimizer losses {losses}")
+    expect = {f"flash_attention_{k}_bf16": N_LAYERS * DISTRI_STEPS
+              for k in ("fwd", "bwd_dkv", "bwd_dq")}
+    if {k: launches[k] for k in expect} != expect or any(
+            launches[k] for k in launches if k not in expect):
+        raise AssertionError(f"DistriOptimizer launches {launches}, "
+                             f"expected {expect} and no others")
+    buckets = len(opt._arp.bucket_edges(DISTRI_BUCKETS))
+    distri_profile(card, opt, True, buckets)
+
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(opt.history, local.history))
+    w_err = max((a - b).abs().max().item() for a, b in zip(w_opt, w_local))
+    log(f"[distri] against LocalOptimizer from the same weights and rows: "
+        f"losses {[h['loss'] for h in local.history]}; largest relative "
+        f"loss difference {loss_err:.3e} (rtol {DISTRI_LOSS_RTOL}), largest "
+        f"weight difference {w_err:.3e} (atol {DISTRI_WEIGHT_ATOL}); "
+        f"bit-identical: {loss_err == 0 and w_err == 0}")
+    if not (loss_err <= DISTRI_LOSS_RTOL and w_err <= DISTRI_WEIGHT_ATOL):
+        raise AssertionError("DistriOptimizer and LocalOptimizer disagree")
+
+    mono, _, _, w_mono = distri_lm_run(model, init, samples, True,
+                                       overlap=False)
+    same = ([h["loss"] for h in mono.history] == losses and
+            all(torch.equal(a, b) for a, b in zip(w_mono, w_opt)))
+    log(f"[distri] one-block against bucketed collectives: bit-identical "
+        f"{same}")
+    if not same:
+        raise AssertionError("the one-block and bucketed schedules differ")
+    distri_profile(card, mono, False, 1)
+
+    comp, _, _, w_comp = distri_lm_run(model, init, samples, True,
+                                       compression="bf16")
+    comp_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(comp.history, opt.history))
+    num = sum(((a - b).double() ** 2).sum().item()
+              for a, b in zip(w_comp, w_opt))
+    den = sum(((a - b).double() ** 2).sum().item()
+              for a, b in zip(w_opt, init))
+    update_err = math.sqrt(num / den)
+    log(f"[distri] compression='bf16' against the fp32 wire: largest "
+        f"relative loss difference {comp_loss:.3e} (rtol "
+        f"{DISTRI_BF16_LOSS_RTOL}), ||dW_bf16 - dW|| / ||dW|| "
+        f"{update_err:.3e} (rtol {DISTRI_BF16_UPDATE_RTOL})")
+    if not (comp_loss <= DISTRI_BF16_LOSS_RTOL and
+            update_err <= DISTRI_BF16_UPDATE_RTOL):
+        raise AssertionError("the bf16 wire strays from the fp32 wire")
+    return launches
+
+
+def phase_distri_resnet(card: str, r50_step_s: float) -> None:
+    """Phase 10 (c): ResNet-50 as phase 8 builds it (channels-last, B128,
+    bf16, one fixed batch) trained R50_DISTRI_STEPS iterations through a
+    DistriOptimizer over the one-rank NCCL group, cuDNN's autotuner on for
+    the leg.  Gates: finite losses, the last below the first, every
+    BatchNorm statistic finite and moved, no flash launch."""
+    import torch
+    from bigdl_tpu_torch.dataset import (Sample, SampleToMiniBatch,
+                                         ShardedDataSet)
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        model = resnet50(DEVICE)
+        x, y = r50_batch(R50_BATCH, SEED + 5)
+        samples = [Sample(x[i], y[i]) for i in range(R50_BATCH)]
+        before = bn_stats(model)
+        RandomGenerator.RNG().set_seed(SEED)
+        ds = ShardedDataSet(samples, 1).transform(
+            SampleToMiniBatch(R50_BATCH, 1))
+        opt = (Optimizer.create(model, ds, ClassNLLCriterion(),
+                                device=DEVICE)
+               .set_optim_method(SGD(0.01, momentum=0.9))
+               .set_precision("bf16")
+               .set_end_when(max_iteration(R50_DISTRI_STEPS)))
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        opt.optimize()
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    losses = [h["loss"] for h in opt.history]
+    step_s = statistics.median(h["seconds"] for h in opt.history[1:])
+    log(f"[distri] ResNet-50 through {type(opt).__name__}: losses "
+        f"{[round(v, 4) for v in losses]}; step ms "
+        f"{[round(h['seconds'] * 1e3, 2) for h in opt.history]}; step "
+        f"{step_s * 1e3:.2f} ms (median of iterations 2-"
+        f"{R50_DISTRI_STEPS}), {R50_BATCH / step_s:,.1f} images/s; phase "
+        f"8's LocalOptimizer {r50_step_s * 1e3:.2f} ms "
+        f"({R50_BATCH / r50_step_s:,.1f} images/s); launches {launches} on "
+        f"{card}")
+    if not (all(math.isfinite(v) for v in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError(f"ResNet-50 losses {losses}: not all finite, "
+                             "or the last not below the first")
+    after = bn_stats(model)
+    if not all(torch.isfinite(a).all() for a in after) or any(
+            torch.equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("BatchNorm running statistics not finite, or "
+                             "some did not move")
+    if any(launches.values()):
+        raise AssertionError(f"ResNet-50 launched flash kernels: {launches}")
+
+
+def dp_models(device: str) -> dict:
+    """The reference test's MLP and conv + BatchNorm model
+    (tests/test_distri_optimizer.py:27-34, :255-276), NCHW, their weights
+    drawn from the port's seeded CPU generators, on ``device``."""
+    from bigdl_tpu_torch import nn
+    mlp = (nn.Sequential().add(nn.Linear(4, 16, device=device))
+           .add(nn.Tanh()).add(nn.Linear(16, 2, device=device))
+           .add(nn.LogSoftMax()))
+    bn = (nn.Sequential().add(nn.Reshape((1, 8, 8)))
+          .add(nn.SpatialConvolution(1, 4, 3, 3, 1, 1, 1, 1, device=device))
+          .add(nn.SpatialBatchNormalization(4, device=device))
+          .add(nn.ReLU()).add(nn.Reshape((4 * 8 * 8,)))
+          .add(nn.Linear(4 * 8 * 8, 2, device=device)).add(nn.LogSoftMax()))
+    return {"mlp": mlp, "bn": bn}
+
+
+def dp_data() -> dict:
+    """64 separable 4-feature rows of 2 classes, and 16 8 x 8 images whose
+    class lights a quadrant, from a numpy seed."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset import Sample
+    rng = np.random.default_rng(SEED + 11)
+    centers = rng.uniform(-4, 4, (2, 4))
+    labels = rng.integers(0, 2, 64)
+    x = (centers[labels] + rng.normal(0, 0.5, (64, 4))).astype(np.float32)
+    images = rng.normal(0, 0.1, (16, 8, 8)).astype(np.float32)
+    classes = rng.integers(0, 2, 16)
+    for img, c in zip(images, classes):
+        img[:4, 4 * c:4 * c + 4] += 1.0
+    return {"mlp": [Sample(r, np.float32(c + 1)) for r, c in zip(x, labels)],
+            "bn": [Sample(i, np.float32(c + 1))
+                   for i, c in zip(images, classes)]}
+
+
+def dp_dataset(name: str, data: dict, world: int):
+    """The MLP's ranks hold parts of one 64-row batch; every rank of the
+    conv + BN model holds the same 16 rows (partition-local blocks), since
+    BatchNorm normalises over a rank's own rows."""
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    if name == "mlp":
+        ds, batch = ShardedDataSet(data["mlp"], world), len(data["mlp"])
+    else:
+        ds = ShardedDataSet(data["bn"] * world, world, global_shuffle=False)
+        batch = len(data["bn"]) * world
+    return ds.transform(SampleToMiniBatch(batch, world))
+
+
+def dp_lm(rank: int, world: int, device: str, out: dict) -> None:
+    """The 134M LM at B8/T2048 per rank, DISTRI_STEPS bf16 steps in each
+    schedule from the same weights; step times, losses, per-parameter
+    checksums and the two schedules' largest weight difference go to
+    ``out``; rank 0 profiles one more bucketed step."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    model = transformer_lm(VOCAB, d_model=D_MODEL, n_head=N_HEAD,
+                           n_layers=N_LAYERS, max_len=SEQ, flash=True,
+                           device=device, seed=SEED)
+    init = [p.detach().clone() for p in model.parameters()]
+    samples = lm_samples(2 * TRAIN_BATCH * world)
+    trained = {}
+    for overlap in (True, False):
+        with torch.no_grad():
+            for p, v in zip(model.parameters(), init):
+                p.copy_(v)
+        RandomGenerator.RNG().set_seed(SEED)
+        ds = ShardedDataSet(samples, world).transform(
+            SampleToMiniBatch(TRAIN_BATCH * world, world))
+        opt = (Optimizer.create(model, ds, lm_criterion(), device=device)
+               .set_optim_method(SGD(0.01, momentum=0.9))
+               .set_precision("bf16")
+               .set_end_when(max_iteration(DISTRI_STEPS)))
+        torch.cuda.reset_peak_memory_stats()
+        with parallel_overlap(overlap):
+            opt.optimize()
+        torch.cuda.synchronize()
+        leg = f"lm_{'bucketed' if overlap else 'one-block'}"
+        out[f"{leg}/loss"] = np.array([h["loss"] for h in opt.history])
+        out[f"{leg}/seconds"] = np.array([h["seconds"] for h in opt.history])
+        out[f"{leg}/peak"] = np.array(torch.cuda.max_memory_allocated())
+        trained[overlap] = [p.detach().clone() for p in model.parameters()]
+        out[f"{leg}/checksum"] = np.array(
+            [[p.double().sum().item(), (p.double() ** 2).sum().item()]
+             for p in trained[overlap]])
+        if overlap:     # every rank steps; rank 0 profiles its step
+            opt.set_end_when(max_iteration(DISTRI_STEPS + 1))
+            with parallel_overlap(True):
+                if rank == 0:
+                    profile(f"bf16 DistriOptimizer step, {world} ranks over "
+                            f"NCCL, B{TRAIN_BATCH}/T{SEQ} a rank",
+                            opt.optimize, f"rank 0 of {world}",
+                            DISTRI_CATEGORIES)
+                else:
+                    opt.optimize()
+    out["lm/schedule_max_diff"] = np.array(max(
+        (a - b).abs().max().item()
+        for a, b in zip(trained[True], trained[False])))
+
+
+def dp_rank(rank: int, world: int, backend: str, store: str,
+            outdir: str) -> int:
+    """One rank of a data-parallel run: each model of DP_LEGS trained in
+    both schedules (over NCCL on card ``rank`` with TF32 off, or over gloo
+    on the CPU), then over NCCL the LM (:func:`dp_lm`); the results go to
+    ``outdir/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.optim.optimizer import module_state
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    nccl = backend == "nccl"
+    device = f"cuda:{rank}" if nccl else "cpu"
+    torch.set_num_threads(2)
+    if nccl:    # fp32 convolutions and matmuls, as the CPU's oracle
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    Engine.init_distributed(backend=backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world, device=device)
+    data, out = dp_data(), {}
+    for overlap in (True, False):
+        for name, steps, lr in DP_LEGS:
+            model = dp_models(device)[name]
+            RandomGenerator.RNG().set_seed(SEED)
+            with parallel_overlap(overlap):
+                opt = Optimizer.create(model, dp_dataset(name, data, world),
+                                       ClassNLLCriterion(), device=device)
+                opt.set_optim_method(SGD(lr, momentum=0.9))
+                opt.set_end_when(max_iteration(steps)).optimize()
+            leg = f"{name}_{'bucketed' if overlap else 'one-block'}"
+            out[f"{leg}/loss"] = np.array([h["loss"] for h in opt.history])
+            tensors = (list(model.parameters()) +
+                       opt.optim_method._slots["dfdx"] + module_state(model))
+            for i, t in enumerate(tensors):
+                out[f"{leg}/{i}"] = t.detach().cpu().numpy()
+    if nccl:
+        dp_lm(rank, world, device, out)
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_spawn(world: int, backend: str) -> list:
+    """Run ``world`` ranks of :func:`dp_rank` as child processes of this
+    script on a file:// store, each with DP_TIMEOUT seconds, all killed
+    when one fails; rank 0's log lines are echoed.  Returns each rank's
+    results."""
+    import shutil
+    import tempfile
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    try:
+        procs, logs = [], []
+        for rank in range(world):
+            logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 str(rank), str(world), backend, os.path.join(tmp, "store"),
+                 tmp], cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+        try:
+            deadline = time.monotonic() + DP_TIMEOUT
+            while any(p.poll() is None for p in procs) and \
+                    time.monotonic() < deadline and \
+                    all(p.returncode in (None, 0) for p in procs):
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+            for f in logs:
+                f.close()
+        texts = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+                texts.append(f.read())
+        for line in texts[0].splitlines():
+            if line.startswith(("[profile]", "    ")):
+                log(line)
+        for rank, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"{backend} rank {rank} of {world} "
+                                     f"exited {p.returncode}:\n"
+                                     f"{texts[rank][-4000:]}")
+        outs = []
+        for rank in range(world):
+            with np.load(os.path.join(tmp, f"rank{rank}.npz")) as z:
+                outs.append(dict(z))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[distri] {world} ranks over {backend} done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return outs
+
+
+def dp_check(outs: list, world: int, backend: str) -> None:
+    """Gates of a data-parallel run: every result but the times and peak
+    memory bit-identical between the ranks; the two schedules bit-identical at two ranks or one (the sum
+    of two operands does not depend on their order) and logged above;
+    losses, weights, momentum and BatchNorm statistics of DP_LEGS within
+    DP_RTOL / DP_ATOL of a LocalOptimizer over the same full batch on the
+    CPU."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset import LocalDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.optim.optimizer import module_state
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    for k in outs[0]:
+        if k.endswith(("/seconds", "/peak")):    # each rank's own clock
+            continue
+        for rank in range(1, world):
+            if not np.array_equal(outs[0][k], outs[rank][k],
+                                  equal_nan=True):
+                raise AssertionError(f"{k} differs between ranks 0 and "
+                                     f"{rank}")
+    data = dp_data()
+    for name, steps, lr in DP_LEGS:
+        model = dp_models("cpu")[name]
+        RandomGenerator.RNG().set_seed(SEED)
+        opt = LocalOptimizer(
+            model, LocalDataSet(data[name]).transform(
+                SampleToMiniBatch(len(data[name]))),
+            ClassNLLCriterion(), device="cpu")
+        opt.set_optim_method(SGD(lr, momentum=0.9))
+        opt.set_end_when(max_iteration(steps)).optimize()
+        ref = [t.detach().numpy() for t in list(model.parameters()) +
+               opt.optim_method._slots["dfdx"] + module_state(model)]
+        losses = [h["loss"] for h in opt.history]
+        for sched in ("bucketed", "one-block"):
+            leg = f"{name}_{sched}"
+            got = [outs[0][f"{leg}/{i}"] for i in range(len(ref))]
+            worst = max(float(np.max(np.abs(g - r) / (
+                DP_ATOL + DP_RTOL * np.abs(r)))) for g, r in zip(got, ref))
+            log(f"[distri] {world} ranks over {backend}, {leg}: losses "
+                f"{outs[0][leg + '/loss']}, LocalOptimizer {losses}; worst "
+                f"|diff| / (atol + rtol |ref|) over weights, momentum and "
+                f"statistics {worst:.3f} (fails above 1)")
+            if worst > 1 or not np.allclose(outs[0][leg + "/loss"], losses,
+                                            rtol=DP_RTOL, atol=DP_ATOL):
+                raise AssertionError(f"{leg} disagrees with LocalOptimizer")
+        same = all(np.array_equal(outs[0][k], outs[0][k.replace(
+            "_bucketed/", "_one-block/")]) for k in outs[0]
+            if k.startswith(f"{name}_bucketed/"))
+        log(f"[distri] {world} ranks, {name}: the schedules bit-identical "
+            f"{same}")
+        if world <= 2 and not same:
+            raise AssertionError(f"{name}: the schedules differ")
+
+
+def dp_lm_report(outs: list, world: int, card: str) -> None:
+    """Log the LM's data-parallel steps over NCCL and gate them: finite
+    losses, the ranks agreeing (checked by :func:`dp_check`)."""
+    import numpy as np
+    out = outs[0]
+    tokens = TRAIN_BATCH * SEQ * world
+    for sched in ("bucketed", "one-block"):
+        leg = f"lm_{sched}"
+        loss, secs = out[f"{leg}/loss"], out[f"{leg}/seconds"]
+        step_s = float(np.median(secs[1:]))
+        log(f"[distri] LM over NCCL, {world} ranks, {sched}: losses "
+            f"{np.round(loss, 4).tolist()}; step ms "
+            f"{np.round(secs * 1e3, 2).tolist()}; step {step_s * 1e3:.2f} "
+            f"ms (median of steps 2-{DISTRI_STEPS}), {tokens / step_s:,.0f} "
+            f"tokens/s over {world} cards ({tokens / step_s / world:,.0f} a "
+            f"card), peak memory {float(out[leg + '/peak']) / 2**30:.2f} "
+            f"GiB a rank on {card}")
+        if not np.isfinite(loss).all():
+            raise AssertionError(f"{leg}: non-finite losses {loss}")
+    log(f"[distri] LM, {world} ranks: largest weight difference between "
+        f"the schedules {float(out['lm/schedule_max_diff']):.3e}")
+
+
+def phase_distri_dp2(card: str) -> None:
+    """Phase 10 (d): the rank logic at dp = 2 on CPU tensors over gloo, in
+    two child processes of this script, since NCCL will not put two ranks
+    on one card (:func:`dp_spawn`, :func:`dp_check`)."""
+    log("[distri] dp = 2 on CPU tensors over gloo: NCCL refuses two ranks "
+        "on one card")
+    dp_check(dp_spawn(2, "gloo"), 2, "gloo")
+
+
+def phase_distri(card: str, train_step_s: float, r50_step_s: float) -> dict:
+    """Phase 10: DistriOptimizer over a real NCCL group of one rank (the LM
+    and ResNet-50), then the rank logic at dp = 2 over gloo.  Returns the
+    LM run's launch counts."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    Engine.init_distributed(backend="nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        log(f"[distri] process group: backend {dist.get_backend()}, world "
+            f"size {dist.get_world_size()}, on {card}")
+        launches = phase_distri_lm(card, train_step_s)
+        phase_distri_resnet(card, r50_step_s)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_distri_dp2(card)
+    log(f"[distri] phase 10 took {time.perf_counter() - t:.1f} s on {card}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
-                trained: dict, fp32_step: dict) -> list:
+                trained: dict, fp32_step: dict, distri: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
-    numbers from phase 3."""
+    numbers from phase 3; ``distri_launches`` counts its launches in
+    phase 10's DistriOptimizer run of the LM."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -1801,16 +2421,53 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
             ("fp32" if dname == "float32" else "bf16")
         source, replaces = KERNEL_FILES[kind]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": counts[name], **rec})
+                    "replaces": replaces, "launches": counts[name], **rec,
+                    "distri_launches": distri[name]})
     return out
 
 
-def main() -> int:
+def main_dp(world: int, backend: str) -> int:
+    """``chip_smoke.py --dp N nccl``: phase 10's data-parallel legs and the
+    LM over NCCL on N cards of one host, one rank each (``--dp N gloo``:
+    the legs on CPU tensors)."""
+    import torch
+    if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
+        log("chip_smoke: bigdl_tpu_torch/ is not beside this script")
+        return 1
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        log(f"chip_smoke: --dp {world} nccl needs {world} cards, found "
+            f"{torch.cuda.device_count()}")
+        return 1
+    sys.path.insert(0, HERE)
+    t = time.perf_counter()
+    card = gpu_line() if backend == "nccl" else "the CPU"
+    log(f"[distri] {world} ranks over {backend} on {card}")
+    if backend == "nccl":
+        phase_build(card)
+    outs = dp_spawn(world, backend)
+    dp_check(outs, world, backend)
+    if backend == "nccl":
+        dp_lm_report(outs, world, card)
+    log(f"[distri] --dp {world} {backend} passed in "
+        f"{time.perf_counter() - t:.1f} s")
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError:
         log("chip_smoke: torch is not installed")
         return 1
+    if argv[:1] == ["--dp-rank"]:   # a child of a data-parallel run
+        if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
+            return 1
+        sys.path.insert(0, HERE)
+        return dp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4],
+                       argv[5])
+    if argv[:1] == ["--dp"]:
+        return main_dp(int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
         return 1
@@ -1835,18 +2492,20 @@ def main() -> int:
     mixed = phase_mixed_precision(card, model)
     log(f"[memory] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"on {card}")
-    trained = phase_training(card, model)
+    trained, train_step_s = phase_training(card, model)
     fp32_step = phase_fp32_grads(card, model)
     del model
     torch.cuda.empty_cache()
     phase_lm_serving(card, lm(flash=True))
     torch.cuda.empty_cache()
-    phase_resnet(card)
+    _, r50_step_s = phase_resnet(card)
     torch.cuda.empty_cache()
     phase_zoo(card)
+    torch.cuda.empty_cache()
+    distri = phase_distri(card, train_step_s, r50_step_s)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
-                          fp32_step)
+                          fp32_step, distri)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

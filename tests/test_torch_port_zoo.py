@@ -35,8 +35,8 @@ seeded with the step's counter; the same weights from the same seed, run
 after run.  VGG-16/19 (138M parameters, most in fc6) are compared by
 parameter-tree shape only; their values are checked on the card.
 ``models/perf.py``: its model table against the JAX package's, the
-training protocol on the CPU, ``--partitions 2`` raising, and the
-per-layer report's rows and FLOPs.
+training protocol on the CPU, ``--partitions 2`` raising without two
+ranks, and the per-layer report's rows and FLOPs.
 """
 
 import contextlib
@@ -586,7 +586,9 @@ def test_perf_harness_has_the_reference_table():
 
 
 def test_perf_partitions_raise():
-    with pytest.raises(NotImplementedError, match="DistriOptimizer"):
+    # without a process group of 2 ranks (torchrun --nproc_per_node 2)
+    with pytest.raises(ValueError, match="--partitions 2 needs as many "
+                                         "ranks, but this run has 1"):
         perf.main(["-m", "lenet5", "--partitions", "2"], device="cpu")
 
 
