@@ -17,6 +17,10 @@ same epoch order without exchanging anything; partition ``p`` streams the
 slice ``index[p*per:(p+1)*per]``.  ``global_shuffle=False`` (or
 ``bigdl.elastic.globalShuffle=false``) keeps partition-local blocks instead,
 each shuffled apart, pure in ``(seed, round, partition)``.
+
+``DataSet`` is the factory namespace (reference ``object DataSet``,
+``dataset/DataSet.scala:319-558``): in-memory arrays, SequenceFile folders
+of JPEG records and label-per-directory image folders.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ class AbstractDataSet:
 
     def transform(self, transformer: Transformer) -> "AbstractDataSet":
         raise NotImplementedError
+
+    def __rshift__(self, transformer: Transformer) -> "AbstractDataSet":
+        return self.transform(transformer)
 
 
 class LocalDataSet(AbstractDataSet):
@@ -227,3 +234,54 @@ class ShardedDataSet(AbstractDataSet):
                     yield next(it)
                 except StopIteration:
                     live.remove(it)
+
+
+class DataSet:
+    """Factory namespace (``bigdl_tpu/dataset/dataset.py`` :309-358,
+    reference ``object DataSet``, ``dataset/DataSet.scala:319-558``)."""
+
+    @staticmethod
+    def array(records: Sequence[Any],
+              partition_num: Optional[int] = None) -> AbstractDataSet:
+        if partition_num is None or partition_num <= 1:
+            return LocalDataSet(records)
+        return ShardedDataSet(records, partition_num)
+
+    @staticmethod
+    def seq_file_folder(path: str, shards: Optional[int] = None,
+                        decode: bool = True) -> LocalDataSet:
+        """Every ``*.seq`` SequenceFile under ``path`` (reference
+        ``SeqFileFolder.files``, ``dataset/DataSet.scala:500-558``), read
+        through :class:`~bigdl_tpu_torch.dataset.ingest.ShardedSeqFileReader`
+        (``shards`` reader threads, default ``bigdl.ingest.shards``; the
+        records keep the sorted-walk order).  The records hold the
+        compressed bytes (:class:`~bigdl_tpu_torch.dataset.image.
+        LabeledImageBytes`).  With ``decode`` (the JAX package's behaviour)
+        the dataset decodes them to BGR ``LabeledImage`` records on each pass;
+        ``decode=False`` keeps the bytes, for a transformer that decodes
+        them itself (``StreamingIngest``, ``MTLabeledBGRImgToBatch``)."""
+        from bigdl_tpu_torch.dataset.image import BytesToBGRImg
+        from bigdl_tpu_torch.dataset.ingest import ShardedSeqFileReader
+        records = list(ShardedSeqFileReader(path, shards=shards))
+        return LocalDataSet(records, [BytesToBGRImg()] if decode else [])
+
+    @staticmethod
+    def image_folder(path: str, scale_to: int = 256) -> LocalDataSet:
+        """Label-per-subdirectory image tree (reference ``ImageFolder.paths``,
+        ``dataset/DataSet.scala:419``): 1-based float labels in
+        subdirectory sort order; records are
+        records of :class:`~bigdl_tpu_torch.dataset.image.LocalImgPath`
+        (decode them with ``LocalImgReader``).  ``scale_to`` is kept for the
+        reference's signature."""
+        import os
+        from bigdl_tpu_torch.dataset.image import LocalImgPath
+        classes = sorted(d for d in os.listdir(path)
+                         if os.path.isdir(os.path.join(path, d)))
+        records = []
+        for label, cls in enumerate(classes, start=1):
+            d = os.path.join(path, cls)
+            for f in sorted(os.listdir(d)):
+                if f.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")):
+                    records.append(LocalImgPath(os.path.join(d, f),
+                                                float(label)))
+        return LocalDataSet(records)

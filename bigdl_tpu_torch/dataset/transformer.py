@@ -5,9 +5,9 @@
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Any, Callable, Iterator, List, Optional
 
-from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
+from bigdl_tpu_torch.dataset.sample import MiniBatch, PaddingParam, Sample
 
 
 class Transformer:
@@ -18,6 +18,14 @@ class Transformer:
 
     def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
         return ChainedTransformer(self, other)
+
+    def chain(self, other: "Transformer") -> "ChainedTransformer":
+        """The reference's ``prev -> next``."""
+        return self >> other
+
+    def apply_single(self, item):
+        """Run on one element."""
+        return next(iter(self([item])))
 
 
 class ChainedTransformer(Transformer):
@@ -38,6 +46,21 @@ class ChainedTransformer(Transformer):
         return it
 
 
+class Identity(Transformer):
+    def __call__(self, it: Iterator) -> Iterator:
+        return iter(it)
+
+
+class FuncTransformer(Transformer):
+    """Wrap a per-element function."""
+
+    def __init__(self, fn: Callable[[Any], Any]):
+        self.fn = fn
+
+    def __call__(self, it: Iterator) -> Iterator:
+        return (self.fn(x) for x in it)
+
+
 class SampleToMiniBatch(Transformer):
     """Group a Sample stream into MiniBatches (reference
     ``SampleToMiniBatch``, ``dataset/Transformer.scala:309``).
@@ -45,27 +68,35 @@ class SampleToMiniBatch(Transformer):
     ``total_batch`` is the global batch size; each iterator's batch is
     ``total_batch / partition_num``, as the reference divides per partition
     (``dataset/Utils.scala:25``).  An incomplete trailing batch is emitted
-    (the looped training iterator never produces one).  The padding of
-    ragged samples (``feature_padding``/``label_padding``) is not ported."""
+    (the looped training iterator never produces one).  Ragged samples are
+    padded by ``feature_padding``/``label_padding``
+    (:class:`~bigdl_tpu_torch.dataset.sample.PaddingParam`; without one, to
+    the longest of the batch with zeros)."""
 
     def __init__(self, total_batch: int, partition_num: int = 1,
-                 feature_padding=None, label_padding=None):
-        if feature_padding is not None or label_padding is not None:
-            raise NotImplementedError(
-                "SampleToMiniBatch padding (PaddingParam) is not ported yet")
+                 feature_padding: Optional[PaddingParam] = None,
+                 label_padding: Optional[PaddingParam] = None):
         if total_batch % partition_num != 0:
             raise ValueError(
                 f"total batch size {total_batch} must be divisible by "
                 f"partition number {partition_num} (reference "
                 "dataset/Utils.scala:25)")
         self.batch_per_partition = total_batch // partition_num
+        self.feature_padding = feature_padding
+        self.label_padding = label_padding
 
     def __call__(self, it: Iterator[Sample]) -> Iterator[MiniBatch]:
         buf: List[Sample] = []
         for s in it:
             buf.append(s)
             if len(buf) == self.batch_per_partition:
-                yield MiniBatch.from_samples(buf)
+                yield MiniBatch.from_samples(buf, self.feature_padding,
+                                             self.label_padding)
                 buf = []
         if buf:
-            yield MiniBatch.from_samples(buf)
+            yield MiniBatch.from_samples(buf, self.feature_padding,
+                                         self.label_padding)
+
+
+#: the reference's older name
+SampleToBatch = SampleToMiniBatch

@@ -1,6 +1,7 @@
 """Layers of the port (``bigdl_tpu/nn``): the module and criterion shells,
 the layers the transformer LM and the convnet zoo (ResNet, LeNet, AlexNet,
-VGG, Inception) are built from, their initialisers, the channels-last
+VGG, Inception) are built from, the device-side ingest head
+(``DeviceAugment``, ``ChannelNormalize``), their initialisers, the channels-last
 layout pass, conv + BN folding and the losses."""
 
 from bigdl_tpu_torch.nn import init
@@ -26,11 +27,14 @@ from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               SpatialCrossMapLRN)
 from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
                                         SpatialMaxPooling)
-from bigdl_tpu_torch.nn.structural import Identity, MulConstant, Reshape, View
+from bigdl_tpu_torch.nn.structural import (ChannelNormalize, DeviceAugment,
+                                          Identity, MulConstant, Reshape,
+                                          View)
 from bigdl_tpu_torch.nn.table import CAddTable, Concat, ConcatTable
 
-__all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion", "Concat",
-           "ConcatTable", "Container", "Criterion", "Dropout", "Identity",
+__all__ = ["BatchNormalization", "CAddTable", "ChannelNormalize",
+           "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
+           "Criterion", "DeviceAugment", "Dropout", "Identity",
            "InitializationMethod", "Linear", "LogSoftMax", "LookupTable",
            "Module", "MulConstant", "MultiHeadAttention", "NCHWToNHWC",
            "NHWCToNCHW", "RandomNormal", "RandomUniform", "ReLU", "Reshape",

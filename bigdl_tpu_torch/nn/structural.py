@@ -1,5 +1,6 @@
 """Structural layers (``bigdl_tpu/nn/structural.py``: ``Identity`` :37,
-``Reshape`` :66, ``View`` :88, ``MulConstant`` :582).
+``Reshape`` :66, ``View`` :88, ``MulConstant`` :582, ``ChannelNormalize``
+:595, ``DeviceAugment`` :635).
 
 Shapes are logical (NCHW for image maps) whatever the memory format: a
 channels-last tensor (:mod:`bigdl_tpu_torch.nn.layout`) is not contiguous in
@@ -10,7 +11,7 @@ NCHW order, so ``Reshape`` and ``View`` use ``reshape``, which copies where
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -86,3 +87,75 @@ class MulConstant(Module):
 
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         return input * self.constant
+
+
+class ChannelNormalize(Module):
+    """Per-channel input normalisation on the device:
+    ``(x.float() - mean[c]) / std[c]``, cast to ``dtype`` when given (a
+    ``torch.dtype`` or its name, e.g. ``"bfloat16"``).  Placed first, it
+    lets the ingest path ship uint8 pixels, a quarter of the float32
+    bytes.  ``format="NCHW"`` normalises dim 1, ``"NHWC"`` the last dim.
+    Elementwise, so a channels-last input gives a channels-last output.
+    The host-side twin is :class:`bigdl_tpu_torch.dataset.image.
+    ChannelNormalize`."""
+
+    layout_role = "agnostic"
+
+    def __init__(self, mean, std, dtype=None, format: str = "NCHW"):
+        super().__init__()
+        if format not in ("NCHW", "NHWC"):
+            raise ValueError(f"unknown format {format!r}")
+        self.mean = tuple(float(m) for m in mean)
+        self.std = tuple(float(v) for v in std)
+        self.dtype = (getattr(torch, dtype) if isinstance(dtype, str)
+                      else dtype)
+        self.format = format
+        # per device, made once: a host-to-device copy in every forward
+        # would wait for the stream's queued work
+        self._consts: Dict[torch.device, tuple] = {}
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        consts = self._consts.get(input.device)
+        if consts is None:
+            consts = tuple(torch.tensor(v, dtype=torch.float32,
+                                        device=input.device)
+                           for v in (self.mean, self.std))
+            self._consts[input.device] = consts
+        c = len(self.mean)
+        if self.format == "NCHW":
+            shape = (1, c) + (1,) * (input.dim() - 2)
+        else:
+            shape = (1,) * (input.dim() - 1) + (c,)
+        mean, std = (t.view(shape) for t in consts)
+        out = (input.to(torch.float32) - mean) / std
+        return out if self.dtype is None else out.to(self.dtype)
+
+
+class DeviceAugment(Module):
+    """The on-device crop and flip head of device-augment ingest: takes the
+    ``[frames (N, H, W, C) uint8, offsets (N, 2), flips (N,)]`` list that
+    ``StreamingIngest(device_augment=True)`` packs and gives the uint8 NCHW
+    crop batch the host assembler would have made, bit for bit
+    (:func:`bigdl_tpu_torch.dataset.device_augment.crop_flip_transpose`:
+    channels-last in memory).  An assembled batch (a tensor) passes through
+    unchanged, so one model serves both ingest modes.  Place it first,
+    before :class:`ChannelNormalize`.  ``color_jitter`` (the JAX package's
+    per-record jitter, keyed by JAX's threefry) is not ported and
+    raises."""
+
+    def __init__(self, crop_h: int, crop_w: int, color_jitter=None):
+        super().__init__()
+        if color_jitter:
+            raise NotImplementedError(
+                "DeviceAugment(color_jitter=...): its factors come from "
+                "JAX's threefry PRNG, which is not ported yet")
+        self.crop_h = int(crop_h)
+        self.crop_w = int(crop_w)
+
+    def forward(self, input):
+        from bigdl_tpu_torch.dataset.device_augment import \
+            crop_flip_transpose
+        if not isinstance(input, (list, tuple)) or len(input) < 3:
+            return input
+        return crop_flip_transpose(input[0], input[1], input[2],
+                                   self.crop_h, self.crop_w)

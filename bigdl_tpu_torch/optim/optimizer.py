@@ -17,18 +17,22 @@ with ``PRNGKey(neval - 1)``, :1246), the ``OptimMethod``'s
 ``pure_update``, and the divergence guard: a step whose loss or gradients
 are not finite keeps every carry (parameters, optimizer slots and the
 module state, BatchNorm's running statistics, which the forward updates in
-place) at its pre-step value and reports its loss as NaN.  The training loop keeps the reference's state keys (``epoch``, ``neval``,
-``Loss``, ``recordsProcessedThisEpoch``, ``consecutiveBadSteps``), its epoch
-rollover with a reshuffle at the record boundary, its end trigger, and raises
+place) at its pre-step value and reports its loss as NaN.  The training
+loop keeps the reference's state keys (``epoch``, ``neval``, ``Loss``,
+``recordsProcessedThisEpoch``, ``consecutiveBadSteps``), its epoch rollover
+with a reshuffle at the record boundary, its end trigger, and raises
 :class:`DivergenceError` after ``bigdl.divergence.maxBadSteps`` consecutive
-bad steps.  It reads each step's loss on the host once.
+bad steps.  It reads each step's loss on the host once.  Batches come
+through :class:`~bigdl_tpu_torch.engine.BatchPrefetcher`, which fetches
+``bigdl.prefetch.depth`` (default 2) batches ahead on a producer thread,
+rolls the epoch over there and copies each batch to the device from pinned
+memory on a stream of its own (``optimizer.py`` :1087-1135).
 
 Not ported yet: checkpoints, validation, the failure-retry loop, telemetry
 and the step-time account, integrity fingerprints, the microbatch re-plan
-after a device OOM, the compile cache, preemption and the batch prefetcher.
-The keys that ask for the last three (``bigdl.integrity.everyN``,
-``bigdl.elastic.handleSignals``, ``bigdl.prefetch.depth``) raise
-:class:`NotImplementedError` (:func:`refuse_unported`).
+after a device OOM, the compile cache and preemption.  The keys that ask
+for the last two (``bigdl.integrity.everyN``, ``bigdl.elastic.handleSignals``)
+raise :class:`NotImplementedError` (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, LocalDataSet,
                                              ShardedDataSet)
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch)
-from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
-                                    default_device, to_device)
+from bigdl_tpu_torch.engine import (BatchPrefetcher, DeviceLike,
+                                    check_on_device, default_device)
 from bigdl_tpu_torch.nn.module import (Container, Criterion, is_stochastic,
                                        random_stream, state_buffers)
 from bigdl_tpu_torch.optim import trigger as triggers
@@ -157,12 +161,6 @@ def regularization_penalty(module: torch.nn.Module) -> Optional[torch.Tensor]:
     return sum(terms[1:], terms[0]) if terms else None
 
 
-def _to_device(x, device: torch.device):
-    if isinstance(x, (list, tuple)):
-        return [to_device(a, device) for a in x]
-    return to_device(x, device)
-
-
 def _yields_minibatches(ds: AbstractDataSet) -> bool:
     def has_batcher(t) -> bool:
         if isinstance(t, SampleToMiniBatch):
@@ -175,17 +173,30 @@ def _yields_minibatches(ds: AbstractDataSet) -> bool:
     return any(has_batcher(t) for t in getattr(ds, "transformers", ()))
 
 
+def close_iterators(prefetcher: Optional[BatchPrefetcher], iterators
+                    ) -> None:
+    """Close the data iterators of a finished run (a ``StreamingIngest``
+    run joins its stage threads as it closes), unless a producer thread
+    that may be inside one is still alive."""
+    if prefetcher is not None and prefetcher.producer_alive():
+        return
+    for it in iterators:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
 def refuse_unported() -> None:
     """Raise :class:`NotImplementedError` where a config key asks a
     trainer for a feature the port does not have yet."""
-    asked = [k for k in ("bigdl.integrity.everyN", "bigdl.prefetch.depth")
+    asked = [k for k in ("bigdl.integrity.everyN",)
              if config.get_int(k, 0) > 0]
     if config.get_bool("bigdl.elastic.handleSignals", False):
         asked.append("bigdl.elastic.handleSignals")
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: integrity fingerprints, the batch "
-            "prefetcher and elastic drain/resume are not ported yet")
+            f"{', '.join(asked)}: integrity fingerprints and elastic "
+            "drain/resume are not ported yet")
 
 
 def _initial_loop_state() -> Dict[str, Any]:
@@ -202,9 +213,13 @@ class Optimizer:
     ``device`` (default ``"cuda"``, raising without CUDA) is where the model
     lies and the steps run.  ``history`` gets one record per iteration:
     ``neval``, ``epoch``, ``loss`` (NaN for a skipped step), ``records``,
-    the iteration's wall ``seconds`` (fetch to host-read loss) and
-    ``fetch_seconds``, the part of them spent fetching the batch and
-    copying it to the device."""
+    the iteration's wall ``seconds`` (taking the batch to the host read of
+    the loss), ``wait_seconds``, the part of them the loop waited for the
+    batch, and ``fetch_seconds``, the time the batch's fetch and copy to
+    the device took (on the prefetcher's producer thread, apart from the
+    loop, at ``bigdl.prefetch.depth`` > 0; the same as the wait at 0).
+    ``prefetcher`` is the last run's
+    :class:`~bigdl_tpu_torch.engine.BatchPrefetcher`, with its counters."""
 
     def __init__(self, model: torch.nn.Module, dataset: AbstractDataSet,
                  criterion: Criterion, device: DeviceLike = "cuda"):
@@ -217,6 +232,7 @@ class Optimizer:
         self.end_when: Trigger = triggers.max_iteration(100)
         self.precision: Optional[str] = None   # None = fp32; "bf16" = mixed
         self.history: List[Dict[str, Any]] = []
+        self.prefetcher: Optional[BatchPrefetcher] = None
 
     # -- fluent setters (reference Optimizer.scala fluent API) ------------
 
@@ -257,29 +273,61 @@ class Optimizer:
                epoch_size: int) -> Dict[str, Any]:
         """The training loop (reference ``optim/DistriOptimizer.scala:141-344``,
         ``LocalOptimizer.scala:78``): fetch, step, bookkeeping and logging,
-        epoch rollover.  ``fetch_batch() -> (inputs, targets, batch_size)``;
-        ``run_step(inputs, targets, hyper, seed) -> loss`` (a 0-dim tensor;
-        ``seed`` is the step's random-stream counter, ``neval - 1``, the
-        JAX package's ``rng_counter``);
-        ``reset_epoch()`` reshuffles and restarts the data iterator."""
+        epoch rollover.  ``fetch_batch() -> (inputs, targets, batch_size)``
+        with host (numpy) arrays; ``run_step(inputs, targets, hyper, seed)
+        -> loss`` (a 0-dim tensor; ``seed`` is the step's random-stream
+        counter, ``neval - 1``, the JAX package's ``rng_counter``);
+        ``reset_epoch()`` reshuffles and restarts the data iterator.
+
+        A :class:`~bigdl_tpu_torch.engine.BatchPrefetcher` calls
+        ``fetch_batch`` and moves the batch to the device; the rollover
+        runs on its producer, at the record boundary as the batch that
+        crosses it is fetched (the reference's batch producer), so the
+        batch sequence is the same at every ``bigdl.prefetch.depth``."""
         state = _initial_loop_state()
         # a second optimize() continues the counters the OptimMethod carries
         state["neval"] = self.optim_method.state.get("evalCounter", 0) + 1
         state["epoch"] = self.optim_method.state.get("epoch", 1)
         max_bad_steps = config.get_int("bigdl.divergence.maxBadSteps", 5)
-        fetched = 0
+        fetched = {"records": 0}
+
+        def on_batch(batch):
+            fetched["records"] += batch[2]
+            if fetched["records"] >= epoch_size:
+                fetched["records"] = 0
+                reset_epoch()
+
+        fetch = BatchPrefetcher(fetch_batch, on_batch=on_batch,
+                                device=self.device)
+        self.prefetcher = fetch
         wall_start = time.perf_counter()
+        try:
+            self._loop(state, fetch, run_step, epoch_size, max_bad_steps)
+        finally:
+            fetch.stop()
+        logger.info("Training finished in %.1f s; batch fetch %.3f s, the "
+                    "loop's wait for batches %.3f s, large copies waited "
+                    "for %.3f s, over %d batches.",
+                    time.perf_counter() - wall_start, fetch.fetch_ns / 1e9,
+                    fetch.wait_ns / 1e9, fetch.block_ns / 1e9, fetch.batches)
+        from bigdl_tpu_torch.dataset import ingest
+        for eng in sorted((e for e in ingest._LIVE if e.has_active_run()),
+                          key=lambda e: e.name):
+            for stage, snap in eng.stats().items():
+                logger.info(
+                    "Ingest %s stage %s: %d items, %.1f/s, busy %.1fs, "
+                    "starve %.1fs, backpressure %.1fs, workers %d",
+                    eng.name, stage, snap["items"],
+                    snap["throughput_per_sec"], snap["busy_s"],
+                    snap["starve_s"], snap["backpressure_s"],
+                    eng.stage_workers.get(stage, 1))
+        return state
+
+    def _loop(self, state, fetch, run_step, epoch_size: int,
+              max_bad_steps: int) -> None:
         while not self.end_when(state):
             t0 = time.perf_counter()
-            inputs, targets, bsz = fetch_batch()
-            fetch_s = time.perf_counter() - t0
-            # the rollover (reshuffle, new iterator) happens at the record
-            # boundary as the batch that crosses it is taken, as the
-            # reference's batch producer does
-            fetched += bsz
-            if fetched >= epoch_size:
-                fetched = 0
-                reset_epoch()
+            inputs, targets, bsz = fetch()
             self.optim_method.state["epoch"] = state["epoch"]
             hyper = self.optim_method.hyper()
             loss_t = run_step(inputs, targets, hyper, state["neval"] - 1)
@@ -290,7 +338,9 @@ class Optimizer:
             state["Loss"] = loss
             self.history.append({"neval": neval, "epoch": state["epoch"],
                                  "loss": loss, "records": bsz,
-                                 "seconds": dt, "fetch_seconds": fetch_s})
+                                 "seconds": dt,
+                                 "wait_seconds": fetch.last_wait_ns / 1e9,
+                                 "fetch_seconds": fetch.last_fetch_ns / 1e9})
             logger.info(
                 "[Epoch %d %d/%d][Iteration %d] Train %d in %.4f seconds. "
                 "Throughput is %.1f records/second. Loss is %.6f.",
@@ -314,9 +364,6 @@ class Optimizer:
                 state["recordsProcessedThisEpoch"] = 0
             state["neval"] += 1
             self.optim_method.state["epoch"] = state["epoch"]
-        logger.info("Training finished in %.1f s.",
-                    time.perf_counter() - wall_start)
-        return state
 
     # -- factory ----------------------------------------------------------
 
@@ -399,9 +446,7 @@ class LocalOptimizer(Optimizer):
 
         def fetch_batch():
             batch = next(it["data"])
-            return (_to_device(batch.get_input(), self.device),
-                    _to_device(batch.get_target(), self.device),
-                    batch.size())
+            return batch.get_input(), batch.get_target(), batch.size()
 
         def run_step(inputs, targets, hyper, seed):
             if stream is None:
@@ -413,6 +458,9 @@ class LocalOptimizer(Optimizer):
                                   hyper, guard)
 
         reset_epoch()
-        self._drive(fetch_batch, run_step, reset_epoch,
-                    epoch_size=self.dataset.size())
+        try:
+            self._drive(fetch_batch, run_step, reset_epoch,
+                        epoch_size=self.dataset.size())
+        finally:
+            close_iterators(self.prefetcher, [it["data"]])
         return self.model

@@ -51,9 +51,10 @@ expert parallelism; :meth:`DistriOptimizer.set_mesh`), integrity
 fingerprints and desync healing (``bigdl.integrity.everyN > 0``), the audit
 fault injections (``bigdl.chaos.extraAllGather``,
 ``bigdl.chaos.dropBucketCollective``), elastic drain and resume
-(``bigdl.elastic.handleSignals``), the batch prefetcher
-(``bigdl.prefetch.depth > 0``), and what ``LocalOptimizer`` lacks
-(:mod:`bigdl_tpu_torch.optim.optimizer`).
+(``bigdl.elastic.handleSignals``), and what ``LocalOptimizer`` lacks
+(:mod:`bigdl_tpu_torch.optim.optimizer`).  Batches come through the
+trainers' shared loop and its prefetcher (``bigdl.prefetch.depth``), which
+joins the local partitions' minibatches on its producer thread.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ import torch.distributed as dist
 from bigdl_tpu_torch.dataset.dataset import ShardedDataSet
 from bigdl_tpu_torch.engine import DeviceLike
 from bigdl_tpu_torch.nn.module import Criterion, is_stochastic, random_stream
-from bigdl_tpu_torch.optim.optimizer import (Optimizer, _to_device,
+from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
                                              all_finite,
                                              mixed_precision_forward,
                                              module_state,
@@ -292,8 +293,7 @@ class DistriOptimizer(Optimizer):
                             for p in local}
 
         def fetch_batch():
-            return _global_batch(it["shards"], self.dataset.partition_num,
-                                 self.device)
+            return _global_batch(it["shards"], self.dataset.partition_num)
 
         def run_step(inputs, targets, hyper, seed):
             args = (params, flat, row, slots, mstate, edges, guard, inputs,
@@ -306,16 +306,19 @@ class DistriOptimizer(Optimizer):
 
         self._sync_dataset_epoch()
         reset_epoch()
-        self._drive(fetch_batch, run_step, reset_epoch,
-                    epoch_size=self.dataset.size())
+        try:
+            self._drive(fetch_batch, run_step, reset_epoch,
+                        epoch_size=self.dataset.size())
+        finally:
+            close_iterators(self.prefetcher, it["shards"].values())
         self._publish_slots()
         return model
 
 
-def _global_batch(shard_iters, partition_num: int, device: torch.device):
+def _global_batch(shard_iters, partition_num: int):
     """One minibatch from each local partition (ascending), joined along
-    the batch axis and moved to ``device``; the record count is the global
-    batch's (epoch accounting is global)."""
+    the batch axis on the host; the record count is the global batch's
+    (epoch accounting is global)."""
     batches = [next(shard_iters[p]) for p in sorted(shard_iters)]
     sizes = {b.size() for b in batches}
     if len(sizes) != 1:
@@ -325,8 +328,7 @@ def _global_batch(shard_iters, partition_num: int, device: torch.device):
             "must split evenly across partitions")
     inputs = _cat([b.get_input() for b in batches])
     targets = _cat([b.get_target() for b in batches])
-    return (_to_device(inputs, device), _to_device(targets, device),
-            sizes.pop() * partition_num)
+    return inputs, targets, sizes.pop() * partition_num
 
 
 def _cat(parts):

@@ -46,7 +46,37 @@ _DEFAULTS: Dict[str, Any] = {
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
-    "bigdl.prefetch.depth": 0,               # batch prefetcher (not ported: > 0 raises)
+    # the trainers' batch prefetcher (bigdl_tpu_torch/engine.py)
+    "bigdl.prefetch.depth": 2,               # batches fetched ahead; 0 = synchronous
+    "bigdl.pipeline.depth": 8,               # DispatchPipeline's results in flight
+    # streaming ingest (bigdl_tpu_torch/dataset/ingest.py): sharded seqfile
+    # readers -> record ring -> decode pool -> assembler -> batch ring ->
+    # the prefetcher's copies in flight
+    "bigdl.ingest.shards": 2,                # parallel seqfile reader threads
+    "bigdl.ingest.decodeWorkers": None,      # decode pool size; None = host cores
+    "bigdl.ingest.recordRingDepth": 256,     # reader -> decode record ring
+    "bigdl.ingest.decodedRingDepth": None,   # in-flight decode window; None = 2x batch
+    "bigdl.ingest.batchRingDepth": 2,        # assembled batches buffered ahead
+    "bigdl.ingest.batchesInFlight": 2,       # copies to the card in flight
+    "bigdl.ingest.deviceAugment": False,     # full uint8 frames + crop/flip draws;
+    # crop/flip/transpose on the device (nn.DeviceAugment)
+    "bigdl.ingest.maxBadRecords": 0,         # data-error quarantine budget; 0 = fail fast
+    # what the port does not have yet asks for it here and raises
+    # NotImplementedError (ingest.StreamingIngest); the JAX package's defaults
+    # differ for the first two (autoscale on, 2 restarts), which change
+    # timing and recovery, never the batches
+    "bigdl.ingest.autoscale.enabled": False,  # decode-pool autoscaler (not ported)
+    "bigdl.ingest.maxStageRestarts": 0,      # stage restarts (not ported: > 0 raises)
+    "bigdl.ingest.fallbackOnFailure": False,  # sync path after a failure (not ported)
+    "bigdl.ingest.stallTimeoutSec": 0,       # wedged-ring detection (not ported: > 0 raises)
+    "bigdl.ingest.epochCache": False,        # decoded-frame cache (not ported)
+    # the ingest stages' fault injection (not ported: any of them set raises)
+    "bigdl.chaos.corruptRecordAt": None,
+    "bigdl.chaos.corruptRecordEvery": 0,
+    "bigdl.chaos.failDecodeAt": None,
+    "bigdl.chaos.transientReads": 0,
+    "bigdl.chaos.killStageThread": None,
+    "bigdl.chaos.starveStageAt": None,
     # data parallelism (bigdl_tpu_torch/parallel/distri_optimizer.py)
     "bigdl.parallel.overlap": True,          # False = monolithic baseline step
     "bigdl.parallel.overlapBuckets": 4,      # column buckets of the flat vector per step

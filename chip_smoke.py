@@ -65,14 +65,19 @@ Phases, each fatal on any fault:
    channels-last, random weights from the seed, ``LogSoftMax`` appended,
    one fixed batch of 128 images uniform(-1, 1) at 224 x 224, SGD(0.01,
    momentum 0.9), bf16), 13 iterations through
-   ``Optimizer.create(...).optimize()``.  Gates: every loss finite and the
-   last below the first, every BatchNorm running statistic finite and
-   moved, no flash kernel launched in the phase.  Logged: step time and
+   ``Optimizer.create(...).optimize()`` with the batch fetched on the
+   training thread (``bigdl.prefetch.depth`` 0).  Gates: every loss finite
+   and the last below the first, every BatchNorm running statistic finite
+   and moved, no flash kernel launched in the phase.  Logged: step time and
    images/s (median of iterations 3-12) with the batch fetch apart, peak
    memory, model FLOPs utilisation against the dense bf16 peak at 2 FLOPs
    per multiply-add (the multiply-adds counted from the model's own conv
    and Linear shapes), a profile of one step by category, and
-   ``all_finite``'s launches.  Then one training-mode step at B2, TF32 off,
+   ``all_finite``'s launches.  The same 13 iterations again with the
+   prefetcher at depth 2 (``batchesInFlight`` 2): step time and images/s
+   at both depths, the producer's median fetch and the loop's median wait;
+   fatal unless the wait is below the fetch (the fetch overlapped the
+   steps).  Then one training-mode step at B2, TF32 off,
    on the card against the port's CPU path from the same weights and batch
    (see :func:`phase_resnet_check`: fp32 log-probs within 1e-4 and the
    gradient's norm within 1e-3 relative, the fp32 gradient and statistics
@@ -89,8 +94,9 @@ Phases, each fatal on any fault:
    each trained through perf.py's protocol (``train_throughput``: bf16,
    SGD(0.01, momentum 0.9), 2 warm-up iterations then 10 timed ones
    through ``Optimizer.create(...).optimize()``) on one fixed batch of 128
-   images at 224 x 224, every Dropout active.  Logged: images/s and step
-   time (median of the timed iterations, the batch fetch apart), peak
+   images at 224 x 224, every Dropout active, the prefetcher at its default
+   depth 2.  Logged: images/s and step time (median of the timed
+   iterations, the loop's wait for the batch apart), peak
    memory, MFU against the dense bf16 peak at 2 FLOPs per multiply-add
    (counted from the model's shapes), the losses, a profile of one more
    step by category; ``per_layer_report`` in bf16 at B128 for VGG-16 and
@@ -132,12 +138,36 @@ Phases, each fatal on any fault:
    fails): the reference test's MLP and conv + BatchNorm model in both
    schedules, the ranks and the schedules bit-identical, and weights,
    momentum and statistics within rtol 2e-4 / atol 2e-5 of a
-   ``LocalOptimizer`` over the same full batch.
+   ``LocalOptimizer`` over the same full batch;
+11. real data (``bench.py:815`` ``bench_realdata``): the native library
+   built from ``native/*.cc`` into ``build/`` (build time, every symbol,
+   ``os.cpu_count()``); 1280 JPEGs written at run time under a temporary
+   directory by ``bench.py:452`` ``_make_bench_seqfiles``' protocol (256 x
+   256, q90, smooth blobs plus noise, seed 7, 10 SequenceFiles, labels
+   ``idx % 1000 + 1``) through the port's writer; the first two
+   device-augment batches: ``DeviceAugment`` on the card bit-identical to
+   the host's ``assemble_batch_u8`` over the same frames and draws, and
+   ``ChannelNormalize``'s bf16 output bit-identical to the CPU's; then
+   ``DeviceAugment(224, 224)`` -> ``ChannelNormalize((104, 117, 123), (1,
+   1, 1), bf16)`` -> ResNet-50 as phase 8 builds it -> ``LogSoftMax``
+   trained 15 bf16 iterations (SGD(0.01, momentum 0.9)) through
+   ``Optimizer.create(...).optimize()`` over ``DataSet.seq_file_folder``
+   -> ``StreamingIngest(128, device_augment=True)``, prefetch depth 2 and
+   ``batchesInFlight`` 2, the epoch of 10 iterations rolling over on the
+   producer.  Gates: every loss finite, every BatchNorm statistic finite
+   and moved, no flash launch, the epoch counter advanced.  Logged:
+   images/s end to end (the wall of iterations 4-15, the wait included),
+   step time, the loop's wait, the producer's fetch and copy waits, each
+   ingest stage's items, busy, starve and backpressure, the bytes copied
+   a batch against phase 8's, peak memory.  Then 384 records (3 iterations
+   an epoch), cuDNN deterministic: 4 iterations at depth 0 and 4 at depth
+   2 from the same weights and seed give bit-identical losses, weights and
+   statistics.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
-run; phases 8 and 9 run none of them), then the result line
+run; phases 8, 9 and 11 run none of them), then the result line
 ``{"ok": true, "device": {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
@@ -221,6 +251,14 @@ R50_ZERO_GRAD = 1e-4    # conv biases before a BN (exact gradient 0),
                         # against the largest gradient entry
 R50_FOLD_BATCH = 8
 R50_FOLD_RTOL = 1e-4    # folded against unfolded, of max |log-prob|
+#: phase 11: the real-data path, bench.py:815 bench_realdata over the JPEG
+#: set of bench.py:452 _make_bench_seqfiles (10 files of 256 x 256 q90)
+RD_IMAGES, RD_FILES, RD_SIZE, RD_QUALITY, RD_SEED = 1280, 10, 256, 90, 7
+RD_BATCH, RD_CROP = 128, (224, 224)
+RD_MEAN, RD_STD = (104.0, 117.0, 123.0), (1.0, 1.0, 1.0)
+RD_STEPS = 15                # the epoch of 10 iterations rolls over
+RD_TIMED = slice(3, RD_STEPS)   # iterations 4-15 timed
+RD_DET_IMAGES, RD_DET_STEPS = 384, 4   # 3 iterations an epoch
 #: phase 9: the rest of perf.py's convnet table (bigdl_tpu/models/perf.py
 #: :38-48), each trained through its training protocol
 ZOO_MODELS = ("alexnet", "vgg16", "vgg19", "inception_v1")
@@ -1300,11 +1338,35 @@ def tf32_off():
             f.allow_tf32 = v
 
 
+@contextlib.contextmanager
+def properties(**keys):
+    """The port's config keys (dots written ``__``) set for the block and
+    put back after."""
+    from bigdl_tpu_torch.utils import config
+    saved = []
+    for key, value in keys.items():
+        name = key.replace("__", ".")
+        saved.append((name, name in config._OVERRIDES,
+                      config._OVERRIDES.get(name)))
+        config.set_property(name, value)
+    try:
+        yield
+    finally:
+        for name, had, value in saved:
+            if had:
+                config.set_property(name, value)
+            else:
+                config.clear_property(name)
+
+
 def phase_resnet_training(card: str, model) -> tuple:
     """The convnet slice's main path: ResNet-50 trained through
     Optimizer.create(...).optimize() in bf16, B128 at 224 x 224, SGD(0.01,
-    momentum 0.9), on one fixed batch.  Returns the run's flash launches
-    (all must be 0) and its median step time in seconds."""
+    momentum 0.9), on one fixed batch, with the batch fetched on the
+    training thread (``bigdl.prefetch.depth`` 0); then the same iterations
+    with the prefetcher at depth 2 (:func:`phase_resnet_prefetch`).
+    Returns the depth-0 run's flash launches (all must be 0) and its
+    median step time in seconds."""
     import torch
     from bigdl_tpu_torch.dataset import Sample
     from bigdl_tpu_torch.kernels import flash_attention as fa
@@ -1327,7 +1389,8 @@ def phase_resnet_training(card: str, model) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     t = time.perf_counter()
-    opt.optimize()
+    with properties(bigdl__prefetch__depth=0):
+        opt.optimize()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(fa.launches)
@@ -1370,8 +1433,9 @@ def phase_resnet_training(card: str, model) -> tuple:
         raise AssertionError(f"ResNet-50 training launched flash kernels: "
                              f"{launches}")
     opt.set_end_when(max_iteration(R50_STEPS + 1))
-    profile(f"bf16 ResNet-50 training step B{R50_BATCH}", opt.optimize,
-            card, R50_CATEGORIES)
+    with properties(bigdl__prefetch__depth=0):
+        profile(f"bf16 ResNet-50 training step B{R50_BATCH}", opt.optimize,
+                card, R50_CATEGORIES)
     grads = [torch.ones_like(p) for p in model.parameters()]
     loss = torch.zeros((), device=DEVICE)
     all_finite(loss, grads)
@@ -1385,7 +1449,57 @@ def phase_resnet_training(card: str, model) -> tuple:
         f"{host_ms:.2f} ms of host enqueue a call (mean of 10, unprofiled)")
     profile(f"all_finite over the step's {len(grads)} gradient tensors",
             lambda: all_finite(loss, grads), card)
+    phase_resnet_prefetch(card, model, samples, step_s, fetch_s)
     return launches, step_s
+
+
+def phase_resnet_prefetch(card: str, model, samples, step0_s: float,
+                          fetch0_s: float) -> None:
+    """Phase 8 at ``bigdl.prefetch.depth`` 2: the same R50_STEPS
+    iterations over the same samples through a new
+    Optimizer.create(...).optimize(), the batch fetched and copied to the
+    card (pinned staging, a side stream) by the prefetcher's threads while
+    the steps run.  Gate: the loop's median wait for a batch is below the
+    producer's median fetch, so the fetch overlapped the steps."""
+    import torch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+
+    opt = (Optimizer.create(model, samples, ClassNLLCriterion(),
+                            batch_size=R50_BATCH, device=DEVICE)
+           .set_optim_method(SGD(0.01, momentum=0.9))
+           .set_precision("bf16")
+           .set_end_when(max_iteration(R50_STEPS)))
+    torch.cuda.synchronize()
+    with properties(bigdl__prefetch__depth=2,
+                    bigdl__ingest__batchesInFlight=2):
+        opt.optimize()
+    torch.cuda.synchronize()
+    hist = opt.history
+    timed = hist[R50_TIMED]
+    step_s = statistics.median(h["seconds"] for h in timed)
+    fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
+    wait_s = statistics.median(h["wait_seconds"] for h in timed)
+    pf = opt.prefetcher
+    log(f"[resnet] prefetch depth 2: step ms "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; the loop's wait "
+        f"ms {[round(h['wait_seconds'] * 1e3, 2) for h in hist]}; the "
+        f"producer's fetch ms "
+        f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
+    log(f"[resnet] depth 0: step {step0_s * 1e3:.2f} ms, "
+        f"{R50_BATCH / step0_s:,.1f} images/s, fetch (the loop's wait) "
+        f"{fetch0_s * 1e3:.2f} ms; depth 2 (batchesInFlight 2): step "
+        f"{step_s * 1e3:.2f} ms, {R50_BATCH / step_s:,.1f} images/s, the "
+        f"producer's fetch {fetch_s * 1e3:.2f} ms, the loop's wait "
+        f"{wait_s * 1e3:.2f} ms (medians of iterations 3-12); the "
+        f"producer's totals over {pf.batches} batches: fetch "
+        f"{pf.fetch_ns / 1e6:.1f} ms, waiting for copies to land "
+        f"{pf.block_ns / 1e6:.1f} ms, on {card}")
+    if not wait_s < fetch_s:
+        raise AssertionError(
+            f"prefetch depth 2: the loop's median wait {wait_s * 1e3:.2f} ms "
+            f"is not below the producer's median fetch "
+            f"{fetch_s * 1e3:.2f} ms: the fetch did not overlap the steps")
 
 
 def r50_step(model, x, y, device: str, dtype) -> tuple:
@@ -1623,8 +1737,9 @@ def zoo_training(card: str, name: str, model) -> bool:
     timed = hist[2:]
     step_s = statistics.median(h["seconds"] for h in timed)
     fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
+    wait_s = statistics.median(h["wait_seconds"] for h in timed)
     rate = ZOO_BATCH / step_s
-    bare = ZOO_BATCH / (step_s - fetch_s)
+    bare = ZOO_BATCH / (step_s - wait_s)
     flops = 3 * 2 * macs
     mfu = [100 * r * flops / PEAK_FLOPS["bfloat16"] for r in (rate, bare)]
     falling = losses[-1] < losses[0]
@@ -1632,15 +1747,20 @@ def zoo_training(card: str, name: str, model) -> bool:
         f"{wall:.2f} s, the timed {len(timed)} in {timed_s:.2f} s "
         f"({ZOO_BATCH * len(timed) / timed_s:,.1f} images/s as perf.py "
         f"reports it); losses {[round(v, 4) for v in losses]}; step ms "
-        f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; fetch ms "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; the loop's wait "
+        f"ms {[round(h['wait_seconds'] * 1e3, 2) for h in hist]}; the "
+        f"prefetcher's fetch ms "
         f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
     log(f"[zoo] {name}: step {step_s * 1e3:.2f} ms (median of iterations "
-        f"3-{len(hist)}), {rate:,.1f} images/s, of which the batch fetch "
-        f"{fetch_s * 1e3:.2f} ms; without it {bare:,.1f} images/s; peak "
+        f"3-{len(hist)}), {rate:,.1f} images/s, of which the loop's wait "
+        f"for the batch {wait_s * 1e3:.2f} ms (the prefetcher's fetch "
+        f"{fetch_s * 1e3:.2f} ms, on its own thread at "
+        f"bigdl.prefetch.depth 2); without the wait {bare:,.1f} images/s; "
+        f"peak "
         f"memory {peak / 2**30:.2f} GiB; {macs / 1e9:.3f} G multiply-adds "
         f"per image forward, {flops / 1e9:.2f} GFLOP per trained image: "
         f"{rate * flops / 1e12:.1f} TFLOP/s, MFU {mfu[0]:.2f}% of "
-        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s (without the fetch "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s (without the wait "
         f"{mfu[1]:.2f}%); loss {'fell' if falling else 'did not fall'}; "
         f"launches {launches} on {card}")
     if not all(math.isfinite(v) for v in losses):
@@ -2402,6 +2522,285 @@ def phase_distri(card: str, train_step_s: float, r50_step_s: float) -> dict:
     return launches
 
 
+def rd_write_seqfiles(root: str, n_images: int, files: int) -> float:
+    """``bench.py:452`` ``_make_bench_seqfiles``' protocol through the
+    port's writer: ``n_images`` 256 x 256 q90 JPEGs of smooth blobs plus
+    noise from ``RandomState(RD_SEED)``, labels ``idx % 1000 + 1``, in
+    ``files`` SequenceFiles.  The draws stay in order on this thread; the
+    encodes run on a pool.  Returns the seconds taken."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from bigdl_tpu_torch.dataset.seqfile import write_image_seqfile
+
+    def encode(base, noise) -> bytes:
+        img = np.clip(base + noise, 0, 255).astype(np.uint8)
+        try:
+            from PIL import Image
+        except ImportError:
+            import cv2     # BGR in, so hand it the channels reversed
+            ok, buf = cv2.imencode(".jpg", img[:, :, ::-1],
+                                   [cv2.IMWRITE_JPEG_QUALITY, RD_QUALITY])
+            if not ok:
+                raise RuntimeError("cv2 could not encode a JPEG")
+            return buf.tobytes()
+        out = io.BytesIO()
+        Image.fromarray(img).save(out, "JPEG", quality=RD_QUALITY)
+        return out.getvalue()
+
+    t = time.perf_counter()
+    rng = np.random.RandomState(RD_SEED)
+    per = n_images // files
+    os.makedirs(root, exist_ok=True)
+    with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1)) as pool:
+        idx = 0
+        for fi in range(files):
+            jobs = []
+            for _ in range(per):
+                base = rng.normal(128, 40, size=(RD_SIZE, RD_SIZE, 3))
+                noise = rng.normal(0, 20, size=base.shape)
+                jobs.append((idx, pool.submit(encode, base, noise)))
+                idx += 1
+            write_image_seqfile(
+                os.path.join(root, f"part-{fi:05d}.seq"),
+                [(f"img_{i}.jpg", float(i % 1000 + 1), job.result())
+                 for i, job in jobs])
+    return time.perf_counter() - t
+
+
+def rd_model():
+    """Phase 11's model: DeviceAugment -> ChannelNormalize (bf16) ->
+    ResNet-50 as phase 8 builds it (channels-last, seed 0) ->
+    LogSoftMax."""
+    import torch
+    from bigdl_tpu_torch.models import model_init, resnet
+    from bigdl_tpu_torch.nn import (ChannelNormalize, DeviceAugment,
+                                    LogSoftMax, Sequential)
+    body = resnet(R50_CLASSES, depth=50, dataset="imagenet", device=DEVICE,
+                  seed=SEED)
+    model_init(body, generator=torch.Generator().manual_seed(SEED))
+    return (Sequential().add(DeviceAugment(*RD_CROP))
+            .add(ChannelNormalize(RD_MEAN, RD_STD, dtype=torch.bfloat16))
+            .add(body).add(LogSoftMax()))
+
+
+def rd_dataset(root: str):
+    from bigdl_tpu_torch.dataset import DataSet, StreamingIngest
+    eng = StreamingIngest(RD_BATCH, crop=RD_CROP, mean=RD_MEAN, std=RD_STD,
+                          device_augment=True)
+    return DataSet.seq_file_folder(root, decode=False).transform(eng), eng
+
+
+def rd_parity(card: str, root: str) -> None:
+    """The first two device-augment batches: DeviceAugment on the card
+    against the host assembler (``assemble_batch_u8``) over the same frames
+    and draws, and ChannelNormalize's bf16 output on the card against the
+    CPU's: both bit-identical."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset.mt_batch import assemble_batch_u8
+    from bigdl_tpu_torch.nn import ChannelNormalize, DeviceAugment
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    RandomGenerator.RNG().set_seed(SEED)
+    ds, _ = rd_dataset(root)
+    it = ds.data(train=False)
+    aug = DeviceAugment(*RD_CROP)
+    norm = ChannelNormalize(RD_MEAN, RD_STD, dtype=torch.bfloat16)
+    try:
+        for k in range(2):
+            frames, offs, flips = next(it).get_input()
+            host = assemble_batch_u8(list(frames), RD_CROP, offs, flips)
+            dev = aug([torch.from_numpy(a).to(DEVICE)
+                       for a in (frames, offs, flips)])
+            cl = dev.is_contiguous(memory_format=torch.channels_last)
+            got = dev.cpu()
+            normed = norm(dev).cpu()
+            ref = norm(torch.from_numpy(host))
+            same_u8 = torch.equal(got, torch.from_numpy(host))
+            same_bf16 = torch.equal(normed, ref)
+            log(f"[realdata] batch {k + 1}: frames {tuple(frames.shape)} "
+                f"uint8, {int(flips.sum())} flips; DeviceAugment on the card "
+                f"{tuple(got.shape)} (channels-last {cl}) bit-identical to "
+                f"assemble_batch_u8: {same_u8}; ChannelNormalize bf16 card "
+                f"against CPU bit-identical: {same_bf16}")
+            if not (same_u8 and same_bf16 and cl):
+                raise AssertionError(
+                    f"batch {k + 1}: device augment or normalise differs "
+                    "from the host, or the crop is not channels-last")
+    finally:
+        it.close()
+
+
+def rd_train(card: str, root: str, model, depth: int, steps: int):
+    """Train ``model`` through Optimizer.create(...).optimize() from the
+    SequenceFiles at ``root``; returns the optimizer and its engine."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    RandomGenerator.RNG().set_seed(SEED)
+    ds, eng = rd_dataset(root)
+    opt = (Optimizer.create(model, ds, ClassNLLCriterion(), device=DEVICE)
+           .set_optim_method(SGD(0.01, momentum=0.9))
+           .set_precision("bf16")
+           .set_end_when(max_iteration(steps)))
+    with properties(bigdl__prefetch__depth=depth,
+                    bigdl__ingest__batchesInFlight=2):
+        opt.optimize()
+    return opt, eng
+
+
+def phase_realdata(card: str) -> None:
+    """Phase 11: ResNet-50 trained from SequenceFiles of JPEGs through the
+    native library, StreamingIngest(device_augment=True) and the
+    prefetcher, across an epoch rollover; then depth 0 against depth 2
+    under deterministic cuDNN."""
+    import tempfile
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import native
+    from bigdl_tpu_torch.dataset.mt_batch import MTLabeledBGRImgToBatch
+    from bigdl_tpu_torch.dataset.seqfile import read_image_seqfile
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    t_phase = time.perf_counter()
+    decoders = []
+    for mod in ("cv2", "PIL"):
+        try:
+            __import__(mod)
+            decoders.append(mod)
+        except ImportError:
+            pass
+    if not decoders:
+        raise AssertionError("phase 11: neither cv2 nor PIL is installed, "
+                             "so no JPEG can be decoded")
+    t = time.perf_counter()
+    lib = native.load_native()
+    path, build_s = native.build_info
+    log(f"[realdata] native library {os.path.relpath(path, HERE)} built in "
+        f"{build_s:.2f} s (0.00: built before), "
+        f"{time.perf_counter() - t:.2f} s with the load and the check of "
+        f"{len(native.REQUIRED_SYMBOLS)} symbols "
+        f"({all(hasattr(lib, s) for s in native.REQUIRED_SYMBOLS)}); host "
+        f"os.cpu_count() {os.cpu_count()}; decoders {decoders}, "
+        f"StreamingIngest decodes with {decoders[0]}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_realdata_") as tmp:
+        root = os.path.join(tmp, "train")
+        gen_s = rd_write_seqfiles(root, RD_IMAGES, RD_FILES)
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for f in os.listdir(root))
+        log(f"[realdata] {RD_IMAGES} JPEGs ({RD_SIZE} x {RD_SIZE}, q"
+            f"{RD_QUALITY}, seed {RD_SEED}) in {RD_FILES} SequenceFiles, "
+            f"{size / 2**20:.1f} MiB, written in {gen_s:.1f} s")
+        first = os.path.join(root, sorted(os.listdir(root))[0])
+        with contextlib.closing(read_image_seqfile(first)) as recs:
+            frame = MTLabeledBGRImgToBatch._decode(next(recs)[2])
+        if frame.shape != (RD_SIZE, RD_SIZE, 3):
+            raise AssertionError(f"decoded frame {frame.shape}")
+        rd_parity(card, root)
+
+        model = rd_model()
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        before = bn_stats(model)
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        try:
+            t = time.perf_counter()
+            opt, eng = rd_train(card, root, model, 2, RD_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            torch.backends.cudnn.benchmark = saved
+        launches = dict(fa.launches)
+        peak = torch.cuda.max_memory_allocated()
+        hist = opt.history
+        losses = [h["loss"] for h in hist]
+        timed = hist[RD_TIMED]
+        rate = RD_BATCH * len(timed) / sum(h["seconds"] for h in timed)
+        step_s = statistics.median(h["seconds"] for h in timed)
+        wait_s = statistics.median(h["wait_seconds"] for h in timed)
+        fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
+        pf = opt.prefetcher
+        up = (RD_BATCH * RD_SIZE * RD_SIZE * 3 + RD_BATCH * (2 * 4 + 1) +
+              RD_BATCH * 4)
+        f32 = RD_BATCH * 4 * math.prod(R50_IMAGE) + RD_BATCH * 4
+        log(f"[realdata] {type(opt).__name__}, {len(hist)} bf16 iterations "
+            f"at B{RD_BATCH} in {wall:.2f} s (the first with cuDNN's "
+            f"autotuning), prefetch depth 2, batchesInFlight 2; epochs "
+            f"{[h['epoch'] for h in hist]}; losses "
+            f"{[round(v, 4) for v in losses]}; step ms "
+            f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; wait ms "
+            f"{[round(h['wait_seconds'] * 1e3, 2) for h in hist]}; fetch ms "
+            f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
+        log(f"[realdata] end to end {rate:,.1f} images/s (wall of iterations "
+            f"4-{RD_STEPS}, the wait for batches included); step "
+            f"{step_s * 1e3:.2f} ms, the loop's wait {wait_s * 1e3:.2f} ms, "
+            f"the producer's fetch {fetch_s * 1e3:.2f} ms (medians); the "
+            f"producer's totals over {pf.batches} batches: fetch "
+            f"{pf.fetch_ns / 1e6:.1f} ms, waiting for copies to land "
+            f"{pf.block_ns / 1e6:.1f} ms; {up / 2**20:.2f} MiB copied to "
+            f"the card a batch (uint8 frames, draws, labels) against "
+            f"{f32 / 2**20:.2f} MiB for phase 8's float32 batch; peak memory "
+            f"{peak / 2**30:.2f} GiB on {card}")
+        for stage, snap in eng.stats().items():
+            log(f"[realdata] ingest stage {stage}: {snap['items']} items, "
+                f"busy {snap['busy_s']:.3f} s, starve {snap['starve_s']:.3f} "
+                f"s, backpressure {snap['backpressure_s']:.3f} s, "
+                f"{snap['throughput_per_sec']:,.1f}/s, mean ring depth "
+                f"{snap['mean_queue_depth']} (the last epoch's run; "
+                f"{eng.stage_workers.get(stage, 1)} worker(s))")
+        if not isinstance(opt, LocalOptimizer):
+            raise AssertionError(f"trainer {type(opt).__name__}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses} not all finite")
+        after = bn_stats(model)
+        if not all(torch.isfinite(a).all() for a in after) or any(
+                torch.equal(a, b) for a, b in zip(after, before)):
+            raise AssertionError("BatchNorm running statistics not finite, "
+                                 "or some did not move")
+        if any(launches.values()):
+            raise AssertionError(f"phase 11 launched flash kernels: "
+                                 f"{launches}")
+        if not (hist[-1]["epoch"] >= 2 and
+                opt.optim_method.state["epoch"] >= 2):
+            raise AssertionError("the epoch counter did not advance")
+
+        det = os.path.join(tmp, "det")
+        os.makedirs(det)
+        for f in sorted(os.listdir(root))[:RD_DET_IMAGES // (
+                RD_IMAGES // RD_FILES)]:
+            os.link(os.path.join(root, f), os.path.join(det, f))
+        runs = {}
+        with cudnn_deterministic():
+            for depth in (0, 2):
+                model.load_state_dict(init)
+                o, _ = rd_train(card, det, model, depth, RD_DET_STEPS)
+                torch.cuda.synchronize()
+                runs[depth] = ([h["loss"] for h in o.history],
+                               [h["epoch"] for h in o.history],
+                               [p.detach().clone()
+                                for p in model.parameters()] +
+                               bn_stats(model))
+        same_loss = runs[0][0] == runs[2][0]
+        same_w = all(torch.equal(a, b) for a, b in zip(runs[0][2],
+                                                      runs[2][2]))
+        log(f"[realdata] determinism, {RD_DET_IMAGES} records "
+            f"({RD_DET_IMAGES // RD_BATCH} iterations an epoch), "
+            f"{RD_DET_STEPS} iterations, cuDNN deterministic: depth 0 losses "
+            f"{runs[0][0]} epochs {runs[0][1]}; depth 2 losses {runs[2][0]}; "
+            f"losses bit-identical {same_loss}, final weights and statistics "
+            f"bit-identical {same_w}")
+        if not (same_loss and same_w):
+            raise AssertionError("depth 0 and depth 2 trained differently")
+    del model
+    log(f"[realdata] phase 11 took {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
@@ -2503,6 +2902,8 @@ def main(argv=None) -> int:
     phase_zoo(card)
     torch.cuda.empty_cache()
     distri = phase_distri(card, train_step_s, r50_step_s)
+    torch.cuda.empty_cache()
+    phase_realdata(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri)

@@ -243,6 +243,13 @@ _WORKER = textwrap.dedent(r'''
             SGD(0.2, momentum=0.9), overlap=overlap)
         run(f"bn_{name}", "bn", d["bn"], 32, 6,
             SGD(0.1, momentum=0.9), overlap=overlap)
+    # every leg runs with the prefetcher at its default depth (2); this
+    # one fetches on the training thread
+    config.set_property("bigdl.prefetch.depth", 0)
+    opt, _ = run("bn_depth0", "bn", d["bn"], 32, 6, SGD(0.1, momentum=0.9))
+    config.clear_property("bigdl.prefetch.depth")
+    out["depth0_wait_seconds"] = np.array([h["wait_seconds"]
+                                      for h in opt.history])
     run("mlp_adam", "mlp", d["mlp"], 32, 6, Adam(1e-2))
     run("lm", "lm", d["lm"], 4, 3, SGD(0.01, momentum=0.9),
         crit=nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
@@ -519,6 +526,20 @@ def test_dp2_tiny_lm_matches_jax(ranks):
 
 # ----------------------------------------------- the port against itself
 
+def test_dp2_prefetch_depth_does_not_change_training(ranks):
+    """The legs train with the prefetcher at depth 2 (the default, its
+    producer rolling the epochs over); the conv + BN leg at depth 0 gives
+    the same bits on every rank."""
+    outs, _, _ = ranks
+    for out in outs:
+        keys = [k for k in out if k.startswith("bn_bucketed/")]
+        assert keys and len(out["depth0_wait_seconds"]) == 6
+        for k in keys:
+            np.testing.assert_array_equal(
+                out[k], out[k.replace("bn_bucketed/", "bn_depth0/")],
+                err_msg=k)
+
+
 @pytest.mark.parametrize("model", ["mlp", "bn"])
 def test_schedules_are_bit_identical(ranks, model):
     outs, _, _ = ranks
@@ -706,8 +727,14 @@ def test_sample_to_minibatch_partition_split_matches_jax():
     for a, b in zip(*got, strict=True):
         np.testing.assert_array_equal(a, b)
     assert SampleToMiniBatch(8).batch_per_partition == 8
-    with pytest.raises(NotImplementedError, match="padding"):
-        SampleToMiniBatch(8, feature_padding=object())
+    # ragged samples are padded to the longest of the partition's batch
+    ragged = [(np.ones(n, np.float32), np.float32(1)) for n in (2, 3, 1, 4)]
+    padded = [np.asarray(b.get_input()) for s2b, sample in (
+        (JaxSampleToMiniBatch, JaxSample), (SampleToMiniBatch, Sample))
+        for b in s2b(4, 2)(iter(sample(*r) for r in ragged))]
+    assert [b.shape for b in padded] == [(2, 3), (2, 4)] * 2
+    for a, b in zip(padded[:2], padded[2:]):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("n_shards", [1, 2, 3, 8])
@@ -809,8 +836,7 @@ def test_backend_and_compression_are_checked(group1, monkeypatch):
 
 @pytest.mark.parametrize("ask", [
     "set_mesh", "bigdl.integrity.everyN", "bigdl.chaos.extraAllGather",
-    "bigdl.chaos.dropBucketCollective", "bigdl.prefetch.depth",
-    "bigdl.elastic.handleSignals"])
+    "bigdl.chaos.dropBucketCollective", "bigdl.elastic.handleSignals"])
 def test_unported_features_raise(group1, ask):
     ds = ShardedDataSet(_mlp_samples(), 1).transform(SampleToMiniBatch(8))
     opt = DistriOptimizer(_mlp(pnn, device="cpu"), ds,

@@ -4,10 +4,13 @@
   or anything of ``bigdl_tpu`` (an AST walk over every file).
 * Every kernel module names a CUDA source that exists; its build directory is
   listed in ``.gitignore``.
-* In a fresh process, importing every module of the port, building a model,
-  serving a request, streaming tokens through ``LMServingEngine`` (offline
-  ``generate`` and a started scheduler), taking a training step on the
-  CPU, and building a CIFAR ResNet-20, training it one bf16 step and
+* In a fresh process, importing every module of the port starts no thread
+  and builds no native library (the data pipeline's is built at its first
+  use); then building a model, serving a request, streaming tokens through
+  ``LMServingEngine`` (offline ``generate`` and a started scheduler),
+  pulling a batch of JPEG records through ``StreamingIngest`` and a
+  ``BatchPrefetcher`` on the CPU and stopping them, taking a training step
+  on the CPU, and building a CIFAR ResNet-20, training it one bf16 step and
   predicting with ``fold_bn=True`` builds no kernel, starts no process,
   leaves no thread running, imports neither package, and changes no state
   global to the process (torch's default dtype, thread count, RNG, TF32
@@ -119,7 +122,13 @@ for info in pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                   "bigdl_tpu_torch."):
     importlib.import_module(info.name)
 import chip_smoke
-from bigdl_tpu_torch.dataset import LocalDataSet, Sample, SampleToMiniBatch
+from bigdl_tpu_torch.dataset import native
+assert threading.active_count() == 1, threading.enumerate()
+assert not native.loaded()
+from bigdl_tpu_torch.dataset import (LocalDataSet, Sample, SampleToMiniBatch,
+                                     StreamingIngest)
+from bigdl_tpu_torch.dataset.image import LabeledImageBytes
+from bigdl_tpu_torch.engine import BatchPrefetcher
 from bigdl_tpu_torch.kernels import build, flash_attention
 from bigdl_tpu_torch.models import model_init, resnet
 from bigdl_tpu_torch.models.transformer import transformer_lm
@@ -149,6 +158,26 @@ with LMServingEngine(lm, start=True, **lm_kw) as eng:
     assert eng.submit(prompt, max_new_tokens=4).result(timeout=60) == tokens
 assert eng.decode_captures == 0 and not eng.scheduler_alive()
 assert threading.active_count() == 1, threading.enumerate()
+
+import io
+from PIL import Image
+records = []
+for i in range(8):
+    buf = io.BytesIO()
+    Image.fromarray(np.full((40, 48, 3), 20 * i, np.uint8)).save(
+        buf, "JPEG", quality=90)
+    records.append(LabeledImageBytes(f"r{i}", float(i % 3 + 1),
+                                     buf.getvalue()))
+source = StreamingIngest(4, crop=(32, 32), device_augment=True,
+                         decode_workers=2)(iter(records))
+prefetcher = BatchPrefetcher(lambda: next(source).get_input(), depth=2,
+                             device="cpu")
+frames, offsets, flips = prefetcher()
+assert frames.shape == (4, 40, 48, 3) and offsets.shape == (4, 2)
+prefetcher.stop()
+source.close()
+assert threading.active_count() == 1, threading.enumerate()
+assert not native.loaded()
 
 samples = [Sample(row, np.roll(row, -1)) for _ in range(2)]
 opt = Optimizer.create(
