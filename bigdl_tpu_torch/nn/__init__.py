@@ -12,6 +12,7 @@ from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
                                           scaled_dot_product_attention)
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                          CrossEntropyCriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.fuse import fold_conv_bn
 from bigdl_tpu_torch.nn.init import (InitializationMethod, RandomNormal,
@@ -34,8 +35,9 @@ from bigdl_tpu_torch.nn.table import CAddTable, Concat, ConcatTable
 
 __all__ = ["BatchNormalization", "CAddTable", "ChannelNormalize",
            "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
-           "Criterion", "DeviceAugment", "Dropout", "Identity",
-           "InitializationMethod", "Linear", "LogSoftMax", "LookupTable",
+           "Criterion", "CrossEntropyCriterion", "DeviceAugment", "Dropout",
+           "Identity", "InitializationMethod", "Linear", "LogSoftMax",
+           "LookupTable",
            "Module", "MulConstant", "MultiHeadAttention", "NCHWToNHWC",
            "NHWCToNCHW", "RandomNormal", "RandomUniform", "ReLU", "Reshape",
            "Sequential", "SpatialAveragePooling", "SpatialBatchNormalization",

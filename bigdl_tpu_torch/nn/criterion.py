@@ -1,5 +1,6 @@
 """Loss functions (``bigdl_tpu/nn/criterion.py``: ``ClassNLLCriterion``
-:26-46, ``TimeDistributedCriterion`` :428-476).
+:26-46, ``CrossEntropyCriterion`` :49-57, ``TimeDistributedCriterion``
+:428-476).
 
 Conventions kept from the reference and Torch: class labels are 1-based
 floats; ``size_average=True`` divides by the batch size (or by the sum of
@@ -44,6 +45,18 @@ class ClassNLLCriterion(Criterion):
             loss = -picked.sum()
             denom = logp.shape[0]
         return loss / denom if self.size_average else loss
+
+
+class CrossEntropyCriterion(Criterion):
+    """LogSoftMax over the last axis, then ClassNLL (reference
+    ``nn/CrossEntropyCriterion.scala``)."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        super().__init__()
+        self.nll = ClassNLLCriterion(weights, size_average)
+
+    def apply(self, input: torch.Tensor, target) -> torch.Tensor:
+        return self.nll.apply(torch.log_softmax(input, dim=-1), target)
 
 
 class TimeDistributedCriterion(Criterion):

@@ -71,6 +71,11 @@ class Module(nn.Module):
     maps in ``self.format`` and is re-pointed by :meth:`set_format`)."""
 
     layout_role = "opaque"
+    #: gradient scales of this layer's weights and of its bias (reference
+    #: ``setScaleW``/``setScaleB``): the trainers multiply the layer's
+    #: parameter gradients by them before the update
+    scale_w = 1.0
+    scale_b = 1.0
     #: a training-mode forward draws from the random stream
     #: (:func:`random_stream`); the twin of the JAX package's
     #: ``is_stochastic`` layers (``Dropout``)
@@ -92,9 +97,31 @@ class Module(nn.Module):
         self.format = format
         return self
 
+    def set_scale_w(self, w: float) -> "Module":
+        self.scale_w = float(w)
+        return self
+
+    def set_scale_b(self, b: float) -> "Module":
+        self.scale_b = float(b)
+        return self
+
     def evaluate(self) -> "Module":
         """Inference mode (reference ``evaluate()``); ``train()`` undoes it."""
         return self.eval()
+
+
+def grad_scales(model: nn.Module, params) -> Optional[list]:
+    """Each of ``params``' gradient scale (its layer's ``scale_b`` for a
+    parameter named ``bias``, else ``scale_w``; the twin of the JAX
+    package's ``Module._scale_grads``, ``nn/module.py:312``), or None when
+    every scale is 1."""
+    by_id = {}
+    for m in model.modules():
+        for name, p in m.named_parameters(recurse=False):
+            by_id[id(p)] = float(getattr(m, "scale_b" if name == "bias"
+                                         else "scale_w", 1.0))
+    scales = [by_id.get(id(p), 1.0) for p in params]
+    return None if all(s == 1.0 for s in scales) else scales
 
 
 class Criterion:

@@ -1,7 +1,9 @@
 """OptimMethod: gradient-descent rules (``bigdl_tpu/optim/optim_method.py``:
-``OptimMethod`` :39, ``LearningRateSchedule``/``Default`` :125-141, ``SGD``
-:325-376, ``Adam`` :435-472; reference ``optim/SGD.scala:38``,
-``optim/Adam.scala``).
+``OptimMethod`` :39, ``save``/``load`` :97-105, the learning-rate schedules
+:125-322, ``SGD`` :325, ``Adagrad`` :378, ``Adadelta`` :410, ``Adam`` :435,
+``Adamax`` :473, ``RMSprop`` :503; reference ``optim/SGD.scala:38``,
+``optim/Adagrad.scala``, ``optim/Adadelta.scala``, ``optim/Adam.scala``,
+``optim/Adamax.scala``, ``optim/RMSprop.scala``).
 
 As in the JAX package every method is split into
 
@@ -20,13 +22,24 @@ As in the JAX package every method is split into
 - a stateful shell with the reference's state keys (``evalCounter``,
   ``epoch``, the negated ``clr``).
 
-Hyper-parameters follow the reference's names and defaults.  Only ``SGD``
-(with the ``Default`` schedule) and ``Adam`` are ported so far.
+Hyper-parameters follow the reference's names and defaults.  ``LBFGS``
+(:535), whose line search re-evaluates the loss inside a step, is not
+ported: building one raises :class:`NotImplementedError`.
+
+Persistence.  The JAX package pickles the whole object.  Here an
+``OptimMethod`` is saved as plain data (:func:`optim_payload`: the class
+name, its scalar hyper-parameters, its schedule's class and scalar
+fields, the ``state`` dict and the slots as CPU tensors), written with
+``torch.save`` and read back with ``torch.load(weights_only=True)``, so
+nothing arbitrary is unpickled and a snapshot does not depend on a
+class's pickled layout.  :func:`load_payload` puts such a payload into a
+live method; :meth:`OptimMethod.load` rebuilds one from its class name.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -70,6 +83,18 @@ class OptimMethod:
         """Advance the host counters after a step."""
         self.state["evalCounter"] = self.state.get("evalCounter", 0) + 1
 
+    def save(self, path: str, overwrite: bool = True) -> "OptimMethod":
+        """Write :func:`optim_payload` to ``path`` atomically."""
+        from bigdl_tpu_torch.utils import file_io
+        file_io.save(optim_payload(self), path, overwrite)
+        return self
+
+    @staticmethod
+    def load(path: str) -> "OptimMethod":
+        """Rebuild a method saved by :meth:`save` from its class name."""
+        from bigdl_tpu_torch.utils import file_io
+        return from_payload(file_io.load(path))
+
 
 # ---------------------------------------------------------------------------
 # learning-rate schedules (reference optim/SGD.scala:198-560)
@@ -90,6 +115,188 @@ class Default(LearningRateSchedule):
         n = optim.state["evalCounter"]
         optim.state["clr"] = -optim.learning_rate / (
             1 + n * optim.learning_rate_decay)
+
+
+class Step(LearningRateSchedule):
+    """lr * gamma^(floor(nevals / step_size)) (reference ``SGD.Step:316``)."""
+
+    def __init__(self, step_size: int, gamma: float):
+        self.step_size = step_size
+        self.gamma = gamma
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        n = optim.state["evalCounter"]
+        optim.state["clr"] = -optim.learning_rate * (
+            self.gamma ** (n // self.step_size))
+
+
+class MultiStep(LearningRateSchedule):
+    """lr * gamma^(steps passed) (reference ``SGD.MultiStep:349``)."""
+
+    def __init__(self, step_sizes, gamma: float):
+        self.step_sizes = list(step_sizes)
+        self.gamma = gamma
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        n = optim.state["evalCounter"]
+        k = sum(1 for s in self.step_sizes if n >= s)
+        optim.state["clr"] = -optim.learning_rate * (self.gamma ** k)
+
+
+class EpochStep(LearningRateSchedule):
+    """lr * gamma^(floor((epoch-1)/step)) (reference ``SGD.EpochStep:412``)."""
+
+    def __init__(self, step_size: int, gamma: float):
+        self.step_size = step_size
+        self.gamma = gamma
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        epoch = optim.state.get("epoch", 1)
+        optim.state["clr"] = -optim.learning_rate * (
+            self.gamma ** ((epoch - 1) // self.step_size))
+
+
+class EpochDecay(LearningRateSchedule):
+    """lr * 0.1^decayFn(epoch) (reference ``SGD.EpochDecay:385``).
+    ``decay_fn`` is code, not data: a saved method does not carry it."""
+
+    def __init__(self, decay_fn: Callable[[int], float]):
+        self.decay_fn = decay_fn
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        epoch = optim.state.get("epoch", 1)
+        optim.state["clr"] = -optim.learning_rate * (
+            0.1 ** self.decay_fn(epoch))
+
+
+class Poly(LearningRateSchedule):
+    """lr * (1 - iter/max)^power, 0 past max (reference ``SGD.Poly:281``)."""
+
+    def __init__(self, power: float, max_iteration: int):
+        self.power = power
+        self.max_iteration = max_iteration
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        n = optim.state["evalCounter"]
+        if n > self.max_iteration:
+            optim.state["clr"] = 0.0
+        else:
+            optim.state["clr"] = -optim.learning_rate * (
+                (1.0 - n / self.max_iteration) ** self.power)
+
+
+class Exponential(LearningRateSchedule):
+    """lr * gamma^(iter/decayStep), optionally staircased
+    (reference ``SGD.Exponential:467``)."""
+
+    def __init__(self, decay_step: int, decay_rate: float,
+                 stair_case: bool = False):
+        self.decay_step = decay_step
+        self.decay_rate = decay_rate
+        self.stair_case = stair_case
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        n = optim.state["evalCounter"]
+        p = n / self.decay_step
+        if self.stair_case:
+            p = float(int(p))
+        optim.state["clr"] = -optim.learning_rate * (self.decay_rate ** p)
+
+
+class NaturalExp(LearningRateSchedule):
+    """lr * exp(-gamma * floor(iter/decayStep))
+    (reference ``SGD.NaturalExp:446``)."""
+
+    def __init__(self, decay_step: int, gamma: float):
+        self.decay_step = decay_step
+        self.gamma = gamma
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        n = optim.state["evalCounter"]
+        optim.state["clr"] = -optim.learning_rate * math.exp(
+            -self.gamma * (n // self.decay_step))
+
+
+class Regime:
+    """(startEpoch, endEpoch, config) (reference ``SGD.Regime``)."""
+
+    def __init__(self, start_epoch: int, end_epoch: int,
+                 config: Dict[str, Any]):
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+        self.config = config
+
+
+class EpochSchedule(LearningRateSchedule):
+    """Per-epoch-range hyper-parameter regimes: the regime whose range
+    holds the epoch sets the method's attributes (reference
+    ``SGD.EpochSchedule:224``)."""
+
+    def __init__(self, regimes):
+        self.regimes = list(regimes)
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        epoch = optim.state.get("epoch", 1)
+        for r in self.regimes:
+            if r.start_epoch <= epoch <= r.end_epoch:
+                for k, v in r.config.items():
+                    setattr(optim, k, v)
+        optim.state["clr"] = -optim.learning_rate
+
+
+class Plateau(LearningRateSchedule):
+    """Reduce the rate by ``factor`` when ``monitor`` (``"score"``, which
+    validation sets, or ``"Loss"``) has not improved for ``patience``
+    epochs (reference ``SGD.Plateau:534``).  Its counters advance once per
+    epoch and live on the schedule."""
+
+    def __init__(self, monitor: str = "score", factor: float = 0.1,
+                 patience: int = 10, mode: str = "min", epsilon: float = 1e-4,
+                 cooldown: int = 0, min_lr: float = 0.0):
+        self.monitor = monitor
+        self.factor = factor
+        self.patience = patience
+        self.mode = mode
+        self.epsilon = epsilon
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self._wait = 0
+        self._cooldown_counter = 0
+        self._best: Optional[float] = None
+        self._current_lr: Optional[float] = None
+        self._cur_epoch = -1
+
+    def _is_better(self, cur: float, best: float) -> bool:
+        if self.mode == "min":
+            return cur < best - self.epsilon
+        return cur > best + self.epsilon
+
+    def update_hyper_parameter(self, optim: "SGD") -> None:
+        if self._current_lr is None:
+            self._current_lr = optim.learning_rate
+        optim.state["clr"] = -self._current_lr
+        # once per epoch (reference SGD.Plateau:558)
+        epoch = optim.state.get("epoch", 1)
+        if epoch == self._cur_epoch:
+            return
+        self._cur_epoch = epoch
+        metric = optim.state.get(self.monitor)
+        if metric is None:
+            return
+        if self._cooldown_counter > 0:
+            self._cooldown_counter -= 1
+            self._wait = 0
+        if self._best is None or self._is_better(metric, self._best):
+            self._best = metric
+            self._wait = 0
+        elif self._cooldown_counter <= 0:
+            self._wait += 1
+            if self._wait >= self.patience:
+                self._current_lr = max(self._current_lr * self.factor,
+                                       self.min_lr)
+                self._cooldown_counter = self.cooldown
+                self._wait = 0
+        optim.state["clr"] = -self._current_lr
 
 
 # ---------------------------------------------------------------------------
@@ -194,3 +401,249 @@ class Adam(OptimMethod):
         step = torch._foreach_div(s, bc1)
         torch._foreach_div_(step, denom)
         return torch._foreach_add(params, step, alpha=-lr), {"s": s, "r": r}
+
+
+class Adagrad(OptimMethod):
+    """(reference ``optim/Adagrad.scala``): the squared gradients summed in
+    ``var``; p - lr * g / (sqrt(var) + 1e-10)."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.learning_rate_decay = learning_rate_decay
+        self.weight_decay = weight_decay
+
+    def init_slots(self, params):
+        return {"var": _zeros_like(params)}
+
+    def hyper(self):
+        n = self.state.get("evalCounter", 0)
+        clr = self.learning_rate / (1 + n * self.learning_rate_decay)
+        self.state["clr"] = -clr
+        return {"lr": clr, "t": float(n)}
+
+    def pure_update(self, grads, params, slots, hyper):
+        lr = hyper["lr"]
+        if self.weight_decay != 0:
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
+        var = torch._foreach_addcmul(slots["var"], grads, grads)
+        denom = torch._foreach_sqrt(var)
+        torch._foreach_add_(denom, 1e-10)
+        step = torch._foreach_div(grads, denom)
+        return torch._foreach_add(params, step, alpha=-lr), {"var": var}
+
+
+class Adadelta(OptimMethod):
+    """(reference ``optim/Adadelta.scala``; decayRate 0.9, epsilon 1e-10):
+    the step sqrt(delta + eps) / sqrt(var + eps) * g, no learning rate."""
+
+    def __init__(self, decay_rate: float = 0.9, epsilon: float = 1e-10):
+        super().__init__()
+        self.decay_rate = decay_rate
+        self.epsilon = epsilon
+
+    def init_slots(self, params):
+        return {"paramVariance": _zeros_like(params),
+                "delta": _zeros_like(params)}
+
+    def pure_update(self, grads, params, slots, hyper):
+        rho, eps = self.decay_rate, self.epsilon
+        var = torch._foreach_mul(slots["paramVariance"], rho)
+        torch._foreach_addcmul_(var, grads, grads, value=1 - rho)
+        num = torch._foreach_add(slots["delta"], eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(var, eps)
+        torch._foreach_sqrt_(den)
+        upd = torch._foreach_div(num, den)
+        torch._foreach_mul_(upd, grads)
+        delta = torch._foreach_mul(slots["delta"], rho)
+        torch._foreach_addcmul_(delta, upd, upd, value=1 - rho)
+        return (torch._foreach_sub(params, upd),
+                {"paramVariance": var, "delta": delta})
+
+
+class Adamax(OptimMethod):
+    """(reference ``optim/Adamax.scala``; lr 2e-3): the first moment ``m``
+    and the infinity norm ``u``; p - lr / (1 - beta1^t) * m / u."""
+
+    def __init__(self, learning_rate: float = 2e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-38):
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def init_slots(self, params):
+        return {"m": _zeros_like(params), "u": _zeros_like(params)}
+
+    def hyper(self):
+        n = self.state.get("evalCounter", 0)
+        return {"lr": self.learning_rate, "t": float(n + 1)}
+
+    def pure_update(self, grads, params, slots, hyper):
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        lr, t = hyper["lr"], hyper["t"]
+        m = torch._foreach_mul(slots["m"], b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        absg = torch._foreach_abs(grads)
+        torch._foreach_add_(absg, eps)
+        u = torch._foreach_mul(slots["u"], b2)
+        torch._foreach_maximum_(u, absg)
+        clr = lr / (1 - b1 ** t)
+        step = torch._foreach_div(m, u)
+        return torch._foreach_add(params, step, alpha=-clr), {"m": m, "u": u}
+
+
+class RMSprop(OptimMethod):
+    """(reference ``optim/RMSprop.scala``; lr 1e-2, decayRate 0.99):
+    p - lr * g / (sqrt(sumSquare) + eps)."""
+
+    def __init__(self, learning_rate: float = 1e-2,
+                 learning_rate_decay: float = 0.0,
+                 decay_rate: float = 0.99, epsilon: float = 1e-8):
+        super().__init__()
+        self.learning_rate = learning_rate
+        self.learning_rate_decay = learning_rate_decay
+        self.decay_rate = decay_rate
+        self.epsilon = epsilon
+
+    def init_slots(self, params):
+        return {"sumSquare": _zeros_like(params)}
+
+    def hyper(self):
+        n = self.state.get("evalCounter", 0)
+        clr = self.learning_rate / (1 + n * self.learning_rate_decay)
+        self.state["clr"] = -clr
+        return {"lr": clr, "t": float(n)}
+
+    def pure_update(self, grads, params, slots, hyper):
+        rho, eps = self.decay_rate, self.epsilon
+        r = torch._foreach_mul(slots["sumSquare"], rho)
+        torch._foreach_addcmul_(r, grads, grads, value=1 - rho)
+        denom = torch._foreach_sqrt(r)
+        torch._foreach_add_(denom, eps)
+        step = torch._foreach_div(grads, denom)
+        return (torch._foreach_add(params, step, alpha=-hyper["lr"]),
+                {"sumSquare": r})
+
+
+class LBFGS(OptimMethod):
+    """(reference ``optim/LBFGS.scala``): not ported.  Its line search
+    evaluates the loss several times inside one step (the JAX trainer's
+    ``_build_feval_step``), which the port's trainers do not have."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "LBFGS is not ported yet: its line search re-evaluates the loss "
+            "inside a step, which the port's trainers do not do")
+
+
+# ---------------------------------------------------------------------------
+# persistence as plain data
+# ---------------------------------------------------------------------------
+
+_PLAIN = (bool, int, float, str, type(None))
+
+
+def _plain_fields(obj, skip=()) -> Dict[str, Any]:
+    """The fields of ``obj`` that are plain scalars (or lists of them); a
+    ``Regime`` list becomes a list of ``[start, end, config]``."""
+    out = {}
+    for k, v in vars(obj).items():
+        if k in skip:
+            continue
+        if isinstance(v, _PLAIN):
+            out[k] = v
+        elif isinstance(v, (list, tuple)) and all(
+                isinstance(x, _PLAIN) for x in v):
+            out[k] = list(v)
+        elif isinstance(v, list) and all(isinstance(x, Regime) for x in v):
+            out[k] = [[r.start_epoch, r.end_epoch, dict(r.config)]
+                      for r in v]
+    return out
+
+
+def _set_fields(obj, fields: Dict[str, Any]) -> None:
+    for k, v in fields.items():
+        if k == "regimes":
+            v = [Regime(a, b, dict(c)) for a, b, c in v]
+        setattr(obj, k, v)
+
+
+def optim_payload(method: OptimMethod) -> Dict[str, Any]:
+    """``method`` as plain data for ``torch.save``: its class, scalar
+    hyper-parameters, schedule (class and scalar fields), ``state`` and
+    slots, each slot a full-size CPU tensor.  Read back with
+    ``torch.load(weights_only=True)``."""
+    slots = None
+    if method._slots is not None:
+        slots = {k: [t.detach().cpu() for t in v]
+                 for k, v in method._slots.items()}
+    schedule = getattr(method, "schedule", None)
+    return {
+        "class": type(method).__name__,
+        "hyper": _plain_fields(method, skip=("state", "_slots")),
+        "schedule": None if schedule is None else {
+            "class": type(schedule).__name__,
+            "fields": _plain_fields(schedule)},
+        "state": dict(method.state),
+        "slots": slots,
+    }
+
+
+def load_payload(method: OptimMethod, payload: Dict[str, Any],
+                 device: Optional[torch.device] = None,
+                 hyper: bool = True) -> OptimMethod:
+    """Put a payload of :func:`optim_payload` into ``method`` in place: its
+    ``state`` and slots (moved to ``device``), and with ``hyper`` its
+    hyper-parameters and its schedule's fields, as unpickling the JAX
+    package's method would give them.  Raises :class:`TypeError` when the
+    payload is of another class."""
+    if payload["class"] != type(method).__name__:
+        raise TypeError(f"snapshot of a {payload['class']} cannot be loaded "
+                        f"into a {type(method).__name__}")
+    if hyper:
+        _set_fields(method, payload["hyper"])
+        sched, schedule = payload["schedule"], getattr(method, "schedule",
+                                                       None)
+        if sched is not None and schedule is not None:
+            if sched["class"] != type(schedule).__name__:
+                raise TypeError(
+                    f"snapshot's schedule is a {sched['class']}, the "
+                    f"method's a {type(schedule).__name__}")
+            _set_fields(schedule, sched["fields"])
+    method.state = dict(payload["state"])
+    slots = payload["slots"]
+    method.set_slots(None if slots is None else {
+        k: [t.to(device) if device is not None else t for t in v]
+        for k, v in slots.items()})
+    return method
+
+
+def _subclasses(cls):
+    for sub in cls.__subclasses__():
+        yield sub
+        yield from _subclasses(sub)
+
+
+def from_payload(payload: Dict[str, Any]) -> OptimMethod:
+    """Rebuild a method from :func:`optim_payload` by its class name."""
+    classes = {c.__name__: c for c in _subclasses(OptimMethod)}
+    cls = classes.get(payload["class"])
+    if cls is None:
+        raise TypeError(f"unknown OptimMethod class {payload['class']!r}")
+    method = cls.__new__(cls)
+    OptimMethod.__init__(method)
+    sched = payload["schedule"]
+    if sched is not None:
+        scheds = {c.__name__: c for c in _subclasses(LearningRateSchedule)}
+        scls = scheds.get(sched["class"])
+        if scls is None or scls is EpochDecay:
+            raise NotImplementedError(
+                f"schedule {sched['class']!r} holds code, not data: build "
+                "the method and load the payload into it (load_payload)")
+        method.schedule = scls.__new__(scls)
+    return load_payload(method, payload)

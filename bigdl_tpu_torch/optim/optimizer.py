@@ -1,11 +1,17 @@
 """Training orchestration: the ``Optimizer`` base with its fluent setters and
 factory, and the single-process ``LocalOptimizer``
-(``bigdl_tpu/optim/optimizer.py``: ``mixed_precision_forward`` :102,
-``all_finite`` :145, ``select_tree`` :165, ``regularization_penalty`` :174,
-``Optimizer`` :246, ``_sync_dataset_epoch`` :667, ``Optimizer.create`` :1569,
-``LocalOptimizer`` :1613, the training loop ``_drive`` :865; reference
-``optim/Optimizer.scala:42,268``, ``optim/LocalOptimizer.scala:41``).  The
-data-parallel trainer is :mod:`bigdl_tpu_torch.parallel.distri_optimizer`.
+(``bigdl_tpu/optim/optimizer.py``: ``_retry_backoff`` :58,
+``mixed_precision_forward`` :102, ``all_finite`` :145, ``select_tree`` :165,
+``regularization_penalty`` :174, ``Checkpoint`` :194, ``Optimizer`` :246,
+``set_checkpoint`` :326, ``set_validation`` :341, ``optimize`` and
+``_optimize_with_retry`` :393-560, ``_sync_dataset_epoch`` :667,
+``_restore_latest_checkpoint`` :785, the training loop ``_drive`` :865,
+``_validation_due``/``_run_validation`` :1469-1490,
+``_checkpoint_due``/``_run_checkpoint`` :1492-1532, ``Optimizer.create``
+:1569, ``LocalOptimizer`` :1613; reference ``optim/Optimizer.scala:42,268``,
+``optim/LocalOptimizer.scala:41``, ``optim/DistriOptimizer.scala:394-416,
+750-816``).  The data-parallel trainer is
+:mod:`bigdl_tpu_torch.parallel.distri_optimizer`.
 
 The JAX package fuses one training step into one jitted program.  Here the
 step is eager PyTorch on the model's device: the forward (bf16 through
@@ -28,21 +34,39 @@ through :class:`~bigdl_tpu_torch.engine.BatchPrefetcher`, which fetches
 rolls the epoch over there and copies each batch to the device from pinned
 memory on a stream of its own (``optimizer.py`` :1087-1135).
 
-Not ported yet: checkpoints, validation, the failure-retry loop, telemetry
-and the step-time account, integrity fingerprints, the microbatch re-plan
-after a device OOM, the compile cache and preemption.  The keys that ask
-for the last two (``bigdl.integrity.everyN``, ``bigdl.elastic.handleSignals``)
-raise :class:`NotImplementedError` (:func:`refuse_unported`).
+The training contract around the loop is the JAX package's.  After each
+iteration (its counters advanced) the loop runs the validation, then the
+checkpoint, where their triggers fire: :meth:`Optimizer.set_validation`
+scores the model (``score``, the last metric's result, goes into the loop
+state and the method's ``state``, where ``max_score`` and ``Plateau`` read
+it); :meth:`Optimizer.set_checkpoint` writes snapshot ``neval - 1`` as a
+verified unit (:mod:`bigdl_tpu_torch.utils.checkpoint_manager`).
+:meth:`Optimizer.optimize` retries a failed run from the newest valid
+snapshot (``bigdl.failure.retryTimes``, waits by :func:`_retry_backoff`,
+the attempt count reset when a run gets further than any before;
+``ValueError``, ``TypeError``, ``KeyboardInterrupt`` and
+``torch.cuda.OutOfMemoryError`` go straight to the caller).  A restore
+loads the snapshot into the live model and method in place, the method's
+``epoch`` and counters included, so a ``ShardedDataSet`` replays the
+epoch's permutation (:meth:`Optimizer._sync_dataset_epoch`).
+
+Not ported yet: telemetry and the step-time account, integrity
+fingerprints, the microbatch re-plan after a device OOM, the compile
+cache, preemption and TensorBoard summaries.  The keys that ask for two of
+them (``bigdl.integrity.everyN``, ``bigdl.elastic.handleSignals``) raise
+:class:`NotImplementedError` (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import random
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, LocalDataSet,
@@ -50,20 +74,48 @@ from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, LocalDataSet,
 from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
                                                  SampleToMiniBatch)
 from bigdl_tpu_torch.engine import (BatchPrefetcher, DeviceLike,
-                                    check_on_device, default_device)
-from bigdl_tpu_torch.nn.module import (Container, Criterion, is_stochastic,
-                                       random_stream, state_buffers)
+                                    allgather_sum, check_on_device,
+                                    default_device)
+from bigdl_tpu_torch.nn.module import (Container, Criterion, grad_scales,
+                                       is_stochastic, random_stream,
+                                       state_buffers)
 from bigdl_tpu_torch.optim import trigger as triggers
-from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
+from bigdl_tpu_torch.optim.optim_method import (SGD, OptimMethod,
+                                                load_payload)
 from bigdl_tpu_torch.optim.trigger import Trigger
-from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.optim.validation_method import ValidationMethod
+from bigdl_tpu_torch.utils import config, elastic
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
-
 class DivergenceError(RuntimeError):
     """Raised by the training loop after ``bigdl.divergence.maxBadSteps``
-    consecutive non-finite losses."""
+    consecutive non-finite losses; the retry loop restores the newest
+    valid snapshot."""
+
+
+def _retry_backoff(attempt: int, base: float, cap: float,
+                   rand: Optional[float] = None) -> float:
+    """The wait before retry ``attempt``: ``min(base * 2**(attempt-1),
+    cap)`` scaled by a jitter factor in [0.5, 1.0] (``rand`` pins it), so
+    workers restarting off one failed store do not retry in lockstep.  A
+    cap below the base wins; a cap <= 0 means no cap; a base <= 0 no
+    wait."""
+    if base <= 0:
+        return 0.0
+    r = rand if rand is not None else random.random()
+    interval = base * (2.0 ** (max(attempt, 1) - 1))
+    if cap > 0:
+        interval = min(interval, cap)
+    return interval * (0.5 + 0.5 * r)
+
+
+def is_writer_process() -> bool:
+    """Checkpoints are written once, by rank 0 (the reference's driver,
+    ``DistriOptimizer.scala:394-416``); without a process group, by this
+    process."""
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -199,6 +251,39 @@ def refuse_unported() -> None:
             "drain/resume are not ported yet")
 
 
+class Checkpoint:
+    """The ``model.N`` / ``optimMethod.N`` snapshot protocol (reference
+    ``optim/DistriOptimizer.scala:394-416``) over a
+    :class:`~bigdl_tpu_torch.utils.checkpoint_manager.CheckpointManager`:
+    verified, committed units; ``keep_last`` retention; ``async_write`` on
+    a writer thread.  Local paths only."""
+
+    def __init__(self, path: str, trigger: Trigger, isOverwrite: bool = True,
+                 keep_last: Optional[int] = None,
+                 async_write: Optional[bool] = None):
+        from bigdl_tpu_torch.utils.checkpoint_manager import \
+            CheckpointManager
+        self.path = path
+        self.trigger = trigger
+        self.overwrite = isOverwrite
+        self.manager = CheckpointManager(path, keep_last=keep_last,
+                                         async_write=async_write,
+                                         overwrite=isOverwrite)
+
+    def save(self, model: torch.nn.Module, optim: OptimMethod, neval: int,
+             topology=None) -> None:
+        self.manager.save(model, optim, neval, topology=topology)
+
+    def latest(self) -> Optional[Tuple[str, str, int]]:
+        """The newest snapshot that is a committed, shallow-verified
+        pair."""
+        return self.manager.latest_valid()
+
+    def join(self, raise_errors: bool = True) -> None:
+        """Wait for the writer; its deferred error re-raises here."""
+        self.manager.join(raise_errors=raise_errors)
+
+
 def _initial_loop_state() -> Dict[str, Any]:
     """The training loop's state keys, the reference's (``optimizer.py``
     :1608, ``DistriOptimizer.scala``)."""
@@ -233,6 +318,16 @@ class Optimizer:
         self.precision: Optional[str] = None   # None = fp32; "bf16" = mixed
         self.history: List[Dict[str, Any]] = []
         self.prefetcher: Optional[BatchPrefetcher] = None
+        self.checkpoint: Optional[Checkpoint] = None
+        self.validation_trigger: Optional[Trigger] = None
+        self.validation_dataset: Optional[AbstractDataSet] = None
+        self.validation_methods: Optional[List[ValidationMethod]] = None
+        #: one record per validation: ``neval`` (the iterations done),
+        #: ``epoch``, each metric's result by name, the ``records`` scored
+        #: and the pass's wall ``seconds``
+        self.validation_history: List[Dict[str, Any]] = []
+        #: seconds of the last restore from a snapshot
+        self.last_restore_seconds: Optional[float] = None
 
     # -- fluent setters (reference Optimizer.scala fluent API) ------------
 
@@ -244,6 +339,37 @@ class Optimizer:
         self.end_when = trigger
         return self
 
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       isOverwrite: bool = True,
+                       keep_last: Optional[int] = None,
+                       async_write: Optional[bool] = None) -> "Optimizer":
+        """Snapshots into the local directory ``path`` whenever ``trigger``
+        fires.  ``keep_last``: keep the N newest committed ones (default
+        ``bigdl.checkpoint.keepLast``; 0 keeps all).  ``async_write``:
+        write on a background thread; its errors re-raise at the next save
+        and at the end of :meth:`optimize` (default
+        ``bigdl.checkpoint.asyncWrite``)."""
+        self.checkpoint = Checkpoint(path, trigger, isOverwrite,
+                                     keep_last=keep_last,
+                                     async_write=async_write)
+        return self
+
+    def set_validation(self, trigger: Trigger, dataset,
+                       methods: List[ValidationMethod],
+                       batch_size: Optional[int] = None) -> "Optimizer":
+        """Score the model on ``dataset`` (Samples or MiniBatches; a list
+        becomes a ``LocalDataSet``) with ``methods`` whenever ``trigger``
+        fires; ``batch_size`` adds a ``SampleToMiniBatch`` where the
+        dataset has none."""
+        self.validation_trigger = trigger
+        if isinstance(dataset, (list, tuple)):
+            dataset = LocalDataSet(dataset)
+        if batch_size is not None and not _yields_minibatches(dataset):
+            dataset = dataset.transform(SampleToMiniBatch(batch_size))
+        self.validation_dataset = dataset
+        self.validation_methods = methods
+        return self
+
     def set_precision(self, precision: Optional[str]) -> "Optimizer":
         """``"bf16"`` runs the forward and backward in bfloat16 while the
         master weights, the loss and the update stay float32."""
@@ -253,12 +379,152 @@ class Optimizer:
         return self
 
     def optimize(self) -> torch.nn.Module:
-        """Train until the end trigger fires; returns the model, whose
-        parameters hold the trained weights."""
-        return self._optimize()
+        """Train until the end trigger fires, retrying failures from the
+        newest valid snapshot (reference ``DistriOptimizer.scala:750-816``);
+        returns the model, whose parameters hold the trained weights.
+
+        Up to ``bigdl.failure.retryTimes`` attempts, waiting
+        :func:`_retry_backoff` (``bigdl.failure.retryTimeInterval``,
+        ``bigdl.failure.maxRetryInterval``) between them.  The attempt
+        count resets when a run gets past the furthest ``evalCounter`` any
+        attempt reached (a fresh fault), never after a divergence.  The
+        asynchronous writer is drained before this returns or raises."""
+        retry_times = config.get_int("bigdl.failure.retryTimes", 5)
+        base = config.get_float("bigdl.failure.retryTimeInterval", 120.0)
+        cap = config.get_float("bigdl.failure.maxRetryInterval", 900.0)
+        try:
+            return self._optimize_with_retry(retry_times, base, cap)
+        except BaseException:
+            if self.checkpoint is not None:
+                self.checkpoint.join(raise_errors=False)
+            raise
+
+    def _optimize_with_retry(self, retry_times: int, base: float,
+                             cap: float) -> torch.nn.Module:
+        attempt = 0
+        high_water = None   # the furthest evalCounter of any attempt
+        while True:
+            try:
+                result = self._optimize()
+            except (ValueError, TypeError, KeyboardInterrupt,
+                    NotImplementedError, torch.cuda.OutOfMemoryError):
+                # an argument error, an unported feature, or a device OOM
+                # (its re-plan is not ported): no retry
+                raise
+            except Exception as e:
+                cur = self.optim_method.state.get("evalCounter", 0)
+                if (not isinstance(e, DivergenceError) and
+                        high_water is not None and cur > high_water):
+                    attempt = 0    # new ground: a fresh fault
+                high_water = cur if high_water is None else max(high_water,
+                                                                cur)
+                attempt += 1
+                if attempt >= retry_times:
+                    raise
+                restored = self._restore_latest_checkpoint()
+                interval = _retry_backoff(attempt, base, cap)
+                logger.exception(
+                    "Training failed (attempt %d/%d); %s and retrying in "
+                    "%.1fs", attempt, retry_times,
+                    "restored the latest valid checkpoint" if restored
+                    else "resuming from the live state", interval)
+                time.sleep(interval)
+                continue
+            if self.checkpoint is not None:
+                self.checkpoint.join()
+            return result
 
     def _optimize(self) -> torch.nn.Module:
         raise NotImplementedError
+
+    def _group(self):
+        """The process group validation and checkpoints synchronise over
+        (None: this process alone)."""
+        return None
+
+    def _group_size(self) -> int:
+        return 1
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` on any rank of :meth:`_group`; a barrier when there
+        are several."""
+        if self._group_size() == 1:
+            return flag
+        return bool(allgather_sum([1.0 if flag else 0.0], self._group())[0])
+
+    def _topology_meta(self) -> Dict[str, Any]:
+        """The topology recorded in a snapshot's manifest."""
+        return elastic.describe_topology(step="local")
+
+    def _restore_latest_checkpoint(self) -> bool:
+        """Load the newest valid snapshot into the live model and method,
+        in place (reference ``DistriOptimizer.scala:766-788``): the
+        model's ``state_dict`` and the method's ``state`` and slots.
+        Torn, uncommitted or corrupt snapshots are skipped, a payload that
+        fails to load falls back to the next-older one.  False when there
+        is nothing to restore."""
+        if self.checkpoint is None:
+            return False
+        # an in-flight write is either committed or absent before the scan
+        self.checkpoint.join(raise_errors=False)
+        self._any_rank(False)    # every rank scans after the writer ends
+        t0 = time.perf_counter()
+        loaded = self.checkpoint.manager.load_latest(
+            expected_topology=self._topology_meta())
+        if loaded is None:
+            return False
+        model_payload, optim_payload, n = loaded
+        self.model.load_state_dict(model_payload)
+        load_payload(self.optim_method, optim_payload, device=self.device,
+                     hyper=False)
+        self.last_restore_seconds = time.perf_counter() - t0
+        logger.info("Restored snapshot model.%d / optimMethod.%d (%s) in "
+                    "%.3f s", n, n, self.checkpoint.manager.last_restore_mode,
+                    self.last_restore_seconds)
+        return True
+
+    def _validation_due(self, state) -> bool:
+        return (self.validation_trigger is not None and
+                self.validation_dataset is not None and
+                self.validation_trigger(state))
+
+    def _run_validation(self, state) -> None:
+        from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
+        t0 = time.perf_counter()
+        results = evaluate_dataset(self.model, self.validation_dataset,
+                                   self.validation_methods, self.device,
+                                   group=self._group())
+        record = {"neval": state["neval"] - 1, "epoch": state["epoch"],
+                  "records": results[0][1].count if results else 0,
+                  "seconds": time.perf_counter() - t0}
+        for method, res in results:
+            logger.info("%s is %s", method.name, res)
+            state["score"] = res.final_result()
+            self.optim_method.state["score"] = res.final_result()
+            record[method.name] = res.final_result()
+        self.validation_history.append(record)
+
+    def _checkpoint_due(self, state) -> bool:
+        return self.checkpoint is not None and self.checkpoint.trigger(state)
+
+    def _run_checkpoint(self, state) -> None:
+        """Rank 0 writes snapshot ``neval - 1``; a write error is shared
+        with every rank (:meth:`_any_rank`), so all raise the same
+        retryable ``RuntimeError`` and enter the restore together."""
+        err: Optional[BaseException] = None
+        if is_writer_process():
+            try:
+                self.checkpoint.save(self.model, self.optim_method,
+                                     state["neval"] - 1,
+                                     topology=self._topology_meta())
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                err = e
+        if self._any_rank(err is not None) and self._group_size() > 1:
+            raise RuntimeError(
+                "checkpoint write failed on the writer process (rank 0): "
+                "restoring the latest valid snapshot on every rank") from err
+        if err is not None:
+            raise err
 
     def _sync_dataset_epoch(self) -> None:
         """Set a ``ShardedDataSet``'s shuffle round to ``epoch - 1``, so
@@ -270,10 +536,13 @@ class Optimizer:
             sync(self.optim_method.state.get("epoch", 1) - 1)
 
     def _drive(self, fetch_batch, run_step, reset_epoch,
-               epoch_size: int) -> Dict[str, Any]:
+               epoch_size: int, publish=None) -> Dict[str, Any]:
         """The training loop (reference ``optim/DistriOptimizer.scala:141-344``,
         ``LocalOptimizer.scala:78``): fetch, step, bookkeeping and logging,
-        epoch rollover.  ``fetch_batch() -> (inputs, targets, batch_size)``
+        epoch rollover, then the validation and the checkpoint where their
+        triggers fire (``publish()`` first, which hands the trainer's live
+        slots to the method; None when they are the method's own).
+        ``fetch_batch() -> (inputs, targets, batch_size)``
         with host (numpy) arrays; ``run_step(inputs, targets, hyper, seed)
         -> loss`` (a 0-dim tensor; ``seed`` is the step's random-stream
         counter, ``neval - 1``, the JAX package's ``rng_counter``);
@@ -302,7 +571,8 @@ class Optimizer:
         self.prefetcher = fetch
         wall_start = time.perf_counter()
         try:
-            self._loop(state, fetch, run_step, epoch_size, max_bad_steps)
+            self._loop(state, fetch, run_step, epoch_size, max_bad_steps,
+                       publish)
         finally:
             fetch.stop()
         logger.info("Training finished in %.1f s; batch fetch %.3f s, the "
@@ -324,7 +594,7 @@ class Optimizer:
         return state
 
     def _loop(self, state, fetch, run_step, epoch_size: int,
-              max_bad_steps: int) -> None:
+              max_bad_steps: int, publish) -> None:
         while not self.end_when(state):
             t0 = time.perf_counter()
             inputs, targets, bsz = fetch()
@@ -364,6 +634,15 @@ class Optimizer:
                 state["recordsProcessedThisEpoch"] = 0
             state["neval"] += 1
             self.optim_method.state["epoch"] = state["epoch"]
+            v_due = self._validation_due(state)
+            c_due = self._checkpoint_due(state)
+            if v_due or c_due:
+                if publish is not None:
+                    publish()
+                if v_due:
+                    self._run_validation(state)
+                if c_due:
+                    self._run_checkpoint(state)
 
     # -- factory ----------------------------------------------------------
 
@@ -399,9 +678,10 @@ class LocalOptimizer(Optimizer):
     one step per iteration on the model's device."""
 
     def _step(self, params, slots, mstate, inputs, targets, hyper,
-              guard: bool) -> torch.Tensor:
-        """Forward, loss + penalties, gradients, update and divergence
-        guard; returns the loss (NaN when the guard skipped the update).
+              guard: bool, scales=None) -> torch.Tensor:
+        """Forward, loss + penalties, gradients (times the layers'
+        ``scales``, :func:`grad_scales`), update and divergence guard;
+        returns the loss (NaN when the guard skipped the update).
         ``mstate`` is :func:`module_state`; under the guard it is
         snapshotted first, to be put back after a bad step."""
         saved = [b.clone() for b in mstate] if guard else []
@@ -413,6 +693,8 @@ class LocalOptimizer(Optimizer):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        if scales is not None:
+            grads = [g if s == 1.0 else g * s for g, s in zip(grads, scales)]
         with torch.no_grad():
             new_params, new_slots = self.optim_method.pure_update(
                 grads, params, slots, hyper)
@@ -434,6 +716,7 @@ class LocalOptimizer(Optimizer):
         stream = (torch.Generator(device=self.device)
                   if is_stochastic(self.model) else None)
         params = list(self.model.parameters())
+        scales = grad_scales(self.model, params)
         mstate = module_state(self.model)
         slots = self.optim_method.slots(params)
         self.optim_method.state.setdefault("epoch", 1)
@@ -451,12 +734,13 @@ class LocalOptimizer(Optimizer):
         def run_step(inputs, targets, hyper, seed):
             if stream is None:
                 return self._step(params, slots, mstate, inputs, targets,
-                                  hyper, guard)
+                                  hyper, guard, scales)
             stream.manual_seed(seed)
             with random_stream(self.model, stream):
                 return self._step(params, slots, mstate, inputs, targets,
-                                  hyper, guard)
+                                  hyper, guard, scales)
 
+        self._sync_dataset_epoch()
         reset_epoch()
         try:
             self._drive(fetch_batch, run_step, reset_epoch,

@@ -1,7 +1,8 @@
 """Evaluation metrics with a mergeable result (``bigdl_tpu/optim/
 validation_method.py``: ``ValidationResult`` :21, ``Top1Accuracy`` :68,
-``Top5Accuracy`` :82, ``Loss`` :96; reference
-``optim/ValidationMethod.scala:170,218,312``).
+``Top5Accuracy`` :82, ``Loss`` :96, ``MAE`` :116, ``TreeNNAccuracy`` :129;
+reference
+``optim/ValidationMethod.scala:118,170,218,312,332``).
 
 ``apply(output, target)`` takes host arrays (the evaluator pulls each
 batch's outputs once) with 1-based labels and returns a
@@ -96,3 +97,46 @@ class Loss(ValidationMethod):
                                           torch.as_tensor(np.asarray(target))))
         n = np.asarray(target).reshape(-1).shape[0]
         return ValidationResult(loss * n, n, self.name)
+
+
+class MAE(ValidationMethod):
+    """Mean absolute error of the predicted class against the label
+    (reference ``MAE:332``)."""
+
+    name = "MAE"
+
+    def apply(self, output, target) -> ValidationResult:
+        tgt = np.asarray(target).reshape(-1)
+        pred = _rows(output).argmax(axis=-1) + 1
+        err = float(np.abs(pred - tgt).sum())
+        return ValidationResult(err, tgt.shape[0], self.name)
+
+
+class TreeNNAccuracy(ValidationMethod):
+    """Accuracy of a tree-structured net at its root node (reference
+    ``TreeNNAccuracy``, ``optim/ValidationMethod.scala:118``): output
+    (B, nodes, C), node 1 the root; a single logit thresholds at 0.5,
+    several take the argmax; 1-based labels, the first column of a 2-D
+    target."""
+
+    name = "TreeNNAccuracy"
+
+    def apply(self, output, target) -> ValidationResult:
+        out = np.asarray(output)
+        tgt = np.asarray(target)
+        if tgt.ndim >= 2:
+            tgt = tgt[:, 0]
+        tgt = tgt.reshape(-1)
+        if out.ndim == 3:
+            root = out[:, 0]
+        elif out.ndim == 2:
+            root = out[0][None, :]
+            tgt = tgt[:1]
+        else:
+            raise ValueError(f"TreeNNAccuracy: bad output rank {out.ndim}")
+        if root.shape[-1] == 1:
+            pred = (root[..., 0] >= 0.5).astype(np.int64)
+        else:
+            pred = root.argmax(axis=-1) + 1
+        correct = int((pred == tgt.astype(np.int64)).sum())
+        return ValidationResult(correct, tgt.shape[0], self.name)

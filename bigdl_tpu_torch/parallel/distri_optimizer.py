@@ -45,6 +45,17 @@ the slot shards are all-gathered and handed back per parameter to the
 ``OptimMethod``, from which a later ``LocalOptimizer`` or ``optimize()``
 continues.
 
+Validation and checkpoints (JAX ``optimizer.py`` :1469-1532, :785-820):
+each rank scores its own partitions of a ``ShardedDataSet`` and the
+partial sums are all-reduced (:func:`~bigdl_tpu_torch.optim.evaluator.
+evaluate_dataset`).  Before a snapshot every rank all-gathers the slot
+shards into full slots (the publish); rank 0 alone writes; its error is
+shared with every rank as a flag, so all raise the same error and restore
+together; a barrier stands before the restore's scan.  The snapshot holds
+full slots, so a restore onto another world size re-slices them
+(``bigdl.elastic.reshardOnRestore``; off, it raises
+``TopologyMismatchError``).
+
 Not ported, each raising :class:`NotImplementedError` where asked for: the
 ``seq``/``model``/``expert`` mesh axes (the GSPMD step, ring attention,
 expert parallelism; :meth:`DistriOptimizer.set_mesh`), integrity
@@ -68,7 +79,8 @@ import torch.distributed as dist
 
 from bigdl_tpu_torch.dataset.dataset import ShardedDataSet
 from bigdl_tpu_torch.engine import DeviceLike
-from bigdl_tpu_torch.nn.module import Criterion, is_stochastic, random_stream
+from bigdl_tpu_torch.nn.module import (Criterion, grad_scales, is_stochastic,
+                                       random_stream)
 from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
                                              all_finite,
                                              mixed_precision_forward,
@@ -79,7 +91,7 @@ from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
 from bigdl_tpu_torch.parallel.all_reduce import (AllReduceParameter,
                                                  axis_mean, axis_min,
                                                  pmean_floats)
-from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.utils import config, elastic
 
 #: a rank's offset of its dropout seed (the 64-bit golden ratio)
 _RANK_STRIDE = 0x9E3779B97F4A7C15
@@ -146,7 +158,18 @@ class DistriOptimizer(Optimizer):
         self.group = group
         self.compression = compression
         self._arp: Optional[AllReduceParameter] = None
+        self._kept_shards = None
         self._slot_shards: Dict[str, torch.Tensor] = {}
+
+    def _group(self):
+        return self.group
+
+    def _group_size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    def _topology_meta(self):
+        return elastic.describe_topology(dist.get_world_size(self.group),
+                                         step="distri", slot_axis="data")
 
     def set_mesh(self, mesh) -> "DistriOptimizer":
         raise NotImplementedError(
@@ -157,11 +180,12 @@ class DistriOptimizer(Optimizer):
     # ---- the step ----------------------------------------------------------
 
     def _step(self, params, flat, row, slots, mstate, edges, guard,
-              inputs, targets, hyper) -> torch.Tensor:
+              inputs, targets, hyper, scales=None) -> torch.Tensor:
         """One data-parallel step; returns the loss averaged over the
         ranks (NaN when the guard skipped the update).  ``row`` is this
         rank's slice of ``flat``, ``slots`` its slot shards, ``edges``
-        the column buckets (None: the one-block schedule)."""
+        the column buckets (None: the one-block schedule), ``scales`` the
+        layers' gradient scales (:func:`grad_scales`)."""
         arp, group = self._arp, self.group
         n = arp.n_shards
         saved = [b.clone() for b in mstate] if guard else []
@@ -173,8 +197,12 @@ class DistriOptimizer(Optimizer):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         with torch.no_grad():
             loss = loss.detach()
-            flat_grads = arp.flatten([torch.zeros_like(p) if g is None else g
-                                      for g, p in zip(grads, params)])
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, params)]
+            if scales is not None:
+                grads = [g if s == 1.0 else g * s
+                         for g, s in zip(grads, scales)]
+            flat_grads = arp.flatten(grads)
             del grads
             if edges is None:
                 issued = [(0, arp.shard_size, arp.reduce_scatter_gradients(
@@ -221,10 +249,17 @@ class DistriOptimizer(Optimizer):
     # ---- the training loop -------------------------------------------------
 
     def _flat_slots(self, params, rank: int) -> Dict[str, torch.Tensor]:
-        """This rank's 1/N shard of each slot family: the
-        ``OptimMethod``'s fresh slots, or its per-parameter ones (from a
-        ``LocalOptimizer`` or an earlier ``optimize()``) flattened."""
+        """This rank's 1/N shard of each slot family: the live shards a
+        failed attempt left (:meth:`_optimize`), unless the method's slots
+        were replaced since (a restore); else the ``OptimMethod``'s fresh
+        slots, or its per-parameter ones (from a ``LocalOptimizer`` or an
+        earlier ``optimize()``) flattened."""
         arp, om = self._arp, self.optim_method
+        kept, self._kept_shards = self._kept_shards, None
+        if (kept is not None and kept[0] is om and kept[1] is om._slots
+                and all(v.numel() == arp.shard_size
+                        for v in kept[2].values())):
+            return kept[2]
         cached = om._slots
         if cached is None:
             zeros = torch.zeros(arp.shard_size, dtype=arp.dtype,
@@ -277,6 +312,7 @@ class DistriOptimizer(Optimizer):
         row = arp.local_shard(flat, rank)
         self._slot_shards = slots = self._flat_slots(params, rank)
         mstate = module_state(model)
+        scales = grad_scales(model, params)
         self.optim_method.state.setdefault("epoch", 1)
         guard = config.get_bool("bigdl.divergence.guard", True)
         edges = (arp.bucket_edges(
@@ -297,7 +333,7 @@ class DistriOptimizer(Optimizer):
 
         def run_step(inputs, targets, hyper, seed):
             args = (params, flat, row, slots, mstate, edges, guard, inputs,
-                    targets, hyper)
+                    targets, hyper, scales)
             if stream is None:
                 return self._step(*args)
             stream.manual_seed(_rank_seed(seed, rank))
@@ -308,7 +344,15 @@ class DistriOptimizer(Optimizer):
         reset_epoch()
         try:
             self._drive(fetch_batch, run_step, reset_epoch,
-                        epoch_size=self.dataset.size())
+                        epoch_size=self.dataset.size(),
+                        publish=self._publish_slots)
+        except BaseException:
+            # the weights and statistics stay live in the model; keep the
+            # slot shards beside them, so that a retry with nothing to
+            # restore goes on from one consistent step
+            self._kept_shards = (self.optim_method,
+                                 self.optim_method._slots, slots)
+            raise
         finally:
             close_iterators(self.prefetcher, it["shards"].values())
         self._publish_slots()

@@ -46,6 +46,15 @@ _DEFAULTS: Dict[str, Any] = {
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
+    "bigdl.failure.retryTimes": 5,           # optimize() attempts
+    "bigdl.failure.retryTimeInterval": 120,  # base backoff seconds
+    "bigdl.failure.maxRetryInterval": 900,   # backoff cap (exponential + jitter)
+    "bigdl.io.retryTimes": 3,                # transient IO retry budget (utils/file_io.py)
+    "bigdl.io.retryInterval": 0.1,           # transient IO retry base seconds
+    "bigdl.checkpoint.keepLast": 0,          # snapshot retention; 0 = keep all
+    "bigdl.checkpoint.asyncWrite": False,    # background checkpoint writer
+    "bigdl.elastic.reshardOnRestore": True,  # a snapshot of another world size
+    # re-slices its slots; False = TopologyMismatchError
     # the trainers' batch prefetcher (bigdl_tpu_torch/engine.py)
     "bigdl.prefetch.depth": 2,               # batches fetched ahead; 0 = synchronous
     "bigdl.pipeline.depth": 8,               # DispatchPipeline's results in flight

@@ -162,13 +162,41 @@ Phases, each fatal on any fault:
    a batch against phase 8's, peak memory.  Then 384 records (3 iterations
    an epoch), cuDNN deterministic: 4 iterations at depth 0 and 4 at depth
    2 from the same weights and seed give bit-identical losses, weights and
-   statistics.
+   statistics;
+12. the train drivers, through their ``main(argv)`` (no driver builds a
+   flash model, so no flash kernel may launch): ResNet-50 through
+   ``models/resnet/train.py`` (``--dataset imagenet --depth 50 --synthetic
+   512 -b 128 -e 2 --checkpoint <tmp>``: fp32, nesterov SGD, 4 iterations
+   an epoch, Top1 validation over 128 images each epoch).  Gates: every
+   loss finite; a validation score after each epoch, in the method's state;
+   ``Final Top1Accuracy`` printed; two committed snapshots whose payloads
+   verify against their manifests' CRCs and fingerprints on a re-read; the
+   driver's ``--model/--state`` loader restores snapshot 4's parameters,
+   BatchNorm statistics, momentum and epoch/neval bit-identically, and a
+   resumed run trains iteration 5.  Then bit-exact resume and retry on a
+   ``ShardedDataSet`` through a ``DistriOptimizer`` over a one-rank NCCL
+   group (ResNet-50, 64 images at B32, 2 iterations an epoch, cuDNN
+   deterministic): 2 epochs straight; 1 epoch, then a fresh trainer loaded
+   from the snapshot for the second; 2 epochs with an ``OSError`` raised by
+   the dataset at batch 4 (after step 3 has moved past the epoch-1
+   snapshot) and retried from the snapshot
+   (``bigdl.failure.retryTimes`` 2, no wait): weights, momentum and
+   statistics bit-identical across the three.  Then the LM driver
+   ``models/transformer/train.py`` at phases 4-10's width (vocabulary 64,
+   Adam, fp32, B8/T2048, 3 iterations, one epoch) with ``--ckpt-async``:
+   finite losses, one committed snapshot of the final state, which reloads
+   (verified) bit-identically.  Logged: snapshot bytes, the synchronous save
+   and the restore times, the asynchronous save's blocking time and its
+   writer's time, validation images/s, the phase's wall time.  Every other
+   phase runs with ``bigdl.failure.retryTimes`` 1: a failed run is fatal at
+   once.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
-run; phases 8, 9 and 11 run none of them), then the result line
-``{"ok": true, "device": {...}}`` last.  Exits non-zero without a result
+run, and as ``drivers_launches`` in phase 12; phases 8, 9, 11 and 12 run
+none of them), then the result line ``{"ok": true, "device": {...}}``
+last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
 
@@ -259,6 +287,22 @@ RD_MEAN, RD_STD = (104.0, 117.0, 123.0), (1.0, 1.0, 1.0)
 RD_STEPS = 15                # the epoch of 10 iterations rolls over
 RD_TIMED = slice(3, RD_STEPS)   # iterations 4-15 timed
 RD_DET_IMAGES, RD_DET_STEPS = 384, 4   # 3 iterations an epoch
+#: phase 12: the train drivers.  ResNet-50 through models/resnet/train.py:
+#: 512 synthetic images at B128 (4 iterations an epoch), 2 epochs,
+#: validation over 128 images each epoch, a checkpoint each epoch
+DRV_R50_ARGS = ["--dataset", "imagenet", "--depth", "50", "--synthetic",
+                "512", "-b", "128", "-e", "2"]
+DRV_R50_ITERS, DRV_R50_VAL = 8, 128
+#: bit-exact resume and retry: 64 synthetic images at B32 (2 iterations an
+#: epoch) through a DistriOptimizer, 2 epochs, a failure at batch 4
+DRV_SHARD_RECORDS, DRV_SHARD_BATCH, DRV_SHARD_FAIL = 64, 32, 4
+#: the LM driver at phases 4-10's width, the driver's own vocabulary (64):
+#: 24 records at B8 make the 3 iterations one epoch, so the snapshot is the
+#: final state
+DRV_LM_ARGS = ["--d-model", str(D_MODEL), "--heads", str(N_HEAD),
+               "--layers", str(N_LAYERS), "--seq-len", str(SEQ), "-b", "8",
+               "--synthetic", "24", "--max-iteration", "3", "--ckpt-async"]
+DRV_LM_ITERS = 3
 #: phase 9: the rest of perf.py's convnet table (bigdl_tpu/models/perf.py
 #: :38-48), each trained through its training protocol
 ZOO_MODELS = ("alexnet", "vgg16", "vgg19", "inception_v1")
@@ -2801,13 +2845,331 @@ def phase_realdata(card: str) -> None:
         f"on {card}")
 
 
+@contextlib.contextmanager
+def driver_logging(tmp: str):
+    """A driver's logging bootstrap (``init_logging``) writes its log file
+    under ``tmp``; the port's logger is put back after the block."""
+    import logging
+    lg = logging.getLogger("bigdl_tpu_torch")
+    saved = (list(lg.handlers), lg.level, lg.propagate)
+    try:
+        with properties(bigdl__utils__LoggerFilter__logFile=os.path.join(
+                tmp, "bigdl.log")):
+            yield
+    finally:
+        for h in lg.handlers:
+            if h not in saved[0]:
+                h.close()
+        lg.handlers, lg.level, lg.propagate = saved
+
+
+def run_driver(main, argv: list) -> tuple:
+    """``main(argv)`` with its standard output captured (and logged);
+    returns (the optimizer it returns, the output, the wall seconds)."""
+    import io
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        opt = main(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[drivers]   | {line}")
+    return opt, text, time.perf_counter() - t
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    """Two dicts of tensors (or of lists of tensors) with the same keys
+    and bit-identical values, compared on the CPU."""
+    import torch
+    if list(a) != list(b):
+        return False
+    for k in a:
+        xs, ys = a[k], b[k]
+        xs = xs if isinstance(xs, (list, tuple)) else [xs]
+        ys = ys if isinstance(ys, (list, tuple)) else [ys]
+        if len(xs) != len(ys) or not all(
+                torch.equal(x.cpu(), y.cpu()) for x, y in zip(xs, ys)):
+            return False
+    return True
+
+
+def drv_resnet(card: str, tmp: str) -> None:
+    """Phase 12 (a): ResNet-50 through ``models/resnet/train.py``'s
+    ``main`` at full width, then its ``--model/--state`` resume."""
+    import argparse
+    import torch
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import driver_utils
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    from bigdl_tpu_torch.models.resnet import (DatasetType, ShortcutType,
+                                               model_init, resnet)
+    from bigdl_tpu_torch.utils.checkpoint_manager import (CheckpointManager,
+                                                          load_file)
+
+    ckpt = os.path.join(tmp, "resnet")
+    opt, text, wall = run_driver(resnet_train.main, DRV_R50_ARGS + [
+        "--checkpoint", ckpt, "--device", DEVICE])
+    losses = [h["loss"] for h in opt.history]
+    step_s = statistics.median(h["seconds"] for h in opt.history[1:])
+    mgr = opt.checkpoint.manager
+    batch = DRV_R50_ARGS[DRV_R50_ARGS.index("-b") + 1]
+    log(f"[drivers] ResNet-50 through models/resnet/train.py: "
+        f"{len(losses)} fp32 iterations at B{batch} in {wall:.1f} s (data "
+        f"made in the driver included); losses {[round(v, 4) for v in losses]}; "
+        f"step {step_s * 1e3:.2f} ms (median of iterations 2-"
+        f"{len(losses)}); validation {opt.validation_history}; snapshot "
+        f"{mgr.last_snapshot_bytes:,} bytes, saved (sync) in "
+        f"{mgr.last_save_seconds:.3f} s, of which the write "
+        f"{mgr.last_write_seconds:.3f} s, on {card}")
+    if len(losses) != DRV_R50_ITERS or not all(math.isfinite(v)
+                                               for v in losses):
+        raise AssertionError(f"ResNet-50 driver losses {losses}: expected "
+                             f"{DRV_R50_ITERS} finite")
+    if "Final Top1Accuracy" not in text:
+        raise AssertionError("the ResNet-50 driver printed no final "
+                             "Top1Accuracy")
+    vh = opt.validation_history
+    if [v["neval"] for v in vh] != [4, 8] or not all(
+            v["records"] == DRV_R50_VAL and
+            math.isfinite(v["Top1Accuracy"]) for v in vh) or \
+            opt.optim_method.state.get("score") != vh[-1]["Top1Accuracy"]:
+        raise AssertionError(f"validation {vh}, score "
+                             f"{opt.optim_method.state.get('score')}: "
+                             "expected a Top1 score over 128 images after "
+                             "each epoch, in the method's state")
+    log(f"[drivers] validation images/s (fp32 eval forward, the host's "
+        f"metrics included): "
+        f"{[round(v['records'] / v['seconds'], 1) for v in vh]}")
+    reread = CheckpointManager(ckpt)
+    t = time.perf_counter()
+    cands = reread.candidates()
+    ok = [reread.verify(n, True, deep=True) for n, _ in cands]
+    verify_s = time.perf_counter() - t
+    log(f"[drivers] snapshots {cands}, re-read with their CRCs and "
+        f"fingerprints in {verify_s:.3f} s: {ok}")
+    if cands != [(8, True), (4, True)] or not all(ok):
+        raise AssertionError(f"snapshots {cands} (verified {ok}): expected "
+                             "two committed ones, 4 and 8, that verify")
+    # --model/--state from the first snapshot: the driver's own loader
+    args = argparse.Namespace(model=os.path.join(ckpt, "model.4"),
+                              state=os.path.join(ckpt, "optimMethod.4"),
+                              device=torch.device(DEVICE))
+
+    def build():
+        return model_init(resnet(1000, depth=50, shortcut_type=ShortcutType.B,
+                                 dataset=DatasetType.IMAGENET,
+                                 device=DEVICE))
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model, method = driver_utils.load_snapshots(
+        args, build, lambda: optim.SGD(learning_rate=0.1, weight_decay=1e-4,
+                                       momentum=0.9, dampening=0.0,
+                                       nesterov=True))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    saved_model = load_file(args.model)
+    saved_optim = load_file(args.state)
+    same = (same_tensors(model.state_dict(), saved_model) and
+            same_tensors(method._slots, saved_optim["slots"]) and
+            method.state == saved_optim["state"] and
+            (method.state["epoch"], method.state["evalCounter"]) == (2, 4))
+    log(f"[drivers] --model/--state restore of snapshot 4 (build, read, "
+        f"verify, load) in {restore_s:.3f} s; parameters, BatchNorm "
+        f"statistics, momentum and epoch/neval bit-identical: {same}")
+    if not same:
+        raise AssertionError("the restored snapshot differs from the saved "
+                             "one")
+    resumed, _, wall = run_driver(resnet_train.main, DRV_R50_ARGS + [
+        "--model", args.model, "--state", args.state, "--max-iteration",
+        "5", "--device", DEVICE])
+    nevals = [h["neval"] for h in resumed.history]
+    log(f"[drivers] resumed run: iterations {nevals}, losses "
+        f"{[round(h['loss'], 4) for h in resumed.history]} in {wall:.1f} s")
+    if nevals != [5] or not math.isfinite(resumed.history[0]["loss"]):
+        raise AssertionError(f"the resumed run trained iterations {nevals}, "
+                             "expected [5] with a finite loss")
+
+
+def drv_sharded(card: str, tmp: str) -> None:
+    """Phase 12 (b): bit-exact resume and retry of ResNet-50 on a
+    ShardedDataSet through a DistriOptimizer over a one-rank NCCL group,
+    cuDNN deterministic: two epochs straight; one epoch, then a fresh
+    trainer restored from the snapshot for the second; two epochs with a
+    failure raised at batch 4, after step 3 has moved the weights, slots
+    and statistics past the epoch-1 snapshot, and retried from it."""
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.models.resnet.train import _synthetic
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, every_epoch, max_epoch
+    from bigdl_tpu_torch.optim.optim_method import load_payload
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.utils.checkpoint_manager import load_file
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    samples = _synthetic(DRV_SHARD_RECORDS, 224, 4, seed=SEED + 12)
+    failed = []
+
+    def dataset(fail_at=None):
+        ds = ShardedDataSet(samples, 1).transform(
+            SampleToMiniBatch(DRV_SHARD_BATCH, 1))
+        if fail_at is not None:
+            real, count = ds.shard_data, {"n": 0}
+
+            def shard_data(p, train):
+                for batch in real(p, train):
+                    count["n"] += 1
+                    if count["n"] == fail_at:
+                        failed.append(count["n"])
+                        raise OSError(f"injected failure at batch {fail_at}")
+                    yield batch
+
+            ds.shard_data = shard_data
+        return ds
+
+    def trainer(model, ds, method=None):
+        return (DistriOptimizer(model, ds, ClassNLLCriterion(),
+                                device=DEVICE)
+                .set_optim_method(method or SGD(0.01, momentum=0.9)))
+
+    def final(opt):
+        return {"model": list(opt.model.state_dict().values()),
+                "slots": opt.optim_method._slots["dfdx"]}
+
+    t = time.perf_counter()
+    Engine.init_distributed(backend="nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        with cudnn_deterministic():
+            RandomGenerator.RNG().set_seed(SEED)
+            straight = trainer(resnet50(DEVICE), dataset())
+            straight.set_end_when(max_epoch(2)).optimize()
+
+            first = trainer(resnet50(DEVICE), dataset())
+            first.set_checkpoint(os.path.join(tmp, "b"), every_epoch())
+            first.set_end_when(max_epoch(1)).optimize()
+            model, method = resnet50(DEVICE), SGD(0.01, momentum=0.9)
+            model.load_state_dict(load_file(os.path.join(tmp, "b",
+                                                         "model.2")))
+            load_payload(method, load_file(os.path.join(
+                tmp, "b", "optimMethod.2")), device=torch.device(DEVICE))
+            resumed = trainer(model, dataset(), method)
+            resumed.set_end_when(max_epoch(2)).optimize()
+
+            with properties(bigdl__failure__retryTimes=2,
+                            bigdl__failure__retryTimeInterval=0):
+                retried = trainer(resnet50(DEVICE),
+                                  dataset(fail_at=DRV_SHARD_FAIL))
+                retried.set_checkpoint(os.path.join(tmp, "c"),
+                                       every_epoch())
+                retried.set_end_when(max_epoch(2)).optimize()
+    finally:
+        dist.destroy_process_group()
+    ref = final(straight)
+    same = {name: same_tensors(final(o), ref)
+            for name, o in (("resumed", resumed), ("retried", retried))}
+    nevals = [h["neval"] for h in retried.history]
+    log(f"[drivers] ResNet-50 on a ShardedDataSet through "
+        f"{type(straight).__name__} over NCCL (1 rank), B"
+        f"{DRV_SHARD_BATCH}, 2 iterations an epoch, cuDNN deterministic: "
+        f"losses straight {[round(h['loss'], 4) for h in straight.history]}"
+        f", resumed {[round(h['loss'], 4) for h in resumed.history]}, "
+        f"retried {[round(h['loss'], 4) for h in retried.history]} "
+        f"(iterations {nevals}, failures raised at batches {failed}, "
+        f"restore {retried.last_restore_seconds:.3f} s); weights, momentum "
+        f"and statistics bit-identical to the straight run: {same}; "
+        f"{time.perf_counter() - t:.1f} s on {card}")
+    if failed != [DRV_SHARD_FAIL] or nevals != [1, 2, 3, 3, 4]:
+        raise AssertionError(f"the retried run raised at {failed} and ran "
+                             f"iterations {nevals}")
+    if not all(same.values()):
+        raise AssertionError(f"resume and retry are not bit-exact: {same}")
+
+
+def drv_lm(card: str, tmp: str) -> None:
+    """Phase 12 (c): the LM driver at phases 4-10's width, its checkpoint
+    written on the writer thread, reloaded bit-identically."""
+    from bigdl_tpu_torch.models.transformer import train as lm_train
+    from bigdl_tpu_torch.utils.checkpoint_manager import CheckpointManager
+
+    ckpt = os.path.join(tmp, "lm")
+    opt, text, wall = run_driver(lm_train.main, DRV_LM_ARGS + [
+        "--checkpoint", ckpt, "--device", DEVICE])
+    losses = [h["loss"] for h in opt.history]
+    mgr = opt.checkpoint.manager
+    step_s = statistics.median(h["seconds"] for h in opt.history[1:])
+    t = time.perf_counter()
+    loaded = CheckpointManager(ckpt).load_latest()
+    reload_s = time.perf_counter() - t
+    model_p, optim_p, n = loaded if loaded else (None, None, None)
+    same = loaded is not None and n == DRV_LM_ITERS and \
+        same_tensors(model_p, opt.model.state_dict()) and \
+        same_tensors(optim_p["slots"], opt.optim_method._slots) and \
+        optim_p["state"] == opt.optim_method.state
+    log(f"[drivers] LM through models/transformer/train.py (d_model "
+        f"{D_MODEL}, {N_HEAD} heads, {N_LAYERS} layers, T{SEQ}, B8, vocab "
+        f"64, Adam, fp32): losses {[round(v, 4) for v in losses]}; step "
+        f"{step_s * 1e3:.2f} ms; {wall:.1f} s in all; snapshot {n}: "
+        f"{mgr.last_snapshot_bytes:,} bytes; with --ckpt-async the step "
+        f"blocked {mgr.last_save_seconds:.3f} s at the save (the capture) "
+        f"and the writer took {mgr.last_write_seconds:.3f} s; reloaded and "
+        f"verified in {reload_s:.3f} s, bit-identical: {same}; on {card}")
+    if len(losses) != DRV_LM_ITERS or not all(math.isfinite(v)
+                                              for v in losses):
+        raise AssertionError(f"LM driver losses {losses}: expected "
+                             f"{DRV_LM_ITERS} finite")
+    if "Final next-token accuracy" not in text:
+        raise AssertionError("the LM driver printed no final accuracy")
+    if not same or CheckpointManager(ckpt).candidates() != [
+            (DRV_LM_ITERS, True)]:
+        raise AssertionError("the LM snapshot is not the one committed "
+                             "snapshot of the final state")
+
+
+def phase_drivers(card: str) -> dict:
+    """Phase 12: the train drivers (see the docstring).  Returns the flash
+    launch counts of the phase, which must all be 0."""
+    import shutil
+    import tempfile
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    try:
+        with driver_logging(tmp):
+            drv_resnet(card, tmp)
+            torch.cuda.empty_cache()
+            drv_sharded(card, tmp)
+            torch.cuda.empty_cache()
+            drv_lm(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    log(f"[drivers] phase 12 took {time.perf_counter() - t:.1f} s on {card};"
+        f" flash launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the train drivers launched flash kernels: "
+                             f"{launches}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
-                trained: dict, fp32_step: dict, distri: dict) -> list:
+                trained: dict, fp32_step: dict, distri: dict,
+                drivers: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
     numbers from phase 3; ``distri_launches`` counts its launches in
-    phase 10's DistriOptimizer run of the LM."""
+    phase 10's DistriOptimizer run of the LM, ``drivers_launches`` in
+    phase 12 (the drivers build no flash model: 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -2821,8 +3183,17 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
         source, replaces = KERNEL_FILES[kind]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": counts[name], **rec,
-                    "distri_launches": distri[name]})
+                    "distri_launches": distri[name],
+                    "drivers_launches": drivers[name]})
     return out
+
+
+def fail_fast() -> None:
+    """A failed training run is fatal at once: the trainers' retry loop
+    (``bigdl.failure.retryTimes``, waits of minutes) is for jobs, not for
+    this check.  Phase 12's retry leg sets its own budget."""
+    from bigdl_tpu_torch.utils import config
+    config.set_property("bigdl.failure.retryTimes", 1)
 
 
 def main_dp(world: int, backend: str) -> int:
@@ -2838,6 +3209,7 @@ def main_dp(world: int, backend: str) -> int:
             f"{torch.cuda.device_count()}")
         return 1
     sys.path.insert(0, HERE)
+    fail_fast()
     t = time.perf_counter()
     card = gpu_line() if backend == "nccl" else "the CPU"
     log(f"[distri] {world} ranks over {backend} on {card}")
@@ -2863,6 +3235,7 @@ def main(argv=None) -> int:
         if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
             return 1
         sys.path.insert(0, HERE)
+        fail_fast()
         return dp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4],
                        argv[5])
     if argv[:1] == ["--dp"]:
@@ -2874,6 +3247,7 @@ def main(argv=None) -> int:
         log("chip_smoke: bigdl_tpu_torch/ is not beside this script")
         return 1
     sys.path.insert(0, HERE)
+    fail_fast()
     t_start = time.perf_counter()
 
     card = gpu_line()
@@ -2904,9 +3278,11 @@ def main(argv=None) -> int:
     distri = phase_distri(card, train_step_s, r50_step_s)
     torch.cuda.empty_cache()
     phase_realdata(card)
+    torch.cuda.empty_cache()
+    drivers = phase_drivers(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
-                          fp32_step, distri)
+                          fp32_step, distri, drivers)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

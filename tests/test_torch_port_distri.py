@@ -70,10 +70,11 @@ from bigdl_tpu_torch.dataset import (LocalDataSet, Sample, SampleToMiniBatch,
                                      ShardedDataSet)
 from bigdl_tpu_torch.engine import Engine, allgather_sum
 from bigdl_tpu_torch.models.transformer import transformer_lm
-from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Optimizer,
-                                   max_iteration)
+from bigdl_tpu_torch.optim import (SGD, Evaluator, LocalOptimizer, Loss,
+                                   Optimizer, Top1Accuracy, max_iteration)
 from bigdl_tpu_torch.parallel import AllReduceParameter, DistriOptimizer
 from bigdl_tpu_torch.utils import config as pconfig
+from bigdl_tpu_torch.utils.checkpoint_manager import CheckpointManager
 from bigdl_tpu_torch.utils.convert import (params_from_jax, params_to_jax,
                                            state_to_jax)
 from bigdl_tpu_torch.utils.random_generator import RandomGenerator
@@ -322,6 +323,24 @@ _WORKER = textwrap.dedent(r'''
         run(f"sep_{comp}", "mlp3", d["sep"], 64, 96, SGD(0.5),
             compression=comp)
 
+    # the training contract at dp = 2: each rank scores its partition of
+    # the validation set, the partial sums are all-reduced, and rank 0
+    # alone writes the snapshots
+    from bigdl_tpu_torch.optim import (Loss, Top1Accuracy, every_epoch,
+                                       max_epoch)
+    RandomGenerator.RNG().set_seed(SEED)
+    ds = ShardedDataSet(d["mlp"], 2).transform(SampleToMiniBatch(16, 2))
+    opt = Optimizer.create(copy.deepcopy(inp["mlp"]), ds,
+                           nn.ClassNLLCriterion(), device="cpu")
+    opt.set_optim_method(SGD(0.2, momentum=0.9))
+    opt.set_validation(every_epoch(), ShardedDataSet(d["mlp"][:40], 2),
+                       [Top1Accuracy(), Loss()], batch_size=8)
+    opt.set_checkpoint(os.path.join(outdir, "ckpt"), every_epoch())
+    opt.set_end_when(max_epoch(2)).optimize()
+    out["contract/scores"] = np.array(
+        [[v["Top1Accuracy"], v["Loss"], v["records"]]
+         for v in opt.validation_history])
+
     opt = perf.main(["-m", "lenet5", "-b", "8", "-i", "2", "--partitions",
                      "2"], device="cpu")
     out["perf/trainer"] = np.array(type(opt).__name__)
@@ -474,6 +493,7 @@ def ranks(tmp_path_factory):
     for rank in range(2):
         with np.load(os.path.join(outdir, f"rank{rank}.npz")) as z:
             outs.append(dict(z))
+    inputs["outdir"] = outdir
     return outs, ref, inputs
 
 
@@ -668,6 +688,26 @@ def test_perf_harness_trains_with_two_partitions(ranks):
         assert str(out["perf/trainer"]) == "DistriOptimizer"
         assert len(out["perf/loss"]) == 4
         assert np.isfinite(out["perf/loss"]).all()
+
+
+def test_dp2_validation_merges_the_ranks_and_rank0_checkpoints(ranks):
+    """Both ranks report the same global scores over all 40 records (a
+    rank alone holds 20); the last equals the final snapshot's model
+    scored in one process."""
+    outs, _, inputs = ranks
+    a, b = (o["contract/scores"] for o in outs)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (2, 3) and (a[:, 2] == 40).all()
+    mgr = CheckpointManager(os.path.join(inputs["outdir"], "ckpt"))
+    assert mgr.candidates() == [(8, True), (4, True)]
+    payload, optim, n = mgr.load_latest()
+    assert optim["state"]["evalCounter"] == 8
+    model = copy.deepcopy(inputs["mlp"])
+    model.load_state_dict(payload)
+    (_, top1), (_, loss) = Evaluator(model, device="cpu").test(
+        inputs["data"]["mlp"][:40], [Top1Accuracy(), Loss()], 8)
+    assert top1.final_result() == a[-1, 0]
+    np.testing.assert_allclose(loss.final_result(), a[-1, 1], rtol=1e-6)
 
 
 def test_engine_topology_over_two_ranks(ranks):

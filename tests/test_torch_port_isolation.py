@@ -10,8 +10,12 @@
   ``LMServingEngine`` (offline ``generate`` and a started scheduler),
   pulling a batch of JPEG records through ``StreamingIngest`` and a
   ``BatchPrefetcher`` on the CPU and stopping them, taking a training step
-  on the CPU, and building a CIFAR ResNet-20, training it one bf16 step and
-  predicting with ``fold_bn=True`` builds no kernel, starts no process,
+  on the CPU, building a CIFAR ResNet-20, training it one bf16 step and
+  predicting with ``fold_bn=True``, and training it two epochs with a
+  validation and an asynchronous checkpoint each epoch (the training
+  contract's modules: the evaluator, the checkpoint manager, file IO, the
+  fingerprint, CRC32C and the topology record) builds no kernel, starts
+  no process,
   leaves no thread running, imports neither package, and changes no state
   global to the process (torch's default dtype, thread count, RNG, TF32
   flags and ``cudnn.benchmark``, numpy's global RNG, the environment).  The tier-1 run shares worker
@@ -198,6 +202,22 @@ opt.set_end_when(max_iteration(1)).optimize()
 assert np.isfinite(opt.history[0]["loss"])
 out = Predictor(net, fold_bn=True, device="cpu").predict(images)
 assert out.shape == (2, 10) and np.isfinite(out).all()
+
+import shutil, tempfile
+from bigdl_tpu_torch.optim import Top1Accuracy, every_epoch, max_epoch
+from bigdl_tpu_torch.utils.checkpoint_manager import CheckpointManager
+ckpt = tempfile.mkdtemp()
+four = [Sample(x, np.float32(3)) for x in np.concatenate([images] * 2)]
+opt = Optimizer.create(net, four, ClassNLLCriterion(), batch_size=2,
+                       device="cpu")
+opt.set_optim_method(SGD(0.01, momentum=0.9))
+opt.set_validation(every_epoch(), four, [Top1Accuracy()], batch_size=2)
+opt.set_checkpoint(ckpt, every_epoch(), async_write=True)
+opt.set_end_when(max_epoch(2)).optimize()
+assert len(opt.validation_history) == 2
+assert CheckpointManager(ckpt).latest_valid()[2] == 4
+shutil.rmtree(ckpt)
+assert threading.active_count() == 1, threading.enumerate()
 
 assert global_state() == before, "process-global state changed"
 leaked = sorted(n for n in sys.modules

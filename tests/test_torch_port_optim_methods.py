@@ -1,0 +1,357 @@
+"""The port's remaining optimization methods, schedules and validation held
+against the JAX package, on the CPU.
+
+Each piece goes through both packages with inputs from a numpy seed:
+
+- ``Adagrad``, ``Adadelta``, ``Adamax`` and ``RMSprop``: 10 steps of
+  ``pure_update`` from the same parameters and gradients, each step with
+  its own ``hyper()`` and ``step_done()``; rtol 1e-5 / atol 1e-7 (the
+  same fp32 arithmetic in other orders);
+- every learning-rate schedule: the rate of 40 iterations over 6 epochs,
+  and ``Plateau`` fed the same scores: equal within 1e-12 relative (both
+  compute in Python floats);
+- ``scale_w``/``scale_b``: the port trainer's scaled gradient against the
+  JAX package's module ``backward`` (atol 1e-6);
+- ``set_validation`` on a small MLP in both packages: the same scores
+  (``Top1Accuracy`` exact, ``Loss`` within 1e-5) at the same iterations,
+  and ``max_score`` stopping both at the same one;
+- a new method through ``DistriOptimizer`` on a one-rank gloo group,
+  bit-identical to ``LocalOptimizer`` (the port against itself).
+
+Each test reseeds both packages' ``RandomGenerator`` with a fresh instance
+and puts back the previous thread-local ones, and restores every config
+key it sets: the tier-1 run shares worker processes with the JAX tests.
+"""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import bigdl_tpu.nn as jnn
+import bigdl_tpu.optim as joptim
+import bigdl_tpu.optim.evaluator as jevaluator
+from bigdl_tpu.dataset.datasets import \
+    synthetic_separable as jax_synthetic_separable
+from bigdl_tpu.optim import optim_method as jom
+from bigdl_tpu.utils.random_generator import \
+    RandomGenerator as JaxRandomGenerator
+import bigdl_tpu_torch.nn as pnn
+import bigdl_tpu_torch.optim as poptim
+from bigdl_tpu_torch.dataset import (Sample, SampleToMiniBatch,
+                                     ShardedDataSet)
+from bigdl_tpu_torch.engine import Engine
+from bigdl_tpu_torch.optim import optim_method as pom
+from bigdl_tpu_torch.optim.optimizer import LocalOptimizer
+from bigdl_tpu_torch.parallel import DistriOptimizer
+from bigdl_tpu_torch.utils import config as pconfig
+from bigdl_tpu_torch.utils.convert import params_from_jax, params_to_jax
+from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+RTOL, ATOL = 1e-5, 1e-7
+LR_RTOL = 1e-12
+
+
+@contextlib.contextmanager
+def seeded(seed):
+    """Both packages' thread-local RandomGenerator replaced by a fresh one
+    seeded with ``seed``; the previous ones are put back after."""
+    saved = [getattr(cls._tls, "inst", None)
+             for cls in (JaxRandomGenerator, RandomGenerator)]
+    JaxRandomGenerator._tls.inst = JaxRandomGenerator(seed)
+    RandomGenerator._tls.inst = RandomGenerator(seed)
+    try:
+        yield
+    finally:
+        for cls, inst in zip((JaxRandomGenerator, RandomGenerator), saved):
+            if inst is None:
+                del cls._tls.inst
+            else:
+                cls._tls.inst = inst
+
+
+@contextlib.contextmanager
+def properties(mods, **keys):
+    """Set config keys (dots as ``__``) in the config modules ``mods``,
+    restore them after."""
+    saved = []
+    for mod in mods:
+        for key, value in keys.items():
+            name = key.replace("__", ".")
+            saved.append((mod, name, name in mod._OVERRIDES,
+                          mod._OVERRIDES.get(name)))
+            mod.set_property(name, value)
+    try:
+        yield
+    finally:
+        for mod, name, had, value in saved:
+            if had:
+                mod.set_property(name, value)
+            else:
+                mod.clear_property(name)
+
+
+# ------------------------------------------------------------ the methods
+
+def _params_and_grads(seed, steps):
+    rng = np.random.default_rng(seed)
+    shapes = [(3, 4), (5,), (2, 3, 2)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(steps)]
+    return params, grads
+
+
+METHODS = [
+    ("Adagrad", dict(learning_rate=0.1)),
+    ("Adagrad", dict(learning_rate=0.05, learning_rate_decay=0.1,
+                     weight_decay=0.01)),
+    ("Adadelta", dict()),
+    ("Adadelta", dict(decay_rate=0.5, epsilon=1e-6)),
+    ("Adamax", dict()),
+    ("Adamax", dict(learning_rate=0.01, beta1=0.8, beta2=0.99,
+                    epsilon=1e-8)),
+    ("RMSprop", dict()),
+    ("RMSprop", dict(learning_rate=0.05, learning_rate_decay=0.2,
+                     decay_rate=0.9, epsilon=1e-6)),
+]
+
+
+@pytest.mark.parametrize("name,kw", METHODS,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(METHODS)])
+def test_method_matches_jax_over_ten_steps(name, kw):
+    jmethod, pmethod = getattr(jom, name)(**kw), getattr(pom, name)(**kw)
+    params, grads = _params_and_grads(7, 10)
+    jp = [jnp.asarray(p) for p in params]
+    pp = [torch.from_numpy(p.copy()) for p in params]
+    js, ps = jmethod.init_slots(jp), pmethod.init_slots(pp)
+    assert sorted(js) == sorted(ps)
+    for g in grads:
+        jh, ph = jmethod.hyper(), pmethod.hyper()
+        assert jh == ph
+        jp, js = jmethod.pure_update([jnp.asarray(x) for x in g], jp, js, jh)
+        slots_before = {k: [t.clone() for t in v] for k, v in ps.items()}
+        pp, new_ps = pmethod.pure_update([torch.from_numpy(x) for x in g],
+                                         pp, ps, ph)
+        # pure: the inputs are not written
+        for k, v in slots_before.items():
+            assert all(torch.equal(a, b) for a, b in zip(v, ps[k]))
+        ps = new_ps
+        jmethod.step_done()
+        pmethod.step_done()
+    assert jmethod.state == pmethod.state
+    for o, r in zip(pp, jp):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=ATOL)
+    for k in js:
+        for o, r in zip(ps[k], js[k]):
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL,
+                                       atol=ATOL)
+
+
+def test_lbfgs_is_refused():
+    with pytest.raises(NotImplementedError, match="LBFGS"):
+        pom.LBFGS()
+
+
+# ----------------------------------------------------------- the schedules
+
+def _schedules(mod):
+    return {
+        "Default": None,
+        "Step": mod.Step(5, 0.5),
+        "MultiStep": mod.MultiStep([5, 12, 30], 0.3),
+        "EpochStep": mod.EpochStep(2, 0.5),
+        "EpochDecay": mod.EpochDecay(lambda e: e // 3),
+        "Poly": mod.Poly(0.5, 30),
+        "Exponential": mod.Exponential(7, 0.9),
+        "Exponential-stair": mod.Exponential(7, 0.9, stair_case=True),
+        "NaturalExp": mod.NaturalExp(6, 0.2),
+        "EpochSchedule": mod.EpochSchedule([
+            mod.Regime(1, 2, {"learning_rate": 0.1}),
+            mod.Regime(3, 6, {"learning_rate": 0.01,
+                              "weight_decay": 1e-4})]),
+        "Plateau-min": mod.Plateau("score", factor=0.5, patience=1,
+                                   mode="min", cooldown=1, min_lr=0.02),
+        "Plateau-max": mod.Plateau("score", factor=0.3, patience=2,
+                                   mode="max"),
+        "Plateau-Loss": mod.Plateau("Loss", factor=0.5, patience=1),
+    }
+
+
+# the validation scores a plateau sees, one per epoch
+SCORES = [0.5, 0.4, 0.45, 0.44, 0.6, 0.6]
+
+
+@pytest.mark.parametrize("name", list(_schedules(jom)))
+def test_schedule_rates_match_jax(name):
+    rates = []
+    for mod in (jom, pom):
+        sched = _schedules(mod)[name]
+        sgd = mod.SGD(learning_rate=0.3, learning_rate_decay=0.05,
+                      learning_rate_schedule=sched)
+        seq = []
+        for it in range(40):
+            epoch = 1 + it * 6 // 40
+            sgd.state["epoch"] = epoch
+            sgd.state["score"] = SCORES[epoch - 1]
+            sgd.state["Loss"] = 2.0 - SCORES[epoch - 1]
+            seq.append(sgd.hyper()["lr"])
+            sgd.step_done()
+        rates.append(seq)
+    assert len(set(rates[1])) > 1 or name == "Default"
+    np.testing.assert_allclose(rates[1], rates[0], rtol=LR_RTOL, atol=0)
+
+
+# ------------------------------------------------------- gradient scales
+
+def test_scale_w_and_scale_b_match_the_jax_module_backward():
+    """The JAX package scales a layer's gradients in its own ``backward``
+    (``nn/module.py:312``); the port's trainers scale them before the
+    update.  One SGD step at lr 1 moves the port's weights by the scaled
+    gradient."""
+    jlin = jnn.Linear(4, 3)
+    jlin.reset(jax.random.PRNGKey(2))
+    jlin.scale_w, jlin.scale_b = 0.5, 2.0
+    pm = pnn.Sequential().add(pnn.Linear(4, 3, device="cpu")).add(
+        pnn.LogSoftMax())
+    params_from_jax([jax.tree_util.tree_map(np.asarray, jlin.params), {}],
+                    pm)
+    pm.layers[0].set_scale_w(0.5).set_scale_b(2.0)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 4)).astype(np.float32)
+    y = rng.integers(1, 4, 6).astype(np.float32)
+    crit = jnn.ClassNLLCriterion()
+    z = jlin.forward(jnp.asarray(x))
+    g_out = jax.grad(lambda z: crit.apply(jax.nn.log_softmax(z, -1),
+                                          jnp.asarray(y)))(z)
+    jlin.zero_grad_parameters()
+    jlin.backward(jnp.asarray(x), g_out)
+    ref = jax.tree_util.tree_map(np.asarray, jlin.parameters()[1])
+    before = params_to_jax(pm)[0]
+    opt = poptim.Optimizer.create(pm, [Sample(x[i], y[i]) for i in range(6)],
+                                  pnn.ClassNLLCriterion(), batch_size=6,
+                                  device="cpu")
+    opt.set_optim_method(poptim.SGD(learning_rate=1.0))
+    with seeded(3):
+        opt.set_end_when(poptim.max_iteration(1)).optimize()
+    after = params_to_jax(pm)[0]
+    for k in ("weight", "bias"):
+        np.testing.assert_allclose(before[k] - after[k], ref[k], atol=1e-6)
+
+
+# ----------------------------------------------------------- validation
+
+def _mlp(mod, **kw):
+    return (mod.Sequential().add(mod.Linear(4, 8, **kw)).add(mod.Tanh())
+            .add(mod.Linear(8, 3, **kw)).add(mod.LogSoftMax()))
+
+
+def test_validation_scores_and_max_score_match_jax(monkeypatch):
+    jm = _mlp(jnn)
+    jm.reset(jax.random.PRNGKey(4))
+    pm = params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params),
+                         _mlp(pnn, device="cpu"))
+    records = jax_synthetic_separable(78, 4, n_classes=3, seed=5)
+    jtrain, jval = records[:48], records[48:]
+    ptrain, pval = ([Sample(s.features[0], s.labels[0]) for s in ss]
+                    for ss in (jtrain, jval))
+    jax_scores = []
+    real = jevaluator.evaluate_dataset
+
+    def recording(*args, **kwargs):
+        results = real(*args, **kwargs)
+        jax_scores.append({m.name: r.final_result() for m, r in results})
+        return results
+
+    monkeypatch.setattr(jevaluator, "evaluate_dataset", recording)
+    evals = []
+    with seeded(8):
+        for model, mod, nn_mod, train, val, kw in (
+                (jm, joptim, jnn, jtrain, jval, {}),
+                (pm, poptim, pnn, ptrain, pval, {"device": "cpu"})):
+            opt = mod.Optimizer.create(model, train,
+                                       nn_mod.ClassNLLCriterion(),
+                                       batch_size=8, **kw)
+            opt.set_optim_method(mod.SGD(learning_rate=0.02))
+            opt.set_validation(mod.every_epoch(), val,
+                               [mod.Loss(nn_mod.ClassNLLCriterion()),
+                                mod.Top1Accuracy()], batch_size=10)
+            opt.set_end_when(mod.max_score(0.95) | mod.max_epoch(30))
+            opt.optimize()
+            evals.append(opt.optim_method.state["evalCounter"])
+    port = opt.validation_history
+    assert evals[0] == evals[1] and len(port) == len(jax_scores) > 1
+    assert port[-1]["Top1Accuracy"] > 0.95 and evals[1] < 30 * 6
+    for p, j in zip(port, jax_scores):
+        assert p["Top1Accuracy"] == j["Top1Accuracy"]
+        np.testing.assert_allclose(p["Loss"], j["Loss"], rtol=0, atol=1e-5)
+    assert [p["neval"] for p in port] == [6 * (i + 1)
+                                         for i in range(len(port))]
+    assert opt.optim_method.state["score"] == port[-1]["Top1Accuracy"]
+
+
+# -------------------------------------------------- through the trainers
+
+@pytest.fixture
+def group1(tmp_path):
+    """A gloo process group of one rank in this process, destroyed
+    after."""
+    Engine.init_distributed(init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, device="cpu")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["Adagrad", "Adadelta", "Adamax",
+                                  "RMSprop"])
+def test_distri_optimizer_shards_the_method_bit_for_bit(group1, name):
+    """At one rank the trainers agree to the bit: the method's slots go
+    through ``map_over_slots`` and the ZeRO-1 shards, and come back per
+    parameter."""
+    samples = [Sample(s.features[0], s.labels[0])
+               for s in jax_synthetic_separable(32, 4, n_classes=3, seed=9)]
+    runs = []
+    for cls in (LocalOptimizer, DistriOptimizer):
+        model = _mlp(pnn, device="cpu")
+        ds = ShardedDataSet(samples, 1).transform(SampleToMiniBatch(8))
+        with seeded(10), properties([pconfig], bigdl__parallel__overlap=True):
+            opt = cls(model, ds, pnn.ClassNLLCriterion(), device="cpu")
+            opt.set_optim_method(getattr(pom, name)())
+            opt.set_end_when(poptim.max_iteration(6)).optimize()
+        slots = opt.optim_method._slots
+        runs.append(([h["loss"] for h in opt.history],
+                     [p.detach() for p in model.parameters()],
+                     [t for k in sorted(slots) for t in slots[k]]))
+    (l0, p0, s0), (l1, p1, s1) = runs
+    assert l0 == l1 and len(s0) == len(s1) > 0
+    for a, b in zip(p0 + s0, p1 + s1):
+        assert torch.equal(a, b)
+
+
+def test_optim_method_saves_and_loads_as_plain_data(tmp_path):
+    sgd = pom.SGD(learning_rate=0.2, momentum=0.9,
+                  learning_rate_schedule=pom.Plateau("score", patience=1))
+    sgd.state.update(evalCounter=7, epoch=3, score=0.5)
+    sgd.schedule._best, sgd.schedule._wait = 0.4, 1
+    sgd.set_slots({"dfdx": [torch.arange(3.0), torch.ones(2, 2)]})
+    sgd.save(str(tmp_path / "optim"))
+    back = pom.OptimMethod.load(str(tmp_path / "optim"))
+    assert type(back) is pom.SGD and back.state == sgd.state
+    assert (back.learning_rate, back.momentum) == (0.2, 0.9)
+    assert type(back.schedule) is pom.Plateau
+    assert (back.schedule._best, back.schedule._wait) == (0.4, 1)
+    assert all(torch.equal(a, b) for a, b in
+               zip(back._slots["dfdx"], sgd._slots["dfdx"]))
+    with pytest.raises(TypeError, match="cannot be loaded into"):
+        pom.load_payload(pom.Adam(), pom.optim_payload(sgd))
+    decay = pom.SGD(learning_rate_schedule=pom.EpochDecay(lambda e: e))
+    decay.save(str(tmp_path / "decay"))
+    with pytest.raises(NotImplementedError, match="holds code"):
+        pom.OptimMethod.load(str(tmp_path / "decay"))
