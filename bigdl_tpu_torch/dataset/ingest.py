@@ -38,7 +38,15 @@ detection, ``bigdl.ingest.stallTimeoutSec`` > 0), the decode-pool
 autoscaler (``autoscale=True`` or ``bigdl.ingest.autoscale.enabled``), the
 synchronous fallback (``bigdl.ingest.fallbackOnFailure``), the decoded-epoch
 cache (``bigdl.ingest.epochCache``), ``device_jitter`` (its ColorJitter
-draws from JAX's threefry), the ingest chaos keys and the summary scalars.
+draws from JAX's threefry) and the ingest chaos keys.
+
+Telemetry (JAX :209-213, :1268-1377, :1803-1858): the ``Ingest/quarantined``,
+``Ingest/stage_errors`` and ``Ingest/engine_failures`` counters, the spans
+``ingest/read``, ``ingest/decode``, ``ingest/assemble`` and
+``ingest/seqfile_read`` on the stage threads' lanes (``ingest-reader``,
+``ingest-decode-<i>``, ``ingest-assembler``, ``ingest-seqread<i>``), and
+:func:`summary_scalars`, the registry's ``ingest`` provider.  The
+restart, autoscale and fallback counters belong to paths not ported.
 The JAX package turns the autoscaler on by default; the port runs fixed
 pools unless asked, which changes timing and never the batches.
 """
@@ -57,6 +65,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.dataset.transformer import Transformer
 from bigdl_tpu_torch.utils import config
 
@@ -135,6 +144,12 @@ class RecordQuarantine:
                 self.samples.append({"stage": stage, "index": index,
                                      "name": name, "error": repr(error)})
             over = self.count > self.budget
+        telemetry.counter(
+            "Ingest/quarantined", summary=True,
+            help="data-error records skipped by the ingest quarantine"
+        ).inc()
+        telemetry.counter("Ingest/stage_errors", labels={"stage": stage},
+                          help="data errors observed per ingest stage").inc()
         if over:
             raise QuarantineExceededError(
                 f"ingest quarantine budget exhausted: {self.count} bad "
@@ -394,8 +409,9 @@ class ShardedSeqFileReader:
                     t0 = time.monotonic()
                     for name, label, data in self._file_records(
                             self.files[fi], quarantine):
-                        self.stats.add(items=1,
-                                       busy_s=time.monotonic() - t0)
+                        t1 = time.monotonic()
+                        self.stats.add(items=1, busy_s=t1 - t0)
+                        telemetry.add_span_s("ingest/seqfile_read", t0, t1)
                         if not rings[si].put(
                                 LabeledImageBytes(name, label, data), stop):
                             return
@@ -542,12 +558,20 @@ class StreamingIngest(Transformer):
         self._active_stats: List[dict] = []
         self._last_stats: Optional[dict] = None
         self.quarantine: Optional[RecordQuarantine] = None
+        self._active_quarantines: List[RecordQuarantine] = []
         self.run_history: List[dict] = []
 
     # ---- diagnostics ----------------------------------------------------
 
     def has_active_run(self) -> bool:
         return bool(self._active_stats)
+
+    def quarantined_count(self) -> int:
+        """Data-error records skipped, summed over every active run, else
+        the last run's."""
+        runs = self._active_quarantines or (
+            [self.quarantine] if self.quarantine is not None else [])
+        return sum(q.count for q in runs)
 
     def stats(self) -> dict:
         """Per-stage snapshots (``read``, ``decode``, ``assemble``,
@@ -594,8 +618,13 @@ class StreamingIngest(Transformer):
                  for name in ("read", "decode", "assemble", "consume")}
         self._active_stats.append(stats)
         _LIVE.add(self)
+        # the per-stage scalars flow through the registry's one flush path
+        # (registered at a run's start: the port's registry is empty at
+        # import)
+        telemetry.REGISTRY.register_provider("ingest", summary_scalars)
         quarantine = RecordQuarantine(self.max_bad_records)
         self.quarantine = quarantine
+        self._active_quarantines.append(quarantine)
 
         # clone-and-commit (module docstring): the assembler draws from a
         # clone; a batch's post-draw state is committed when it is taken.
@@ -641,7 +670,9 @@ class StreamingIngest(Transformer):
                         rec = next(it)
                     except StopIteration:
                         break
-                    stats["read"].add(items=1, busy_s=time.monotonic() - t0)
+                    t1 = time.monotonic()
+                    stats["read"].add(items=1, busy_s=t1 - t0)
+                    telemetry.add_span_s("ingest/read", t0, t1)
                     if not record_ring.put((index, rec), stop):
                         done["reader"][0] = True
                         return
@@ -661,7 +692,9 @@ class StreamingIngest(Transformer):
                 raise IngestDataError(
                     f"undecodable image at stream position {idx}: "
                     f"{e!r}") from e
-            stats["decode"].add(items=1, busy_s=time.monotonic() - t0)
+            t1 = time.monotonic()
+            stats["decode"].add(items=1, busy_s=t1 - t0)
+            telemetry.add_span_s("ingest/decode", t0, t1)
             return img
 
         def fill(block: bool) -> None:
@@ -708,7 +741,10 @@ class StreamingIngest(Transformer):
                 x = assemble_batch(imgs, self.crop, offs, fl, self.mean,
                                    self.std, n_threads=self.assemble_threads)
             y = np.asarray([r.label for r in recs], np.float32)
-            return MiniBatch(x, y), len(imgs), time.monotonic() - t0
+            t1 = time.monotonic()
+            telemetry.add_span_s("ingest/assemble", t0, t1,
+                                 {"batch": len(imgs)})
+            return MiniBatch(x, y), len(imgs), t1 - t0
 
         def admit_and_append(idx: int, rec, img) -> bool:
             """Crop-fit check, then the crop and flip draws in record order
@@ -796,6 +832,9 @@ class StreamingIngest(Transformer):
             would leave the consumer waiting forever: raise instead."""
             for tname, t in threads.items():
                 if not t.is_alive() and not done[tname][0]:
+                    telemetry.counter(
+                        "Ingest/engine_failures", summary=True,
+                        help="ingest engines declared dead").inc()
                     raise IngestInfraError(
                         f"ingest stage '{tname}' of '{self.name}' died "
                         "without surfacing an error (stage restarts are not "
@@ -821,6 +860,8 @@ class StreamingIngest(Transformer):
                 if run is stats:
                     del self._active_stats[i]
                     break
+            self._active_quarantines = [
+                q for q in self._active_quarantines if q is not quarantine]
             self._last_stats = stats
             self.run_history.append({"quarantine": quarantine.summary()})
             stop.set()
@@ -833,3 +874,29 @@ class StreamingIngest(Transformer):
             # a last put may land between the first drain and the joins
             for ring in (record_ring, batch_ring):
                 ring.drain()
+
+
+def summary_scalars():
+    """``(tag, value)`` pairs for the training summary (JAX :1803): each
+    stage's throughput, stall fraction and ring occupancy and the
+    workers of every engine with an ACTIVE run, tagged with the engine's
+    name (``Ingest/<name>/<stage>/...``); the quarantine count once it is
+    nonzero.  Registered as the registry's ``ingest`` provider when a run
+    starts."""
+    out = []
+    for eng in sorted((e for e in _LIVE if e.has_active_run()),
+                      key=lambda e: e.name):
+        prefix = f"Ingest/{eng.name}"
+        for stage, snap in eng.stats().items():
+            out.append((f"{prefix}/{stage}/throughput",
+                        snap["throughput_per_sec"]))
+            out.append((f"{prefix}/{stage}/stall_frac", snap["stall_frac"]))
+            if snap["mean_queue_depth"]:
+                out.append((f"{prefix}/{stage}/queue_depth",
+                            snap["mean_queue_depth"]))
+        for stage, n in eng.stage_workers.items():
+            out.append((f"{prefix}/{stage}/workers", n))
+        quarantined = eng.quarantined_count()
+        if quarantined:
+            out.append((f"{prefix}/quarantined", quarantined))
+    return out

@@ -24,7 +24,6 @@ import itertools
 import os
 import queue
 import threading
-import time
 from collections import deque
 from typing import Optional, Union
 
@@ -32,6 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.utils import config
 from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
@@ -286,6 +286,11 @@ class BatchPrefetcher:
     ``depth`` defaults to ``bigdl.prefetch.depth`` (2); 0 is synchronous:
     the call fetches and copies on the calling thread and stream.
 
+    Spans (:mod:`~bigdl_tpu_torch.telemetry`, JAX :203-227):
+    ``prefetch/fetch`` for each fetch and staging copy, on the
+    ``prefetch-fetch`` thread's lane, and ``prefetch/transfer`` for each
+    host wait on a large copy, on the ``prefetch-transfer`` lane.
+
     Counters: ``fetch_ns`` (the producer's time in ``fetch`` and
     ``on_batch`` and the staging copy), ``block_ns`` (waiting for large
     copies to land), ``wait_ns`` (the consumer's time blocked in the call)
@@ -374,24 +379,27 @@ class BatchPrefetcher:
         return tree_map(lambda _: next(moved), batch), event, nbytes
 
     def _fetch_once(self):
-        t0 = time.perf_counter_ns()
+        t0 = telemetry.clock_ns()
         batch = self._fetch()
         if self._on_batch is not None:
             self._on_batch(batch)
         batch, event, nbytes = self._stage(batch)
-        dt = time.perf_counter_ns() - t0
+        t1 = telemetry.clock_ns()
         with self._stats_lock:
-            self.fetch_ns += dt
+            self.fetch_ns += t1 - t0
             self.batches += 1
-        return batch, event, (nbytes, dt, self._rng.np.get_state())
+        telemetry.add_span("prefetch/fetch", t0, t1)
+        return batch, event, (nbytes, t1 - t0, self._rng.np.get_state())
 
     def _block_ready(self, event, nbytes: int) -> None:
         if event is None or nbytes < self.READY_BYTES:
             return
-        t0 = time.perf_counter_ns()
+        t0 = telemetry.clock_ns()
         event.synchronize()
+        t1 = telemetry.clock_ns()
         with self._stats_lock:
-            self.block_ns += time.perf_counter_ns() - t0
+            self.block_ns += t1 - t0
+        telemetry.add_span("prefetch/transfer", t0, t1, {"bytes": nbytes})
 
     def _put(self, q, item) -> bool:
         while not self._stop.is_set():
@@ -451,16 +459,18 @@ class BatchPrefetcher:
     # -- the consumer's side ---------------------------------------------
 
     def __call__(self):
-        t0 = time.perf_counter_ns()
+        t0 = telemetry.clock_ns()
         if self.depth <= 0:
             batch = self._fetch()
             if self._on_batch is not None:
                 self._on_batch(batch)
             batch = tree_to_device(batch, self.device)
-            dt = time.perf_counter_ns() - t0
+            t1 = telemetry.clock_ns()
+            dt = t1 - t0
             with self._stats_lock:
                 self.fetch_ns += dt
                 self.batches += 1
+            telemetry.add_span("prefetch/fetch", t0, t1)
             self.wait_ns += dt
             self.last_fetch_ns = self.last_wait_ns = dt
             return batch
@@ -477,7 +487,7 @@ class BatchPrefetcher:
                         raise RuntimeError(
                             "BatchPrefetcher: called after stop() or with "
                             "its producers gone") from self.error
-        wait = time.perf_counter_ns() - t0
+        wait = telemetry.clock_ns() - t0
         self.wait_ns += wait
         self.last_wait_ns = wait
         if err is not None:

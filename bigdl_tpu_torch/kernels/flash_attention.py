@@ -33,6 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from bigdl_tpu_torch.kernels import build
+from bigdl_tpu_torch.telemetry.step_stats import counted_as
 
 FWD_SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -302,13 +303,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, causal, sm_scale,
-                                               return_lse=True)
-            o = o.to(q.dtype)
-        else:
-            o, lse = flash_attention_fwd(q, k, v, causal, sm_scale,
-                                         with_lse=True)
+        with counted_as("flash_attention_fwd", dense_flops(q, k)):
+            if q.device.type == "cpu":
+                o, lse = flash_attention_reference(q, k, v, causal, sm_scale,
+                                                   return_lse=True)
+                o = o.to(q.dtype)
+            else:
+                o, lse = flash_attention_fwd(q, k, v, causal, sm_scale,
+                                             with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         ctx.sm_scale = sm_scale
@@ -318,9 +320,20 @@ class FlashAttentionFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.sm_scale)
+        with counted_as("flash_attention_bwd", 2 * dense_flops(q, k)):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                             ctx.sm_scale)
         return dq, dk, dv, None, None
+
+
+def dense_flops(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The FLOPs of the plain forward's two products (``q k^T`` and the
+    probabilities times ``v``), 4·B·H·Tq·Tk·Dh, the mask's zeros included:
+    what a flop counter sees of the dense path the kernels replace
+    (:func:`~bigdl_tpu_torch.telemetry.step_stats.counted_as`).  Its
+    autograd backward is twice that."""
+    b, tq, h, d = q.shape
+    return 4 * b * h * tq * k.shape[1] * d
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

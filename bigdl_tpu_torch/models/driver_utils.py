@@ -8,8 +8,12 @@ Every flag of the JAX package's drivers, plus ``--device`` (default
 ``cuda``, which raises without a card; ``cpu`` runs anywhere).
 ``--partitions N`` above 1 trains with the ``DistriOptimizer`` over a
 process group of N ranks (launch with ``torchrun --nproc_per_node N``).
-Not ported, each raising :class:`NotImplementedError`: ``--log-dir`` (the
-TensorBoard summaries) and ``--profile-dir`` (a device trace).
+``--log-dir D`` writes TensorBoard events under ``D/<app>/train`` and
+``D/<app>/validation``; ``--profile-dir P`` captures a ``torch.profiler``
+window of three iterations into ``P/torch_profile.json``.  The window
+starts at iteration 10, as the JAX package's does, or, in a run that
+``--max-iteration`` ends sooner, at its third-to-last iteration (never
+the first), so that a short run still captures one.
 """
 
 from __future__ import annotations
@@ -57,13 +61,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="data-parallel ranks; >1 trains with the "
                         "DistriOptimizer (launch with torchrun)")
     p.add_argument("--log-dir", default=None,
-                   help="TensorBoard summary directory (not ported yet)")
+                   help="TensorBoard summary directory")
     p.add_argument("--app-name", default=None,
                    help="TensorBoard app name (defaults to the driver name)")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N synthetic records instead of --folder")
     p.add_argument("--profile-dir", default=None,
-                   help="device trace directory (not ported yet)")
+                   help="torch.profiler trace directory")
     p.add_argument("--device", default="cuda",
                    help="where the model lives and trains: cuda (the "
                         "default; raises without a card) or cpu")
@@ -72,15 +76,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 
 def parse(parser: argparse.ArgumentParser,
           argv: Optional[Sequence[str]]) -> argparse.Namespace:
-    """Parse ``argv``, refuse the flags that are not ported, and resolve
-    ``--device`` (raising for ``cuda`` without a card)."""
+    """Parse ``argv`` and resolve ``--device`` (raising for ``cuda``
+    without a card)."""
     args = parser.parse_args(argv)
-    for flag, value in (("--log-dir", args.log_dir),
-                        ("--profile-dir", args.profile_dir)):
-        if value:
-            raise NotImplementedError(
-                f"{flag}: TensorBoard summaries and device traces are not "
-                "ported yet")
     args.device = default_device(args.device)
     return args
 
@@ -133,9 +131,10 @@ def make_dataset(records: List, args, batch_size: int):
 
 
 def configure(opt, args, default_epochs: int, app_name: str):
-    """The end trigger (``--max-iteration``, else ``--max-epoch``) and the
+    """The end trigger (``--max-iteration``, else ``--max-epoch``), the
     checkpoint every epoch (``--checkpoint``, ``--overwrite``,
-    ``--ckpt-keep-last``, ``--ckpt-async``)."""
+    ``--ckpt-keep-last``, ``--ckpt-async``), the summaries (``--log-dir``,
+    ``--app-name``) and the profiler window (``--profile-dir``)."""
     from bigdl_tpu_torch import optim
     if args.max_iteration:
         opt.set_end_when(optim.max_iteration(args.max_iteration))
@@ -146,4 +145,15 @@ def configure(opt, args, default_epochs: int, app_name: str):
                            isOverwrite=args.overwrite,
                            keep_last=args.ckpt_keep_last,
                            async_write=True if args.ckpt_async else None)
+    if args.log_dir:
+        from bigdl_tpu_torch.visualization import (TrainSummary,
+                                                   ValidationSummary)
+        name = args.app_name or app_name
+        opt.set_train_summary(TrainSummary(args.log_dir, name))
+        opt.set_validation_summary(ValidationSummary(args.log_dir, name))
+    if args.profile_dir:
+        start = 10
+        if args.max_iteration:
+            start = max(2, min(start, args.max_iteration - 2))
+        opt.set_trace_profile(args.profile_dir, start_iteration=start)
     return opt

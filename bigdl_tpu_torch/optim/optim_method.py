@@ -83,6 +83,11 @@ class OptimMethod:
         """Advance the host counters after a step."""
         self.state["evalCounter"] = self.state.get("evalCounter", 0) + 1
 
+    def get_learning_rate(self) -> float:
+        """The current learning rate (``state["clr"]`` negated, the
+        reference's convention); 0.0 before the first step."""
+        return -float(self.state.get("clr", 0.0))
+
     def save(self, path: str, overwrite: bool = True) -> "OptimMethod":
         """Write :func:`optim_payload` to ``path`` atomically."""
         from bigdl_tpu_torch.utils import file_io

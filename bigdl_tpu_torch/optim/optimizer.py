@@ -50,10 +50,40 @@ loads the snapshot into the live model and method in place, the method's
 ``epoch`` and counters included, so a ``ShardedDataSet`` replays the
 epoch's permutation (:meth:`Optimizer._sync_dataset_epoch`).
 
-Not ported yet: telemetry and the step-time account, integrity
-fingerprints, the microbatch re-plan after a device OOM, the compile
-cache, preemption and TensorBoard summaries.  The keys that ask for two of
-them (``bigdl.integrity.everyN``, ``bigdl.elastic.handleSignals``) raise
+Telemetry (JAX ``_drive`` :903-1064, ``_summarize_train`` :1534): the loop
+marks its phases with tracer spans (``driver/fetch``,
+``driver/device_step``, ``driver/host_wait``, ``driver/summary``,
+``driver/publish``, ``driver/validation``, ``driver/checkpoint``) on a lane
+named ``driver``, and splits every step into the parts of
+:class:`~bigdl_tpu_torch.telemetry.StepAccount`: ``data_wait`` is the wait
+in the prefetcher's call, ``compute`` the eager step's call (the host's
+time to enqueue the step on the device), ``host_pull`` the wait at the
+loss's one host read (the device finishing the step), ``bookkeeping`` the
+history, log line and MFU gauges, and ``unaccounted`` the signed rest.  A
+step's wall time runs from the top of its iteration to its account; the
+TrainSummary writes, validation and checkpoint after it lie between two
+steps' walls, under their own spans.  The loss read stays the loop's only
+host read: the telemetry reads no tensor.  ``Telemetry/*`` gauges,
+``Telemetry/tflops`` and ``Telemetry/mfu`` (``bigdl.telemetry.mfu``, the
+first step's FLOPs counted by :class:`~bigdl_tpu_torch.telemetry.
+StepFlops`; ``bigdl.telemetry.peakTflops``), the slow-step detector
+(``bigdl.telemetry.slowStepFactor``, with a profiler window and a timeline
+dump under ``bigdl.telemetry.profileOnSlowStep``), the run-end account log
+line and the ``telemetry.json`` / Chrome-trace exports
+(``bigdl.telemetry.snapshotPath`` / ``tracePath``) are the JAX package's.
+:meth:`Optimizer.set_train_summary` and :meth:`Optimizer.
+set_validation_summary` write TensorBoard events (Loss, Throughput,
+LearningRate, then every registry summary scalar; each validation
+metric; "Parameters" histograms on their trigger), rank 0 alone.
+:meth:`Optimizer.set_trace_profile` captures a ``torch.profiler`` window
+in place of ``jax.profiler``.  The port has no ``analysis`` package, so no
+``Analysis/*`` gauge is written.
+
+Not ported yet: integrity fingerprints, the microbatch re-plan after a
+device OOM, the compile cache and its warmup spans, the host-sync and
+retrace counters, the hung-step watchdog, the chaos hooks, the host-memory
+governor and preemption.  The keys that ask for two of them
+(``bigdl.integrity.everyN``, ``bigdl.elastic.handleSignals``) raise
 :class:`NotImplementedError` (:func:`refuse_unported`).
 """
 
@@ -61,6 +91,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import random
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -84,6 +115,8 @@ from bigdl_tpu_torch.optim.optim_method import (SGD, OptimMethod,
                                                 load_payload)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation_method import ValidationMethod
+from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch.resources import storage as resource_storage
 from bigdl_tpu_torch.utils import config, elastic
 
 logger = logging.getLogger("bigdl_tpu_torch")
@@ -284,6 +317,72 @@ class Checkpoint:
         self.manager.join(raise_errors=raise_errors)
 
 
+class _ProfileWindow:
+    """The ``torch.profiler`` window of :meth:`Optimizer.set_trace_profile`
+    (the JAX package's ``jax.profiler.start_trace``/``stop_trace``,
+    :1151-1195), or the one-step window the slow-step detector asks for.
+    The window's steps end with their loss read, so their device work has
+    finished when it closes; torch.profiler synchronizes the device once
+    as it stops."""
+
+    def __init__(self, opt: "Optimizer"):
+        self.opt = opt
+        self.prof = None
+        self.end = 0
+        self.path: Optional[str] = None
+        self.slow_dir: Optional[str] = None
+        self.slow_taken = False
+
+    @staticmethod
+    def _process_dir(pdir: str) -> str:
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            return os.path.join(pdir, f"process_{dist.get_rank()}")
+        return pdir
+
+    def _start(self, pdir: str, neval: int, n: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.opt.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.path = os.path.join(self._process_dir(pdir),
+                                 "torch_profile.json")
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+        self.end = neval + n
+
+    def maybe_start(self, neval: int) -> None:
+        opt = self.opt
+        if self.prof is not None:
+            return
+        # >= not ==: a run resumed past the start still captures once
+        if opt._profile_dir and neval >= opt._profile_start:
+            self._start(opt._profile_dir, neval, opt._profile_n)
+            # the request is consumed: a second optimize() needs another
+            # set_trace_profile
+            opt._profile_dir = None
+        elif self.slow_dir and not self.slow_taken and not opt._profile_dir:
+            self.slow_taken = True
+            self._start(self.slow_dir, neval, 1)
+
+    def request_slow(self, pdir: str) -> None:
+        if self.slow_dir is None:
+            self.slow_dir = pdir
+
+    def maybe_stop(self, neval: int) -> None:
+        if self.prof is not None and neval >= self.end:
+            self.stop()
+
+    def stop(self) -> None:
+        prof, self.prof = self.prof, None
+        if prof is None:
+            return
+        prof.__exit__(None, None, None)
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        prof.export_chrome_trace(self.path)
+        logger.info("Profiler trace written to %s", self.path)
+
+
 def _initial_loop_state() -> Dict[str, Any]:
     """The training loop's state keys, the reference's (``optimizer.py``
     :1608, ``DistriOptimizer.scala``)."""
@@ -328,6 +427,17 @@ class Optimizer:
         self.validation_history: List[Dict[str, Any]] = []
         #: seconds of the last restore from a snapshot
         self.last_restore_seconds: Optional[float] = None
+        self.train_summary = None
+        self.validation_summary = None
+        #: the torch.profiler window of set_trace_profile (None: none)
+        self._profile_dir: Optional[str] = None
+        self._profile_start = 10
+        self._profile_n = 3
+        #: one step's FLOPs (bigdl.telemetry.mfu), counted at a run's first
+        #: step
+        self._step_flops: Optional[float] = None
+        #: the last run's step-time account
+        self._step_account: Optional[telemetry.StepAccount] = None
 
     # -- fluent setters (reference Optimizer.scala fluent API) ------------
 
@@ -370,6 +480,38 @@ class Optimizer:
         self.validation_methods = methods
         return self
 
+    def set_train_summary(self, summary) -> "Optimizer":
+        """A :class:`~bigdl_tpu_torch.visualization.TrainSummary`: Loss,
+        Throughput and LearningRate each iteration, then every registry
+        summary scalar (``Telemetry/*``, ``Ingest/*``, ...); its
+        "Parameters" trigger writes weight histograms."""
+        self.train_summary = summary
+        return self
+
+    def set_validation_summary(self, summary) -> "Optimizer":
+        """A :class:`~bigdl_tpu_torch.visualization.ValidationSummary`: one
+        scalar per validation metric at each validation."""
+        self.validation_summary = summary
+        return self
+
+    def set_trace_profile(self, log_dir: str, start_iteration: int = 10,
+                          n_iterations: int = 3) -> "Optimizer":
+        """Capture a ``torch.profiler`` trace (host and, on a card, CUDA
+        activity) of ``n_iterations`` iterations from ``start_iteration``
+        into ``log_dir`` as a Chrome trace (``torch_profile.json``; a rank
+        of a process group writes into ``process_<rank>``).  The window
+        fires once; a second ``optimize()`` needs another call."""
+        if n_iterations < 1:
+            raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
+        if start_iteration < 1:
+            raise ValueError(
+                f"start_iteration must be >= 1 (iteration counting is "
+                f"1-based), got {start_iteration}")
+        self._profile_dir = log_dir
+        self._profile_start = start_iteration
+        self._profile_n = n_iterations
+        return self
+
     def set_precision(self, precision: Optional[str]) -> "Optimizer":
         """``"bf16"`` runs the forward and backward in bfloat16 while the
         master weights, the loss and the update stay float32."""
@@ -388,7 +530,10 @@ class Optimizer:
         ``bigdl.failure.maxRetryInterval``) between them.  The attempt
         count resets when a run gets past the furthest ``evalCounter`` any
         attempt reached (a fresh fault), never after a divergence.  The
-        asynchronous writer is drained before this returns or raises."""
+        asynchronous writer is drained before this returns or raises.
+        The ``Parallel/*`` gauges of an earlier run are dropped first
+        (a ``DistriOptimizer`` sets them again)."""
+        telemetry.REGISTRY.drop_prefix("Parallel/")
         retry_times = config.get_int("bigdl.failure.retryTimes", 5)
         base = config.get_float("bigdl.failure.retryTimeInterval", 120.0)
         cap = config.get_float("bigdl.failure.maxRetryInterval", 900.0)
@@ -502,6 +647,9 @@ class Optimizer:
             state["score"] = res.final_result()
             self.optim_method.state["score"] = res.final_result()
             record[method.name] = res.final_result()
+            if self.validation_summary is not None and is_writer_process():
+                self.validation_summary.add_scalar(
+                    method.name, res.final_result(), state["neval"] - 1)
         self.validation_history.append(record)
 
     def _checkpoint_due(self, state) -> bool:
@@ -552,12 +700,31 @@ class Optimizer:
         ``fetch_batch`` and moves the batch to the device; the rollover
         runs on its producer, at the record boundary as the batch that
         crosses it is fetched (the reference's batch producer), so the
-        batch sequence is the same at every ``bigdl.prefetch.depth``."""
+        batch sequence is the same at every ``bigdl.prefetch.depth``.
+
+        Telemetry (JAX :903-928): the tracer is armed by
+        ``bigdl.telemetry.trace``, this thread's lane is named ``driver``
+        and its spans reset, the ``Telemetry/*`` gauges of an earlier run
+        are dropped, and a fresh :class:`~bigdl_tpu_torch.telemetry.
+        StepAccount` takes the run's steps."""
         state = _initial_loop_state()
         # a second optimize() continues the counters the OptimMethod carries
         state["neval"] = self.optim_method.state.get("evalCounter", 0) + 1
         state["epoch"] = self.optim_method.state.get("epoch", 1)
         max_bad_steps = config.get_int("bigdl.divergence.maxBadSteps", 5)
+        telemetry.maybe_arm_from_config()
+        if telemetry.tracing_enabled():
+            telemetry.name_thread("driver")
+            telemetry.reset_tracer()
+        telemetry.REGISTRY.drop_prefix("Telemetry/")
+        account = telemetry.StepAccount(
+            window=config.get_int("bigdl.telemetry.percentileWindow", 512),
+            detector=telemetry.SlowStepDetector(
+                config.get_float("bigdl.telemetry.slowStepFactor", 0.0),
+                warmup=config.get_int("bigdl.telemetry.slowStepWarmup", 5),
+                cooldown=config.get_int("bigdl.telemetry.slowStepCooldown",
+                                        50)))
+        self._step_account = account
         fetched = {"records": 0}
 
         def on_batch(batch):
@@ -569,12 +736,16 @@ class Optimizer:
         fetch = BatchPrefetcher(fetch_batch, on_batch=on_batch,
                                 device=self.device)
         self.prefetcher = fetch
+        profiler = _ProfileWindow(self)
         wall_start = time.perf_counter()
         try:
             self._loop(state, fetch, run_step, epoch_size, max_bad_steps,
-                       publish)
+                       publish, account, profiler)
         finally:
-            fetch.stop()
+            try:
+                profiler.stop()
+            finally:
+                fetch.stop()
         logger.info("Training finished in %.1f s; batch fetch %.3f s, the "
                     "loop's wait for batches %.3f s, large copies waited "
                     "for %.3f s, over %d batches.",
@@ -591,19 +762,97 @@ class Optimizer:
                     snap["throughput_per_sec"], snap["busy_s"],
                     snap["starve_s"], snap["backpressure_s"],
                     eng.stage_workers.get(stage, 1))
+        # where the step time went, one line (JAX :1385)
+        acct = account.summary()
+        if acct.get("steps"):
+            logger.info(
+                "Step time decomposition over %d steps (mean %.1f ms): "
+                "data-wait %.0f%%, compute %.0f%%, host-pull %.0f%%, "
+                "bookkeeping %.0f%%, unaccounted %.0f%%; p50/p95/p99 "
+                "%.1f/%.1f/%.1f ms; %d slow step(s)",
+                acct["steps"], acct["mean_step_ms"],
+                100 * acct["data_wait_frac"], 100 * acct["compute_frac"],
+                100 * acct["host_pull_frac"],
+                100 * acct["bookkeeping_frac"],
+                100 * acct["unaccounted_frac"], acct.get("p50_ms", 0.0),
+                acct.get("p95_ms", 0.0), acct.get("p99_ms", 0.0),
+                acct["slow_steps"])
+        self._export_telemetry(account)
         return state
 
+    def _export_telemetry(self, account) -> None:
+        """The run-end artifacts (rank 0 alone): the Chrome trace
+        (``bigdl.telemetry.tracePath``) and the registry snapshot with the
+        step account (``bigdl.telemetry.snapshotPath``; a directory gets
+        ``telemetry.json``), each disk-full guarded.  The trace waits for
+        an asynchronous snapshot still being written, so that it holds the
+        writer's span (the JAX package exports before the write ends; its
+        error still re-raises at :meth:`optimize`'s join)."""
+        if not is_writer_process():
+            return
+        trace_path = config.get_property("bigdl.telemetry.tracePath")
+        if trace_path and telemetry.tracing_enabled():
+            if self.checkpoint is not None:
+                self.checkpoint.manager.wait()
+            if resource_storage.guarded_export(
+                    "telemetry",
+                    lambda: telemetry.export_chrome_trace(str(trace_path))):
+                logger.info("Telemetry timeline written to %s", trace_path)
+        snap_path = config.get_property("bigdl.telemetry.snapshotPath")
+        if snap_path:
+            import json
+            snap_path = str(snap_path)
+            if os.path.isdir(snap_path):
+                snap_path = os.path.join(snap_path, "telemetry.json")
+            snap = telemetry.REGISTRY.snapshot()
+            snap["step_summary"] = account.summary()
+
+            def write_snap():
+                with open(snap_path, "w") as f:
+                    json.dump(snap, f, indent=1, sort_keys=True)
+
+            if resource_storage.guarded_export("telemetry", write_snap):
+                logger.info("Telemetry snapshot written to %s", snap_path)
+
     def _loop(self, state, fetch, run_step, epoch_size: int,
-              max_bad_steps: int, publish) -> None:
+              max_bad_steps: int, publish, account, profiler) -> None:
+        clock = telemetry.clock_ns
+        want_flops = (config.get_bool("bigdl.telemetry.mfu", False) and
+                      self._step_flops is None)
+        peak_tflops = config.get_float("bigdl.telemetry.peakTflops", 0.0)
+        log_every = max(1, config.get_int("bigdl.telemetry.logEveryN", 1))
+        slow_dir = config.get_property("bigdl.telemetry.profileOnSlowStep")
         while not self.end_when(state):
-            t0 = time.perf_counter()
-            inputs, targets, bsz = fetch()
+            profiler.maybe_start(state["neval"])
+            t0 = clock()
+            with telemetry.span("driver/fetch"):
+                inputs, targets, bsz = fetch()
+            t_fetched = clock()
             self.optim_method.state["epoch"] = state["epoch"]
             hyper = self.optim_method.hyper()
-            loss_t = run_step(inputs, targets, hyper, state["neval"] - 1)
+            t_step = clock()
+            with telemetry.span("driver/device_step"):
+                if want_flops:
+                    # the first step runs under the flop counter, which
+                    # changes nothing it computes
+                    want_flops = False
+                    with telemetry.StepFlops() as sf:
+                        loss_t = run_step(inputs, targets, hyper,
+                                          state["neval"] - 1)
+                    self._step_flops = sf.total
+                    if sf.total:
+                        logger.info("Step FLOPs for MFU: %.3f GFLOP",
+                                    sf.total / 1e9)
+                else:
+                    loss_t = run_step(inputs, targets, hyper,
+                                      state["neval"] - 1)
+            t_stepped = clock()
             self.optim_method.step_done()
-            loss = float(loss_t)     # the one host read of the iteration
-            dt = time.perf_counter() - t0
+            t_pull = clock()
+            with telemetry.span("driver/host_wait"):
+                loss = float(loss_t)     # the one host read of the iteration
+            t_book = clock()
+            dt = (t_book - t0) / 1e9
             neval, recs = state["neval"], state["recordsProcessedThisEpoch"]
             state["Loss"] = loss
             self.history.append({"neval": neval, "epoch": state["epoch"],
@@ -611,11 +860,23 @@ class Optimizer:
                                  "seconds": dt,
                                  "wait_seconds": fetch.last_wait_ns / 1e9,
                                  "fetch_seconds": fetch.last_fetch_ns / 1e9})
-            logger.info(
-                "[Epoch %d %d/%d][Iteration %d] Train %d in %.4f seconds. "
-                "Throughput is %.1f records/second. Loss is %.6f.",
-                state["epoch"], recs + bsz, epoch_size, neval, bsz, dt,
-                bsz / max(dt, 1e-9), loss)
+            throughput = bsz / max(dt, 1e-9)
+            mfu_note = ""
+            if self._step_flops:
+                tflops = self._step_flops / max(dt, 1e-9) / 1e12
+                telemetry.gauge("Telemetry/tflops", summary=True).set(tflops)
+                if peak_tflops > 0:
+                    telemetry.gauge("Telemetry/mfu", summary=True).set(
+                        tflops / peak_tflops)
+                    mfu_note = f" MFU is {100 * tflops / peak_tflops:.1f}%."
+                else:
+                    mfu_note = f" Achieved {tflops:.3f} TFLOP/s."
+            if neval % log_every == 0:
+                logger.info(
+                    "[Epoch %d %d/%d][Iteration %d] Train %d in %.4f "
+                    "seconds. Throughput is %.1f records/second. Loss is "
+                    "%.6f.%s", state["epoch"], recs + bsz, epoch_size, neval,
+                    bsz, dt, throughput, loss, mfu_note)
             if not math.isfinite(loss):
                 state["consecutiveBadSteps"] += 1
                 logger.warning(
@@ -623,26 +884,90 @@ class Optimizer:
                     "skipped (%d consecutive bad step(s); limit %d)", loss,
                     neval, state["consecutiveBadSteps"], max_bad_steps)
                 if 0 < max_bad_steps <= state["consecutiveBadSteps"]:
+                    telemetry.incident.record(
+                        "optim/divergence", iteration=neval,
+                        bad_steps=state["consecutiveBadSteps"])
                     raise DivergenceError(
                         f"{state['consecutiveBadSteps']} consecutive "
                         f"non-finite losses (last at iteration {neval})")
             else:
                 state["consecutiveBadSteps"] = 0
+            t_end = clock()
+            # the parts are the timed calls; the signed rest (the
+            # hyper-parameters, the counters) is unaccounted
+            fired = account.account(
+                t_end - t0, data_wait=t_fetched - t0,
+                compute=t_stepped - t_step, host_pull=t_book - t_pull,
+                bookkeeping=t_end - t_book)
+            if fired:
+                self._slow_step(account, neval, t_end - t0, slow_dir,
+                                profiler)
+            with telemetry.span("driver/summary"):
+                self._summarize_train(loss, throughput, neval)
             state["recordsProcessedThisEpoch"] += bsz
             if state["recordsProcessedThisEpoch"] >= epoch_size:
                 state["epoch"] += 1
                 state["recordsProcessedThisEpoch"] = 0
             state["neval"] += 1
+            profiler.maybe_stop(state["neval"])
             self.optim_method.state["epoch"] = state["epoch"]
             v_due = self._validation_due(state)
             c_due = self._checkpoint_due(state)
-            if v_due or c_due:
+            p_due = (self.train_summary is not None and
+                     self.train_summary.save_parameters_due(state))
+            if v_due or c_due or p_due:
                 if publish is not None:
-                    publish()
+                    with telemetry.span("driver/publish"):
+                        publish()
                 if v_due:
-                    self._run_validation(state)
+                    with telemetry.span("driver/validation"):
+                        self._run_validation(state)
                 if c_due:
-                    self._run_checkpoint(state)
+                    with telemetry.span("driver/checkpoint"):
+                        self._run_checkpoint(state)
+                if p_due and is_writer_process():
+                    # weight histograms (DistriOptimizer.scala:426-456);
+                    # every rank publishes, rank 0 writes
+                    with telemetry.span("driver/param_histograms"):
+                        self.train_summary.save_parameters(
+                            self.model, state["neval"] - 1)
+
+    def _slow_step(self, account, neval: int, wall_ns: int, slow_dir,
+                   profiler) -> None:
+        """A step opened a slow-step window: mark it on the timeline, log
+        it, and under ``bigdl.telemetry.profileOnSlowStep`` ask for a
+        one-step profiler window and dump the timeline (bounded by
+        ``bigdl.telemetry.maxTimelineDumps``; rank 0 alone)."""
+        telemetry.instant("driver/slow_step", iteration=neval,
+                          step_ms=round(wall_ns / 1e6, 3))
+        logger.warning(
+            "Slow step at iteration %d: %.1f ms (> %.1f ms = k x EMA); %d "
+            "anomaly window(s) this run", neval, wall_ns / 1e6,
+            account.detector.threshold() / 1e6, account.detector.fired)
+        if not slow_dir:
+            return
+        profiler.request_slow(os.path.join(str(slow_dir), "slowstep_profile"))
+        if is_writer_process() and telemetry.tracing_enabled():
+            resource_storage.bounded_timeline_export(os.path.join(
+                str(slow_dir), f"slowstep_{neval}_timeline.json"))
+
+    def _summarize_train(self, loss: float, throughput: float,
+                         neval: int) -> None:
+        """Loss, Throughput and LearningRate, then THE one emission loop
+        over the registry's summary scalars and the step latency
+        percentiles (JAX :1534).  Rank 0 alone."""
+        if self.train_summary is None or not is_writer_process():
+            return
+        self.train_summary.add_scalar("Loss", loss, neval)
+        self.train_summary.add_scalar("Throughput", throughput, neval)
+        self.train_summary.add_scalar(
+            "LearningRate", self.optim_method.get_learning_rate(), neval)
+        scalars = telemetry.summary_scalars()
+        acct = self._step_account
+        if acct is not None and acct.steps:
+            scalars += acct.percentile_scalars()
+        for tag, value in scalars:
+            self.train_summary.add_scalar(tag, value, neval)
 
     # -- factory ----------------------------------------------------------
 

@@ -56,6 +56,15 @@ full slots, so a restore onto another world size re-slices them
 (``bigdl.elastic.reshardOnRestore``; off, it raises
 ``TopologyMismatchError``).
 
+Telemetry (JAX :302-303, :780-863, :1078): the ``Parallel/overlap_buckets``
+summary gauge, the spans ``parallel/reduce_scatter`` (the buckets' issue),
+``parallel/update`` (a bucket's wait and update) and ``parallel/all_gather``
+inside the step's ``driver/device_step``, and the MFU count of
+:class:`~bigdl_tpu_torch.optim.optimizer.Optimizer`'s loop, which counts
+this rank's step (its collectives add no FLOPs).  With NCCL a wait only
+orders the current stream, so the spans show the host's enqueue; with gloo
+it blocks.  Summaries, the trace and the snapshot are rank 0's alone.
+
 Not ported, each raising :class:`NotImplementedError` where asked for: the
 ``seq``/``model``/``expert`` mesh axes (the GSPMD step, ring attention,
 expert parallelism; :meth:`DistriOptimizer.set_mesh`), integrity
@@ -77,6 +86,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.dataset.dataset import ShardedDataSet
 from bigdl_tpu_torch.engine import DeviceLike
 from bigdl_tpu_torch.nn.module import (Criterion, grad_scales, is_stochastic,
@@ -204,20 +214,24 @@ class DistriOptimizer(Optimizer):
                          for g, s in zip(grads, scales)]
             flat_grads = arp.flatten(grads)
             del grads
-            if edges is None:
-                issued = [(0, arp.shard_size, arp.reduce_scatter_gradients(
-                    flat_grads, async_op=True))]
-            else:
-                gmat = flat_grads.view(n, arp.shard_size)
-                issued = [(a, b, arp.reduce_scatter_bucket(
-                    gmat[:, a:b], async_op=True)) for a, b in edges]
+            with telemetry.span("parallel/reduce_scatter",
+                                buckets=1 if edges is None else len(edges)):
+                if edges is None:
+                    issued = [(0, arp.shard_size,
+                               arp.reduce_scatter_gradients(
+                                   flat_grads, async_op=True))]
+                else:
+                    gmat = flat_grads.view(n, arp.shard_size)
+                    issued = [(a, b, arp.reduce_scatter_bucket(
+                        gmat[:, a:b], async_op=True)) for a, b in edges]
             grad_b, updates = [], []
-            for a, b, pending in issued:
-                g_k = pending.wait() / n
-                grad_b.append(g_k)
-                updates.append(self.optim_method.pure_update(
-                    [g_k], [row[a:b]],
-                    {k: [v[a:b]] for k, v in slots.items()}, hyper))
+            for k_, (a, b, pending) in enumerate(issued):
+                with telemetry.span("parallel/update", bucket=k_):
+                    g_k = pending.wait() / n
+                    grad_b.append(g_k)
+                    updates.append(self.optim_method.pure_update(
+                        [g_k], [row[a:b]],
+                        {k: [v[a:b]] for k, v in slots.items()}, hyper))
             ok = True
             if guard:
                 # the verdict is global: each rank sees 1/N of the
@@ -236,12 +250,13 @@ class DistriOptimizer(Optimizer):
                 for live, kept in zip(mstate, saved):
                     torch.where(ok, live, kept, out=live)
                 loss = torch.where(ok, loss, torch.full_like(loss, math.nan))
-            if edges is None:
-                arp.all_gather_weights(row, flat)    # in place
-            else:
-                fmat = flat.view(n, arp.shard_size)
-                for a, b, pending in gathers:
-                    fmat[:, a:b].copy_(pending.wait())
+            with telemetry.span("parallel/all_gather"):
+                if edges is None:
+                    arp.all_gather_weights(row, flat)    # in place
+                else:
+                    fmat = flat.view(n, arp.shard_size)
+                    for a, b, pending in gathers:
+                        fmat[:, a:b].copy_(pending.wait())
             loss = axis_mean(loss, group)
             pmean_floats(mstate, group)
         return loss
@@ -319,6 +334,10 @@ class DistriOptimizer(Optimizer):
                      config.get_int("bigdl.parallel.overlapBuckets", 4))
                  if config.get_bool("bigdl.parallel.overlap", True)
                  else None)
+        telemetry.gauge(
+            "Parallel/overlap_buckets", summary=True,
+            help="per-step collective buckets (1 = monolithic schedule)"
+        ).set(float(len(edges) if edges else 1))
         stream = (torch.Generator(device=self.device)
                   if is_stochastic(model) else None)
         it = {"shards": None}

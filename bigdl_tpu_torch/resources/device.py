@@ -12,29 +12,10 @@ is set.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from bigdl_tpu_torch.engine import DeviceLike
-
-
-class DeviceMemoryError(RuntimeError):
-    """A device buffer does not fit device memory.  ``phase`` is
-    ``"preflight"`` (found before anything was allocated) or
-    ``"dispatch"``."""
-
-    def __init__(self, label: str, peak_bytes: Optional[int],
-                 budget_bytes: Optional[int], phase: str = "dispatch"):
-        self.label = label
-        self.peak_bytes = peak_bytes
-        self.budget_bytes = budget_bytes
-        self.phase = phase
-        peak = "?" if peak_bytes is None else f"{peak_bytes}"
-        budget = "?" if budget_bytes is None else f"{budget_bytes}"
-        super().__init__(
-            f"device memory exhausted ({phase}) on {label!r}: needs {peak} B "
-            f"vs budget {budget} B")
+from bigdl_tpu_torch.resources.errors import DeviceMemoryError
 
 
 def preflight_pool(nbytes: int, label: str, device: DeviceLike) -> int:

@@ -27,9 +27,22 @@ a single ``maxBatch`` bucket), as the JAX package does.  ``stop()`` closes
 admission, drains queued work within ``bigdl.serving.gracePeriod`` seconds,
 sheds what is left retriably and joins the batcher thread.
 
-Not in this slice (ROADMAP lists them): the telemetry histograms and
-counters, per-request tracing, incident bundles, the host-memory governor,
-the chaos hooks, the hung-dispatch watchdog with its cooldown, SIGTERM
+Telemetry (JAX :228-229, :323-326, :473-600, :697-882): the
+``Serving/latency_ms`` (completed requests, with their trace ids as
+exemplars) and ``Serving/batch_occupancy`` histograms; the
+``Serving/submitted``, ``rejected``, ``shed``, ``quarantined``,
+``completed`` and ``batches`` counters (by ``reason`` label too); the
+``Serving/queue_depth``, ``batch_ms`` and ``p50/p95/p99_ms`` gauges.  With
+``bigdl.trace.requests`` (:mod:`~bigdl_tpu_torch.telemetry.request_trace`)
+every submission gets a trace id at the door and the chain
+``request/admit`` → ``request/queue_wait`` → ``request/coalesce`` →
+``request/dispatch``, ending in exactly one verdict (the ``rejected``
+ones at the door).  The incident recorder takes the drain, a quarantine
+and an aborted dispatch, and writes one bundle per quarantine or abort
+kind (``bigdl.incident.autoDump``).
+
+Not in this slice (ROADMAP lists them): the host-memory governor, the
+chaos hooks, the hung-dispatch watchdog with its cooldown, SIGTERM
 preemption, the batcher's linger (``bigdl.serving.lingerMs``) and the fleet
 supervisor's ``abandon``.
 """
@@ -46,9 +59,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.engine import DeviceLike, default_device, to_device
 from bigdl_tpu_torch.optim.evaluator import _eval_forward
 from bigdl_tpu_torch.optim.predictor import Predictor
+from bigdl_tpu_torch.telemetry import incident, request_trace
 from bigdl_tpu_torch.utils import compile_cache, config
 
 logger = logging.getLogger("bigdl_tpu_torch")
@@ -123,13 +138,16 @@ class RequestHandle:
     exactly one of :data:`OUTCOMES` (``_finish`` is first-wins)."""
 
     __slots__ = ("raw", "index", "submit_ns", "deadline_ns", "finish_ns",
-                 "outcome", "_result", "_error", "_done", "_lock")
+                 "outcome", "_result", "_error", "_done", "_lock",
+                 "trace_id")
 
-    def __init__(self, raw, index: int, submit_ns: int, deadline_ns: int):
+    def __init__(self, raw, index: int, submit_ns: int, deadline_ns: int,
+                 trace_id: Optional[str] = None):
         self.raw = raw
         self.index = index            # admission position
         self.submit_ns = submit_ns
         self.deadline_ns = deadline_ns
+        self.trace_id = trace_id      # None when request tracing is disarmed
         self._lock = threading.Lock()
         self.finish_ns: Optional[int] = None            # guarded-by: _lock
         self.outcome: Optional[str] = None              # guarded-by: _lock
@@ -145,7 +163,7 @@ class RequestHandle:
             self.outcome = outcome
             self._result = result
             self._error = error
-            self.finish_ns = time.monotonic_ns()
+            self.finish_ns = telemetry.clock_ns()
             self._done.set()
         return True
 
@@ -241,6 +259,13 @@ class ServingEngine:
         self._ema = _ServiceEMA(self.warmup_batches)
         self.batches = 0
         self._thread: Optional[threading.Thread] = None
+        window = config.get_int("bigdl.telemetry.percentileWindow", 512)
+        self._latency = telemetry.histogram(
+            "Serving/latency_ms", window=window,
+            help="per-request submit-to-result latency")
+        self._occupancy = telemetry.histogram(
+            "Serving/batch_occupancy",
+            help="true (unpadded) requests per dispatched batch")
         if start:
             self.start()
 
@@ -286,7 +311,7 @@ class ServingEngine:
             return
         with self._lock:
             if not self._draining:
-                self._begin_drain_locked(time.monotonic(), grace)
+                self._begin_drain_locked("stop", time.monotonic(), grace)
             elif grace is not None:
                 self._drain_deadline = time.monotonic() + grace
         self._stop_event.set()
@@ -322,52 +347,67 @@ class ServingEngine:
                ) -> RequestHandle:
         """Admit one request or raise :class:`Overloaded` — fast, at the
         door.  Returns a :class:`RequestHandle` future."""
-        now = time.monotonic_ns()
+        now = telemetry.clock_ns()
         deadline = float(deadline_ms if deadline_ms is not None
                          else self.deadline_ms)
+        telemetry.counter("Serving/submitted").inc()
+        # minted before the rejection checks: a rejected request still
+        # explains itself
+        tid = request_trace.mint("req", deadline_ms=deadline)
         with self._lock:
             self._counts["submitted"] += 1
             if self._closed or (self._stop_event.is_set() and
                                 not self._draining):
-                raise self._reject_locked("closed")
+                raise self._reject_locked("closed", trace_id=tid)
             if self._draining:
-                raise self._reject_locked("draining")
+                raise self._reject_locked("draining", trace_id=tid)
             depth = self._q.qsize()
             if depth >= self.max_queue_depth:
-                raise self._reject_locked("queue full", depth)
+                raise self._reject_locked("queue full", depth, trace_id=tid)
             ema = self._ema.ema
             if ema is not None:
                 waves = math.ceil((depth + 1) / self.max_batch)
                 projected = waves * ema
                 if projected > self.admission_factor * deadline:
                     raise self._reject_locked(
-                        "projected wait", depth,
+                        "projected wait", depth, trace_id=tid,
                         projected_wait_ms=projected, deadline_ms=deadline)
             req = RequestHandle(inputs, self._next_index, now,
-                                now + int(deadline * 1e6))
+                                now + int(deadline * 1e6), trace_id=tid)
             self._next_index += 1
+        request_trace.instant(tid, "request/admit", index=req.index,
+                              depth=depth)
         try:
             self._q.put_nowait(req)
         except queue.Full:
             # a racing submit filled the last slot after the depth check
             with self._lock:
                 raise self._reject_locked("queue full",
-                                          self.max_queue_depth)
+                                          self.max_queue_depth,
+                                          trace_id=tid)
         if self._closed:
             # the batcher exited between the admission check and the
             # enqueue: nobody will pop the queue again — shed it now
             self._drain_leftovers()
+        telemetry.gauge("Serving/queue_depth").set(self._q.qsize())
         return req
 
     def _reject_locked(self, reason: str, depth: Optional[int] = None,
-                       **kw) -> Overloaded:
+                       trace_id: Optional[str] = None, **kw) -> Overloaded:
         """Build the structured rejection and account it (the caller
-        raises).  Runs under ``self._lock``."""
+        raises).  Runs under ``self._lock``.  The ``rejected`` verdict's
+        choke point: the error carries its trace id."""
         self._counts["rejected"] += 1
-        return Overloaded(reason,
-                          queue_depth=(depth if depth is not None
-                                       else self._q.qsize()),
-                          max_depth=self.max_queue_depth, **kw)
+        telemetry.counter("Serving/rejected").inc()
+        telemetry.counter("Serving/rejected",
+                          labels={"reason": reason.replace(" ", "_")}).inc()
+        err = Overloaded(reason,
+                         queue_depth=(depth if depth is not None
+                                      else self._q.qsize()),
+                         max_depth=self.max_queue_depth, **kw)
+        request_trace.verdict(trace_id, "rejected", error=err,
+                              reason=reason.replace(" ", "_"))
+        return err
 
     # -- accounting -------------------------------------------------------
 
@@ -386,21 +426,32 @@ class ServingEngine:
 
     def _account(self, req: RequestHandle, outcome: str,
                  error: Optional[BaseException] = None,
-                 result=None) -> bool:
+                 result=None, reason: Optional[str] = None) -> bool:
         if not req._finish(outcome, result=result, error=error):
             return False
         with self._lock:
             self._counts[outcome] += 1
+        # the choke point of every engine-side verdict; a completed
+        # request's latency keeps its trace id as an exemplar
+        request_trace.verdict(req.trace_id, outcome, error=error,
+                              reason=reason)
+        telemetry.counter(f"Serving/{outcome}").inc()
+        if reason:
+            telemetry.counter(f"Serving/{outcome}",
+                              labels={"reason": reason}).inc()
+        if outcome == "completed":
+            self._latency.observe(req.latency_ms(), exemplar=req.trace_id)
         return True
 
     # -- the batcher thread -----------------------------------------------
 
     def _batcher_loop(self) -> None:
+        telemetry.name_thread("serving-batcher")
         try:
             while True:
                 if not self._draining and self._stop_event.is_set():
                     with self._lock:
-                        self._begin_drain_locked(time.monotonic())
+                        self._begin_drain_locked("stop", time.monotonic())
                 if self._draining:
                     if self._q.empty():
                         break
@@ -418,7 +469,8 @@ class ServingEngine:
                         self._dispatch_batch(batch)
                 except Exception as e:  # noqa: BLE001 — engine must outlive
                     self._abort_inflight(
-                        batch, ServingInfraError(f"dispatch failed: {e!r}"))
+                        batch, ServingInfraError(f"dispatch failed: {e!r}"),
+                        "infra")
         finally:
             # _closed BEFORE the sweep: a racing submit either observes
             # _closed (and sheds its own request) or enqueued before this
@@ -427,7 +479,7 @@ class ServingEngine:
                 self._closed = True
             self._drain_leftovers()
 
-    def _begin_drain_locked(self, started_at: float,
+    def _begin_drain_locked(self, reason: str, started_at: float,
                             grace: Optional[float] = None) -> None:
         """Enter drain mode (callers hold ``self._lock``).  The deadline
         is published before the flag: the batcher reads both without the
@@ -435,6 +487,8 @@ class ServingEngine:
         budget = grace if grace is not None else self.grace_period
         self._drain_deadline = started_at + budget
         self._draining = True
+        incident.record("serving/drain", reason=reason, grace_s=budget,
+                        queued=self._q.qsize())
         logger.info("serving engine draining: grace %.1f s, %d request(s) "
                     "queued", budget, self._q.qsize())
 
@@ -450,9 +504,11 @@ class ServingEngine:
             err = ServingInfraError(
                 "engine draining: request was not dispatched within the "
                 "grace period — retriable")
-            shed += self._account(req, "shed", error=err)
+            shed += self._account(req, "shed", error=err, reason="drained")
         if shed:
+            incident.record("serving/drain_shed", count=shed)
             logger.warning("serving drain shed %d queued request(s)", shed)
+        telemetry.gauge("Serving/queue_depth").set(self._q.qsize())
 
     def _assemble(self, first: RequestHandle,
                   batch: List[RequestHandle]) -> None:
@@ -460,18 +516,28 @@ class ServingEngine:
         ``batch``: expired ones are shed, poison ones quarantined — neither
         consumes a slot."""
         req = first
+        dequeued_ns: Dict[int, int] = {}
         while True:
-            now = time.monotonic_ns()
+            now = telemetry.clock_ns()
+            request_trace.record_span(req.trace_id, "request/queue_wait",
+                                      req.submit_ns, now)
+            dequeued_ns[id(req)] = now
             if now > req.deadline_ns:
                 waited = (now - req.submit_ns) / 1e6
                 deadline = (req.deadline_ns - req.submit_ns) / 1e6
                 self._account(req, "shed",
-                              error=DeadlineExceeded(waited, deadline))
+                              error=DeadlineExceeded(waited, deadline),
+                              reason="expired")
             else:
                 try:
                     row = self._decode(req)
                 except ServingDataError as e:
+                    incident.record("serving/quarantine", index=req.index,
+                                    error=type(e).__name__)
                     self._account(req, "quarantined", error=e)
+                    # after the verdict, so the bundle's trace is terminal
+                    incident.maybe_dump("serving/quarantine",
+                                        trace_id=req.trace_id)
                 else:
                     req.raw = row
                     batch.append(req)
@@ -481,6 +547,13 @@ class ServingEngine:
                 req = self._q.get_nowait()
             except queue.Empty:
                 break
+        if request_trace.enabled() and batch:
+            done = telemetry.clock_ns()
+            for r in batch:
+                request_trace.record_span(r.trace_id, "request/coalesce",
+                                          dequeued_ns[id(r)], done,
+                                          size=len(batch))
+        telemetry.gauge("Serving/queue_depth").set(self._q.qsize())
 
     def _decode(self, req: RequestHandle) -> np.ndarray:
         """Per-request validation: anything wrong with the PAYLOAD raises
@@ -514,20 +587,40 @@ class ServingEngine:
         return compile_cache.slice_rows(out.cpu().numpy(), n)
 
     def _dispatch_batch(self, batch: List[RequestHandle]) -> None:
-        t0 = time.monotonic_ns()
+        t0 = telemetry.clock_ns()
         self.batches += 1
         out = self._run_forward(np.stack([r.raw for r in batch]))
+        if request_trace.enabled():
+            t1 = telemetry.clock_ns()
+            padded = compile_cache.bucket_size(len(batch), self._buckets)
+            for req in batch:
+                request_trace.record_span(
+                    req.trace_id, "request/dispatch", t0, t1,
+                    batch=self.batches, rows=len(batch),
+                    pad_to_bucket=padded)
         for i, req in enumerate(batch):
             self._account(req, "completed", result=out[i])
-        self._ema.observe((time.monotonic_ns() - t0) / 1e6)
+        ms = (telemetry.clock_ns() - t0) / 1e6
+        self._ema.observe(ms)
+        self._occupancy.observe(len(batch))
+        telemetry.counter("Serving/batches").inc()
+        g = telemetry.gauge
+        g("Serving/batch_ms").set(ms)
+        for q in (50, 95, 99):
+            g(f"Serving/p{q}_ms").set(self._latency.percentile(q))
 
     def _abort_inflight(self, batch: List[RequestHandle],
-                        error: ServingError) -> None:
+                        error: ServingError, reason: str) -> None:
         """A dispatch died under the batch: fail every unfinished
         in-flight request with the diagnosis, each with its own exception
-        instance."""
+        instance, and write the incident bundle of the first."""
         failed = sum(
-            self._account(r, "shed", error=type(error)(*error.args))
+            self._account(r, "shed", error=type(error)(*error.args),
+                          reason=reason)
             for r in batch)
-        logger.error("serving dispatch aborted: %d in-flight request(s) "
-                     "failed with %s", failed, error)
+        incident.record("serving/abort_inflight", reason=reason,
+                        victims=failed, error=type(error).__name__)
+        incident.maybe_dump(f"serving/{reason}",
+                            trace_id=batch[0].trace_id if batch else None)
+        logger.error("serving dispatch aborted (%s): %d in-flight "
+                     "request(s) failed with %s", reason, failed, error)

@@ -49,9 +49,22 @@ asks for it; ROADMAP lists them): the int8 decode tier
 (``quantize="int8"``, ``bigdl.lm.quantize=int8``) and its gate; the
 hung-decode watchdog and its cooldown (``bigdl.lm.stallFactor > 0``); the
 ``sentinels`` property, for which :attr:`LMServingEngine.decode_captures`
-stands in.  Also not ported: the chaos hooks, telemetry histograms, request
-tracing, incident bundles, the host-memory governor and SIGTERM
-preemption.
+stands in.  Also not ported: the chaos hooks, the host-memory governor and
+SIGTERM preemption.
+
+Telemetry (JAX :666-672, :934-1062, :1189-1260, :1293-1485): the
+``LM/ttft_ms``, ``LM/itl_ms`` and ``LM/latency_ms`` histograms (trace ids
+as exemplars); the ``LM/submitted``, ``rejected``, ``shed``,
+``quarantined``, ``completed``, ``tokens``, ``prefills`` and
+``decode_steps`` counters; the ``LM/queue_depth``, ``prefill_ms``,
+``decode_ms`` and ``slot_occupancy`` gauges.  With ``bigdl.trace.requests``
+a stream's trace runs ``request/admit`` → ``request/queue_wait`` →
+``request/prefill`` → ``request/emit`` → one ``request/decode_step`` per
+token, ending in exactly one verdict.  The decode graph's replay is one
+host call, so the per-token spans are the host loop's around it
+(``t0`` before the inputs are packed, ``now`` after the log-probs
+arrive), never anything inside the captured graph.  The incident recorder
+takes the drain, a quarantine and an aborted decode.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
                                     default_device, to_device)
 from bigdl_tpu_torch.nn.attention import (paged_attention,
@@ -75,6 +89,7 @@ from bigdl_tpu_torch.serving.engine import (OUTCOMES, DeadlineExceeded,
                                             Overloaded, ServingDataError,
                                             ServingInfraError, _ServiceEMA)
 from bigdl_tpu_torch.serving.kv_cache import DUMP_BLOCK, PagedKVCache
+from bigdl_tpu_torch.telemetry import incident, request_trace
 from bigdl_tpu_torch.utils import config
 
 logger = logging.getLogger("bigdl_tpu_torch")
@@ -373,11 +388,14 @@ class TokenStream:
 
     __slots__ = ("prompt", "index", "seq_id", "max_new_tokens", "eos_id",
                  "submit_ns", "deadline_ns", "first_token_ns", "finish_ns",
-                 "outcome", "_tokens", "_error", "_terminal", "_cv")
+                 "outcome", "_tokens", "_error", "_terminal", "_cv",
+                 "trace_id")
 
     def __init__(self, prompt, index: int, submit_ns: int, deadline_ns: int,
-                 max_new_tokens: int, eos_id: Optional[int]):
+                 max_new_tokens: int, eos_id: Optional[int],
+                 trace_id: Optional[str] = None):
         self.prompt = prompt
+        self.trace_id = trace_id    # None when request tracing is disarmed
         self.index = index          # admission position
         self.seq_id = index         # KV-cache sequence id
         self.max_new_tokens = int(max_new_tokens)
@@ -400,7 +418,7 @@ class TokenStream:
                 return
             self._tokens.append(int(tok))
             if self.first_token_ns is None:
-                self.first_token_ns = time.monotonic_ns()
+                self.first_token_ns = telemetry.clock_ns()
             self._cv.notify_all()
 
     def _finish(self, outcome: str,
@@ -410,7 +428,7 @@ class TokenStream:
                 return False
             self.outcome = outcome
             self._error = error
-            self.finish_ns = time.monotonic_ns()
+            self.finish_ns = telemetry.clock_ns()
             self._terminal = True
             self._cv.notify_all()
         return True
@@ -474,7 +492,7 @@ class _Slot:
     the pool position the NEXT fed token writes)."""
 
     __slots__ = ("stream", "position", "generated", "last_token",
-                 "table_row")
+                 "table_row", "last_emit_ns")
 
     def __init__(self, stream: TokenStream, position: int, last_token: int,
                  table_row: np.ndarray):
@@ -483,6 +501,7 @@ class _Slot:
         self.generated = 1          # prefill emitted the first token
         self.last_token = last_token
         self.table_row = table_row
+        self.last_emit_ns = telemetry.clock_ns()
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +624,16 @@ class LMServingEngine:
         self.prefills = 0                               # guarded-by: _lock
         self.tokens_out = 0
         self._thread: Optional[threading.Thread] = None
+        window = config.get_int("bigdl.telemetry.percentileWindow", 512)
+        self._ttft = telemetry.histogram(
+            "LM/ttft_ms", window=window,
+            help="submit-to-first-token latency")
+        self._itl = telemetry.histogram(
+            "LM/itl_ms", window=window,
+            help="inter-token gap during streaming decode")
+        self._latency = telemetry.histogram(
+            "LM/latency_ms", window=window,
+            help="per-request submit-to-terminal latency")
         if start:
             self.start()
 
@@ -746,7 +775,7 @@ class LMServingEngine:
             return
         with self._lock:
             if not self._draining:
-                self._begin_drain_locked(time.monotonic(), grace)
+                self._begin_drain_locked("stop", time.monotonic(), grace)
             elif grace is not None:
                 self._drain_deadline = time.monotonic() + grace
         self._stop_event.set()
@@ -790,28 +819,34 @@ class LMServingEngine:
         """Admit one prompt (1-D integer token ids, 1-based) or raise
         :class:`Overloaded`, fast, at the door.  Returns its
         :class:`TokenStream`."""
-        now = time.monotonic_ns()
+        now = telemetry.clock_ns()
         deadline = float(deadline_ms if deadline_ms is not None
                          else self.deadline_ms)
         max_new = int(max_new_tokens if max_new_tokens is not None
                       else self.max_new_tokens)
+        telemetry.counter("LM/submitted").inc()
+        # minted before the rejection checks: a rejected prompt still
+        # explains itself
+        tid = request_trace.mint("lm", deadline_ms=deadline,
+                                 max_new_tokens=max_new)
         with self._lock:
             self._counts["submitted"] += 1
             if self._closed or (self._stop_event.is_set() and
                                 not self._draining):
-                raise self._reject_locked("closed")
+                raise self._reject_locked("closed", trace_id=tid)
             if self._draining:
-                raise self._reject_locked("draining")
+                raise self._reject_locked("draining", trace_id=tid)
             depth = self._q.qsize() + len(self._pending)
             if depth >= self.max_queue_depth:
-                raise self._reject_locked("queue full", depth)
+                raise self._reject_locked("queue full", depth, trace_id=tid)
             n = getattr(prompt, "shape", None)
             n = (int(np.prod(n)) if n is not None
                  else len(prompt) if hasattr(prompt, "__len__") else None)
             if (n is not None and self.cache.blocks_for(n + max_new) >
                     self.cache.allocatable_blocks):
                 # can NEVER be scheduled: larger than the whole pool
-                raise self._reject_locked("kv blocks exhausted", depth)
+                raise self._reject_locked("kv blocks exhausted", depth,
+                                          trace_id=tid)
             if self.admission_factor > 0:
                 ema = self._ema.ema
                 if ema is not None:
@@ -819,31 +854,42 @@ class LMServingEngine:
                     projected = waves * ema * max_new
                     if projected > self.admission_factor * deadline:
                         raise self._reject_locked(
-                            "projected wait", depth,
+                            "projected wait", depth, trace_id=tid,
                             projected_wait_ms=projected,
                             deadline_ms=deadline)
             stream = TokenStream(prompt, self._next_index, now,
-                                 now + int(deadline * 1e6), max_new, eos_id)
+                                 now + int(deadline * 1e6), max_new, eos_id,
+                                 trace_id=tid)
             self._next_index += 1
+        request_trace.instant(tid, "request/admit", index=stream.index,
+                              depth=depth)
         try:
             self._q.put_nowait(stream)
         except queue.Full:
             with self._lock:
                 raise self._reject_locked("queue full",
-                                          self.max_queue_depth)
+                                          self.max_queue_depth,
+                                          trace_id=tid)
         if self._closed:
             # the scheduler exited between the admission check and the
             # enqueue (it marks _closed before its final sweep): shed now
             self._drain_leftovers()
+        telemetry.gauge("LM/queue_depth").set(self.queue_depth())
         return stream
 
     def _reject_locked(self, reason: str, depth: Optional[int] = None,
-                       **kw) -> Overloaded:
+                       trace_id: Optional[str] = None, **kw) -> Overloaded:
         self._counts["rejected"] += 1
-        return Overloaded(reason,
-                          queue_depth=(depth if depth is not None
-                                       else self.queue_depth()),
-                          max_depth=self.max_queue_depth, **kw)
+        telemetry.counter("LM/rejected").inc()
+        telemetry.counter("LM/rejected",
+                          labels={"reason": reason.replace(" ", "_")}).inc()
+        err = Overloaded(reason,
+                         queue_depth=(depth if depth is not None
+                                      else self.queue_depth()),
+                         max_depth=self.max_queue_depth, **kw)
+        request_trace.verdict(trace_id, "rejected", error=err,
+                              reason=reason.replace(" ", "_"))
+        return err
 
     def _validate(self, stream: TokenStream) -> np.ndarray:
         """Per-request prompt validation: anything wrong with the PAYLOAD
@@ -871,11 +917,23 @@ class LMServingEngine:
     # -- accounting -------------------------------------------------------
 
     def _finish_stream(self, stream: TokenStream, outcome: str,
-                       error: Optional[BaseException] = None) -> bool:
+                       error: Optional[BaseException] = None,
+                       reason: Optional[str] = None) -> bool:
         if not stream._finish(outcome, error=error):
             return False
         with self._lock:
             self._counts[outcome] += 1
+        # the choke point of every terminal verdict; a completed stream's
+        # latency keeps its trace id as an exemplar
+        request_trace.verdict(stream.trace_id, outcome, error=error,
+                              reason=reason)
+        telemetry.counter(f"LM/{outcome}").inc()
+        if reason:
+            telemetry.counter(f"LM/{outcome}",
+                              labels={"reason": reason}).inc()
+        if outcome == "completed":
+            self._latency.observe(stream.latency_ms(),
+                                  exemplar=stream.trace_id)
         return True
 
     def stats(self) -> Dict[str, Any]:
@@ -904,12 +962,13 @@ class LMServingEngine:
         return any(s is not None for s in self._slots)
 
     def _scheduler_loop(self) -> None:
+        telemetry.name_thread("lm-scheduler")
         try:
             drained = False
             while not drained:
                 if not self._draining and self._stop_event.is_set():
                     with self._lock:
-                        self._begin_drain_locked(time.monotonic())
+                        self._begin_drain_locked("stop", time.monotonic())
                 if self._draining:
                     if time.monotonic() > self._drain_deadline:
                         self._drain_leftovers()
@@ -951,12 +1010,14 @@ class LMServingEngine:
                 "scheduler exited with the sequence in flight; retriable"),
                 "infra")
 
-    def _begin_drain_locked(self, started_at: float,
+    def _begin_drain_locked(self, reason: str, started_at: float,
                             grace: Optional[float] = None) -> None:
         budget = grace if grace is not None else self.grace_period
         # deadline published BEFORE the flag (lock-free readers)
         self._drain_deadline = started_at + budget
         self._draining = True
+        incident.record("lm/drain", reason=reason, grace_s=budget,
+                        queued=self.queue_depth())
         logger.info("LM engine draining: grace %.1f s, %d queued, %d active",
                     budget, self.queue_depth(),
                     sum(s is not None for s in self._slots))
@@ -981,9 +1042,12 @@ class LMServingEngine:
                 err = ServingInfraError(
                     "engine draining: prompt was not scheduled within the "
                     "grace period; retriable")
-                shed += self._finish_stream(stream, "shed", error=err)
+                shed += self._finish_stream(stream, "shed", error=err,
+                                            reason="drained")
         if shed:
+            incident.record("lm/drain_shed", count=shed)
             logger.warning("LM drain shed %d queued stream(s)", shed)
+        telemetry.gauge("LM/queue_depth").set(self.queue_depth())
 
     def _shed_active(self, error: Exception, reason: str) -> None:
         """Fail every in-flight sequence with the diagnosis and free its
@@ -998,8 +1062,13 @@ class LMServingEngine:
             # free_seq and _finish_stream are both idempotent
             self.cache.free_seq(stream.seq_id)
             failed += self._finish_stream(stream, "shed",
-                                          error=type(error)(*error.args))
+                                          error=type(error)(*error.args),
+                                          reason=reason)
         if failed:
+            incident.record("lm/shed_active", reason=reason,
+                            victims=failed, error=type(error).__name__)
+            incident.maybe_dump(f"lm/{reason}",
+                                trace_id=victims[0].trace_id)
             logger.error("LM decode aborted (%s): %d in-flight stream(s) "
                          "failed with %s", reason, failed,
                          type(error).__name__)
@@ -1025,18 +1094,26 @@ class LMServingEngine:
                 except queue.Empty:
                     return
             self._admitting = stream
-            now = time.monotonic_ns()
+            now = telemetry.clock_ns()
+            request_trace.record_span(stream.trace_id, "request/queue_wait",
+                                      stream.submit_ns, now)
             if now > stream.deadline_ns:
                 waited = (now - stream.submit_ns) / 1e6
                 deadline = (stream.deadline_ns - stream.submit_ns) / 1e6
                 self._finish_stream(stream, "shed",
-                                    error=DeadlineExceeded(waited, deadline))
+                                    error=DeadlineExceeded(waited, deadline),
+                                    reason="expired")
                 self._admitting = None
                 continue
             try:
                 prompt = self._validate(stream)
             except ServingDataError as e:
+                incident.record("lm/quarantine", index=stream.index,
+                                error=type(e).__name__)
                 self._finish_stream(stream, "quarantined", error=e)
+                # after the verdict, so the bundle's trace is terminal
+                incident.maybe_dump("lm/quarantine",
+                                    trace_id=stream.trace_id)
                 self._admitting = None
                 continue
             need = prompt.size + stream.max_new_tokens
@@ -1046,6 +1123,7 @@ class LMServingEngine:
                 self._admitting = None
                 return
             self.cache.allocate(stream.seq_id, need)
+            t_pf = telemetry.clock_ns()
             try:
                 tok, table_row = self._prefill_step_raw(stream.seq_id,
                                                         prompt)
@@ -1053,10 +1131,17 @@ class LMServingEngine:
                 logger.exception("LM prefill failed")
                 self.cache.free_seq(stream.seq_id)
                 self._finish_stream(stream, "shed", error=ServingInfraError(
-                    f"prefill failed: {e!r}"))
+                    f"prefill failed: {e!r}"), reason="infra")
                 self._admitting = None
                 continue
+            request_trace.record_span(stream.trace_id, "request/prefill",
+                                      t_pf, telemetry.clock_ns(),
+                                      prompt_tokens=int(prompt.size))
             stream._emit(tok)
+            request_trace.instant(stream.trace_id, "request/emit",
+                                  token=int(tok), first=True)
+            self._ttft.observe(stream.ttft_ms(), exemplar=stream.trace_id)
+            telemetry.counter("LM/tokens").inc()
             self.tokens_out += 1
             if ((stream.eos_id is not None and tok == stream.eos_id) or
                     stream.max_new_tokens <= 1):
@@ -1067,6 +1152,7 @@ class LMServingEngine:
             self._slots[slot_idx] = _Slot(stream, int(prompt.size), tok,
                                           table_row)
             self._admitting = None
+        telemetry.gauge("LM/queue_depth").set(self.queue_depth())
 
     def _prefill_step_raw(self, seq_id: int, prompt: np.ndarray
                           ) -> Tuple[int, np.ndarray]:
@@ -1074,6 +1160,7 @@ class LMServingEngine:
         prompt's k/v into its blocks; return the first greedy token
         (1-based) and the dump-padded table row the decode step gathers
         through."""
+        t0 = telemetry.clock_ns()
         P = int(prompt.size)
         bucket = self._prefill_bucket(P)
         padded = np.ones((1, bucket), np.int64)
@@ -1088,6 +1175,9 @@ class LMServingEngine:
         lp = lp.cpu().numpy()
         with self._lock:
             self.prefills += 1
+        telemetry.counter("LM/prefills").inc()
+        telemetry.gauge("LM/prefill_ms").set(
+            (telemetry.clock_ns() - t0) / 1e6)
         return int(np.argmax(lp)) + 1, table_row
 
     def _decode_iteration(self) -> None:
@@ -1095,7 +1185,9 @@ class LMServingEngine:
         heartbeat.  Finished sequences vacate their slot and free their
         blocks before the next admission pass."""
         self.decode_steps += 1
-        t0 = time.monotonic_ns()
+        step = self.decode_steps
+        telemetry.counter("LM/decode_steps").inc()
+        t0 = telemetry.clock_ns()
         inputs = self._idle_inputs()
         for i, slot in enumerate(self._slots):
             if slot is None:
@@ -1105,7 +1197,7 @@ class LMServingEngine:
             inputs[i, _ACTIVE] = 1
             inputs[i, _TABLE:] = slot.table_row
         lp = self._decode_step(inputs)
-        now = time.monotonic_ns()
+        now = telemetry.clock_ns()
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -1114,7 +1206,12 @@ class LMServingEngine:
             slot.position += 1
             slot.generated += 1
             slot.last_token = tok
+            self._itl.observe((now - slot.last_emit_ns) / 1e6)
+            slot.last_emit_ns = now
             stream._emit(tok)
+            request_trace.record_span(stream.trace_id, "request/decode_step",
+                                      t0, now, step=step, token=tok)
+            telemetry.counter("LM/tokens").inc()
             self.tokens_out += 1
             if ((stream.eos_id is not None and tok == stream.eos_id) or
                     slot.generated >= stream.max_new_tokens):
@@ -1129,10 +1226,15 @@ class LMServingEngine:
                 waited = (now - stream.submit_ns) / 1e6
                 deadline = (stream.deadline_ns - stream.submit_ns) / 1e6
                 self._finish_stream(stream, "shed",
-                                    error=DeadlineExceeded(waited, deadline))
+                                    error=DeadlineExceeded(waited, deadline),
+                                    reason="expired")
                 self._slots[i] = None
                 self.cache.free_seq(stream.seq_id)
-        self._ema.observe((time.monotonic_ns() - t0) / 1e6)
+        ms = (telemetry.clock_ns() - t0) / 1e6
+        self._ema.observe(ms)
+        telemetry.gauge("LM/decode_ms").set(ms)
+        telemetry.gauge("LM/slot_occupancy").set(
+            sum(s is not None for s in self._slots) / max(1, self.max_batch))
 
     # -- offline generation (parity and baseline) --------------------------
 

@@ -33,8 +33,20 @@ marker are the JAX package's.  A pair without a manifest (a legacy
 snapshot) is a candidate when both files exist; its loader is its only
 check.
 
-Not ported: the disk-full paths (an in-memory snapshot, an emergency
-oldest-first GC), the chaos hooks, ``watch_latest`` and remote stores
+A full disk (``file_io.write_bytes`` raising
+:class:`~bigdl_tpu_torch.resources.errors.StorageExhaustedError`) never
+fails the run, as in the JAX package (:340-420): the snapshots beyond
+``keep_last`` go oldest first (at least the newest stays) and the save is
+tried once more (``Resources/emergency_gc``); when the disk still refuses,
+checkpoints degrade to one snapshot kept as bytes in host memory
+(``Resources/memory_snapshots``, ``Resources/storage_degraded``), which a
+restore takes while it is newer than every committed one on disk.
+
+Telemetry: the spans ``checkpoint/capture`` (the caller's thread, the
+training loop's) and ``checkpoint/write`` (the writer thread, named
+``bigdl-ckpt-writer``, or the caller's in synchronous mode).
+
+Not ported: the chaos hooks, ``watch_latest`` and remote stores
 (:mod:`bigdl_tpu_torch.utils.file_io` is local only).
 """
 
@@ -49,7 +61,9 @@ import weakref
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.integrity import fingerprint_key, host_fingerprint
+from bigdl_tpu_torch.resources.errors import StorageExhaustedError
 from bigdl_tpu_torch.utils import config, elastic, file_io
 from bigdl_tpu_torch.visualization.crc32c import crc32c
 
@@ -106,13 +120,15 @@ def _capture(model, optim, neval: int
     writes the parameters and slots in place after this returns, so the
     copy to the host and the serialization cannot move to the writer."""
     from bigdl_tpu_torch.optim.optim_method import optim_payload
-    blobs: Dict[str, bytes] = {}
-    fps: Dict[str, str] = {}
-    for name, payload in ((f"model.{neval}", model_payload(model)),
-                          (f"optimMethod.{neval}", optim_payload(optim))):
-        fps[name] = fingerprint_key(host_fingerprint(payload))
-        blobs[name] = file_io.dumps(payload)
-    return blobs, fps
+    with telemetry.span("checkpoint/capture", neval=neval):
+        blobs: Dict[str, bytes] = {}
+        fps: Dict[str, str] = {}
+        for name, payload in ((f"model.{neval}", model_payload(model)),
+                              (f"optimMethod.{neval}",
+                               optim_payload(optim))):
+            fps[name] = fingerprint_key(host_fingerprint(payload))
+            blobs[name] = file_io.dumps(payload)
+        return blobs, fps
 
 
 class _AsyncWriter:
@@ -138,6 +154,13 @@ class _AsyncWriter:
         self._thread = threading.Thread(target=run, daemon=True,
                                         name="bigdl-ckpt-writer")
         self._thread.start()
+
+    def wait(self) -> None:
+        """Wait for the write in flight to end; its error stays for
+        :meth:`join`."""
+        t = self._thread
+        if t is not None:
+            t.join()
 
     def join(self, raise_errors: bool = True,
              timeout: Optional[float] = None) -> None:
@@ -221,6 +244,11 @@ class CheckpointManager:
         self.last_write_seconds: Optional[float] = None
         #: bytes of the last snapshot's two payloads
         self.last_snapshot_bytes: Optional[int] = None
+        #: guards the two below; a full disk degrades to one snapshot, the
+        #: newest, kept in memory
+        self._state_lock = threading.Lock()
+        self._storage_degraded = False
+        self._memory_snapshot: Optional[Dict[str, Any]] = None
 
     # ---- save -------------------------------------------------------------
 
@@ -247,6 +275,80 @@ class CheckpointManager:
                         topology: Optional[Dict[str, Any]],
                         fps: Dict[str, str]) -> None:
         t0 = time.perf_counter()
+        with telemetry.span("checkpoint/write", neval=neval):
+            self._write_or_degrade(blobs, neval, topology, fps)
+        self.last_write_seconds = time.perf_counter() - t0
+
+    def _write_or_degrade(self, blobs: Dict[str, bytes], neval: int,
+                          topology: Optional[Dict[str, Any]],
+                          fps: Dict[str, str]) -> None:
+        """Write the snapshot's files; on a full disk free space oldest
+        first and try once more, then degrade to the in-memory snapshot
+        (JAX :336-372)."""
+        if self._storage_degraded:
+            self._keep_memory_snapshot(blobs, neval, topology, fps)
+            return
+        try:
+            self._write_snapshot_files(blobs, neval, topology, fps)
+            return
+        except StorageExhaustedError as e:
+            err = e
+        if self._emergency_gc():
+            try:
+                self._write_snapshot_files(blobs, neval, topology, fps)
+                logger.warning(
+                    "checkpoint storage exhausted at snapshot %d: an "
+                    "emergency oldest-first GC freed space and the save "
+                    "landed", neval)
+                return
+            except StorageExhaustedError as e2:
+                err = e2
+        with self._state_lock:
+            self._storage_degraded = True
+        from bigdl_tpu_torch.resources import storage
+        storage.note_degraded("checkpoints", err)
+        self._keep_memory_snapshot(blobs, neval, topology, fps)
+
+    def _keep_memory_snapshot(self, blobs: Dict[str, bytes], neval: int,
+                              topology: Optional[Dict[str, Any]],
+                              fps: Dict[str, str]) -> None:
+        """Degraded mode: the newest snapshot as bytes in host memory (one,
+        already captured)."""
+        with self._state_lock:
+            self._memory_snapshot = {"blobs": blobs, "neval": int(neval),
+                                     "topology": topology, "fps": dict(fps)}
+        telemetry.counter(
+            "Resources/memory_snapshots",
+            help="snapshots retained in RAM only (disk full)").inc()
+
+    def _emergency_gc(self) -> bool:
+        """Remove the snapshots beyond ``keep_last`` (at least the newest
+        stays), oldest first and commit marker first, whatever the
+        retention setting: run only on a full disk.  True when anything
+        went."""
+        keep = max(1, self.keep_last)
+        removed = False
+        for n, has_manifest in reversed(self.candidates()[keep:]):
+            names = ((f"commit.{n}", f"model.{n}", f"optimMethod.{n}",
+                      f"manifest.{n}") if has_manifest else
+                     (f"model.{n}", f"optimMethod.{n}"))
+            for name in names:
+                try:
+                    file_io.remove(file_io.join(self.path, name))
+                    removed = True
+                except OSError as e:
+                    logger.warning("emergency checkpoint GC could not "
+                                   "remove %s: %r", name, e)
+        if removed:
+            telemetry.counter(
+                "Resources/emergency_gc",
+                help="emergency oldest-first checkpoint GCs on storage "
+                     "exhaustion").inc()
+        return removed
+
+    def _write_snapshot_files(self, blobs: Dict[str, bytes], neval: int,
+                              topology: Optional[Dict[str, Any]],
+                              fps: Dict[str, str]) -> None:
         file_io.makedirs(self.path)
         self._sweep_orphan_temps()
         algo = None
@@ -270,7 +372,6 @@ class CheckpointManager:
                             f"{crc32c(mbytes):08x}\n".encode("ascii"),
                             self.overwrite)
         self.gc()
-        self.last_write_seconds = time.perf_counter() - t0
 
     def _sweep_orphan_temps(self) -> None:
         now = time.time()
@@ -396,7 +497,12 @@ class CheckpointManager:
         that verifies and loads, walking to older ones past failures; None
         when there is none.  A changed topology reshards or raises
         :class:`~bigdl_tpu_torch.utils.elastic.TopologyMismatchError`;
-        that and :class:`SnapshotSchemaError` propagate."""
+        that and :class:`SnapshotSchemaError` propagate.  After the disk
+        filled, the in-memory snapshot comes first while it is newer than
+        every committed one."""
+        mem = self._restore_memory_snapshot(expected_topology)
+        if mem is not None:
+            return mem
         for n, has_manifest in self.candidates():
             try:
                 manifest = self._read_manifest(n) if has_manifest else None
@@ -417,6 +523,45 @@ class CheckpointManager:
                                "falling back to the next-older snapshot", n,
                                type(e).__name__, e)
         return None
+
+    def _restore_memory_snapshot(
+            self, expected_topology: Optional[Dict[str, Any]] = None
+            ) -> Optional[Tuple[Any, Any, int]]:
+        """The degraded mode's candidate, fingerprint-checked like a disk
+        snapshot; None when there is none, when a disk snapshot is as new,
+        or when it fails to load (the disk walk follows)."""
+        with self._state_lock:
+            mem = self._memory_snapshot
+        if mem is None:
+            return None
+        disk = self.candidates()
+        n = mem["neval"]
+        if disk and disk[0][0] >= n:
+            return None
+        try:
+            mode = "same"
+            if expected_topology is not None and mem.get("topology"):
+                mode = elastic.check_restore_topology(mem["topology"],
+                                                      expected_topology)
+            manifest = {"files": {name: {"fingerprint": fp}
+                                  for name, fp in mem["fps"].items()}}
+            payloads = []
+            for name in (f"model.{n}", f"optimMethod.{n}"):
+                payload = file_io.loads(mem["blobs"][name])
+                self._check_fingerprint(name, payload, manifest)
+                payloads.append(payload)
+        except (SnapshotSchemaError, elastic.TopologyMismatchError):
+            raise
+        except Exception as e:
+            logger.warning("in-memory snapshot %d failed to restore (%s: "
+                           "%s): falling back to the disk", n,
+                           type(e).__name__, e)
+            return None
+        self.last_loaded_manifest = None
+        self.last_restore_mode = mode
+        logger.warning("restoring snapshot %d from memory (checkpoint "
+                       "storage is degraded: disk full)", n)
+        return payloads[0], payloads[1], n
 
     # ---- retention ----------------------------------------------------------
 
@@ -492,6 +637,12 @@ class CheckpointManager:
         False."""
         if self._writer is not None:
             self._writer.join(raise_errors=raise_errors, timeout=timeout)
+
+    def wait(self) -> None:
+        """Wait for the background write in flight, leaving its error for
+        :meth:`join` (a no-op in synchronous mode)."""
+        if self._writer is not None:
+            self._writer.wait()
 
 
 def load_file(path: str) -> Any:

@@ -95,6 +95,32 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.integrity.everyN": 0,             # fingerprints (not ported: > 0 raises)
     "bigdl.chaos.extraAllGather": False,     # audit fault injection (not ported: raises)
     "bigdl.chaos.dropBucketCollective": None,  # audit fault injection (not ported: raises)
+    # runtime telemetry (bigdl_tpu_torch/telemetry): span tracer, step-time
+    # account, metrics registry
+    "bigdl.telemetry.trace": False,        # arm the span tracer
+    "bigdl.telemetry.ringSize": 65536,     # per-thread span ring capacity
+    "bigdl.telemetry.tracePath": None,     # export Chrome trace JSON here at run end
+    "bigdl.telemetry.snapshotPath": None,  # write telemetry.json registry snapshot here
+    "bigdl.telemetry.logEveryN": 1,        # throughput log line every N iterations
+    "bigdl.telemetry.percentileWindow": 512,  # rolling step-latency window
+    "bigdl.telemetry.slowStepFactor": 0,   # slow step = > k x EMA; 0 disables
+    "bigdl.telemetry.slowStepWarmup": 5,   # EMA warmup steps before detection
+    "bigdl.telemetry.slowStepCooldown": 50,  # min steps between anomaly windows
+    "bigdl.telemetry.profileOnSlowStep": None,  # dir: torch.profiler window + timeline
+    "bigdl.telemetry.mfu": False,          # count the step's FLOPs -> MFU logging
+    "bigdl.telemetry.peakTflops": None,    # card peak for MFU% (None: log TFLOP/s)
+    "bigdl.telemetry.maxTimelineDumps": 8,  # timeline dump files per run
+    # (slow-step detector), oldest-first eviction; 0 disables
+    # per-request tracing (telemetry/request_trace.py)
+    "bigdl.trace.requests": False,       # mint a trace id per serving/LM submission
+    "bigdl.trace.maxTraces": 2048,       # retained traces (oldest evicted first)
+    "bigdl.trace.maxSpansPerTrace": 512,  # per-trace span bound (then truncated flag)
+    # incident flight recorder (telemetry/incident.py)
+    "bigdl.incident.ringSize": 512,      # bounded structured-event ring capacity
+    "bigdl.incident.maxDumps": 8,        # bundle files per run, oldest-first
+    # eviction; 0 disables bundle writes entirely
+    "bigdl.incident.dir": None,          # bundle directory; None = CWD
+    "bigdl.incident.autoDump": True,     # write one bundle per terminal fault slug
     # transformer_lm's remat argument left at its default: "nothing" /
     # "dots" / "save_attn" ask for remat (not ported yet); None = no remat
     "bigdl.remat.policy": None,
@@ -140,3 +166,18 @@ def set_property(name: str, value: Any) -> None:
 
 def clear_property(name: str) -> None:
     _OVERRIDES.pop(name, None)
+
+
+def non_default_properties() -> Dict[str, Any]:
+    """Every property whose effective value differs from the table default
+    (overrides, ``BIGDL_*`` environment settings, and override keys outside
+    the table): the configuration an incident bundle embeds."""
+    out: Dict[str, Any] = {}
+    for name, default in _DEFAULTS.items():
+        value = get_property(name)
+        if value != default and not (value is None and default is None):
+            out[name] = value
+    for name, value in _OVERRIDES.items():
+        if name not in _DEFAULTS:
+            out[name] = value
+    return out

@@ -122,7 +122,9 @@ def remove(path: str) -> None:
 
 def write_bytes(path: str, data: bytes, overwrite: bool = True) -> None:
     """Write ``data`` to ``path`` atomically: a temporary file in the same
-    directory (``.tmp_bigdl_`` prefix), then a rename."""
+    directory (``.tmp_bigdl_`` prefix), then a rename.  A full disk
+    (ENOSPC/EDQUOT) raises :class:`~bigdl_tpu_torch.resources.errors.
+    StorageExhaustedError`, which the transient retry does not absorb."""
     path = _local(path)
     if os.path.exists(path) and not overwrite:
         raise FileExistsError(
@@ -135,9 +137,14 @@ def write_bytes(path: str, data: bytes, overwrite: bool = True) -> None:
         with os.fdopen(fd, "wb") as f:
             f.write(data)
         os.replace(tmp, path)
-    except BaseException:
+    except BaseException as e:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        from bigdl_tpu_torch.resources.errors import (StorageExhaustedError,
+                                                      is_storage_exhausted)
+        if is_storage_exhausted(e) and not isinstance(
+                e, StorageExhaustedError):
+            raise StorageExhaustedError(path, e) from e
         raise
 
 

@@ -189,13 +189,50 @@ Phases, each fatal on any fault:
    and the restore times, the asynchronous save's blocking time and its
    writer's time, validation images/s, the phase's wall time.  Every other
    phase runs with ``bigdl.failure.retryTimes`` 1: a failed run is fatal at
-   once.
+   once;
+13. telemetry: (a) phase 6's LM built afresh from the seed, TEL_STEPS bf16
+   steps (SGD momentum, B8/T2048, two validations, an asynchronous
+   checkpoint) run twice from the same weights and batches, disarmed, then
+   with the span tracer, the step account, a ``TrainSummary`` and a
+   ``ValidationSummary``, ``bigdl.telemetry.mfu`` at 989 TFLOP/s, the
+   Chrome trace, ``telemetry.json`` and a ``torch.profiler`` window over
+   three steps.  Before them, for the overhead, eight runs of
+   TEL_OVER_STEPS steps with no validation, checkpoint or profiler, in
+   the order disarmed, armed, armed, disarmed, twice (which cancels a
+   linear drift of the host).  Gates: the losses bit-identical; the bf16
+   flash launch counts equal; each step's unaccounted rest (the untimed
+   calls between the five parts) at most 2% of its wall; no more
+   synchronizing calls in the armed run than in the disarmed one
+   (``torch.cuda.set_sync_debug_mode("warn")``, counted from every thread;
+   torch.profiler's own ``synchronize`` at its window's close counted
+   apart); one event-file ``Loss`` per iteration equal, as float32, to the
+   loop's loss (read back with the port's reader); the Chrome trace's
+   ``driver``, ``prefetch-fetch`` and ``bigdl-ckpt-writer`` lanes; the
+   profiler trace naming the three bf16 flash kernels; ``Telemetry/mfu``
+   in (0, 1); the eight overhead runs' losses equal to the first run's.
+   Logged: the overhead runs' step medians past their first two steps,
+   each run's and pooled by arming, with the 95% interval of each pooled
+   median, each ABBA block's overhead and whether the reading resolves a
+   5% difference; each part's median, the MFU, the files' bytes.
+   (b) ``models/resnet/train.py`` with ``--log-dir`` and
+   ``--profile-dir``: its events decode, one ``Loss`` per iteration,
+   a validation ``Top1Accuracy``, a profiler trace.  (c) phase 7's
+   ``LMServingEngine`` over 48 requests at once, traced, against an
+   untraced engine over the same requests: one verdict per trace, the
+   ``LM/latency_ms`` count and ``LM/completed`` equal to the requests,
+   ``LM/tokens`` to the tokens streamed, the tokens identical; TTFT and
+   inter-token p50/p99 from the histograms beside phase 7's.  (d) phase
+   4's rows and an ill-shaped payload through a traced ``ServingEngine``
+   against an untraced one: one verdict per trace, the poison quarantined
+   with its incident record and one bundle whose trace is the poison's,
+   ``Serving/latency_ms`` counting the completed rows, every result
+   bit-identical.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
-run, and as ``drivers_launches`` in phase 12; phases 8, 9, 11 and 12 run
-none of them), then the result line ``{"ok": true, "device": {...}}``
+run, as ``drivers_launches`` in phase 12 and as ``telemetry_launches`` in
+phase 13; phases 8, 9, 11 and 12 run none of them), then the result line ``{"ok": true, "device": {...}}``
 last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
@@ -303,6 +340,20 @@ DRV_LM_ARGS = ["--d-model", str(D_MODEL), "--heads", str(N_HEAD),
                "--layers", str(N_LAYERS), "--seq-len", str(SEQ), "-b", "8",
                "--synthetic", "24", "--max-iteration", "3", "--ckpt-async"]
 DRV_LM_ITERS = 3
+#: phase 13: the telemetry.  (a) phase 6's LM, TEL_STEPS bf16 steps
+#: disarmed then armed (a validation over TEL_VAL rows twice a run, each
+#: pulling TEL_VAL x 2048 x 16384 fp32 log-probs to the host; the
+#: torch.profiler window at (start, length)), and the overhead's runs of
+#: TEL_OVER_STEPS steps; (b) the ResNet-50 driver,
+#: 2 iterations an epoch; (d) phase 4's rows with an ill-shaped payload
+#: (half a row) admitted at position TEL_POISON_AT
+TEL_STEPS, TEL_VAL, TEL_PROFILE, TEL_OVER_STEPS = 14, 2, (6, 3), 12
+TEL_DRV_ARGS = ["--dataset", "imagenet", "--depth", "50", "--synthetic",
+                "256", "-b", "128", "-i", "4"]
+TEL_POISON_AT = 5
+#: phase 7's all-at-once run: TTFT and inter-token percentiles (ms), for
+#: phase 13 to print beside its histograms'
+PHASE7_LATENCY: dict = {}
 #: phase 9: the rest of perf.py's convnet table (bigdl_tpu/models/perf.py
 #: :38-48), each trained through its training protocol
 ZOO_MODELS = ("alexnet", "vgg16", "vgg19", "inception_v1")
@@ -1286,6 +1337,9 @@ def phase_lm_serving(card: str, model) -> dict:
         if any(n != o for n, o in budgets):
             raise AssertionError(f"stream lengths against budgets "
                                  f"({label}): {budgets}")
+    full = runs[1][3]
+    PHASE7_LATENCY.update({k: round(full[k], 2) for k in (
+        "p50_ttft_ms", "p99_ttft_ms", "p50_itl_ms", "p99_itl_ms")})
     rec = runs[0][3]
     agree = sum(s is not None and s.tokens() == b
                 for (_, s), b in zip(rec["streams"], base))
@@ -3161,15 +3215,500 @@ def phase_drivers(card: str) -> dict:
     return launches
 
 
+class _SyncCount:
+    """Count the synchronizing CUDA calls made inside the block, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them, from every
+    thread; ``profiler`` counts the ones torch.profiler makes itself (the
+    ``torch.cuda.synchronize`` that closes a capture window)."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self._w = warnings.catch_warnings(record=True)
+        self._rec = self._w.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self._w.__exit__(*exc)
+        syncs = [w for w in self._rec
+                 if "synchroniz" in str(w.message).lower()]
+        self.profiler = sum("profiler" in w.filename for w in syncs)
+        self.total = len(syncs) - self.profiler
+        return False
+
+
+def tel_events(log_dir: str) -> list:
+    """Every event of the TensorBoard files under ``log_dir``, decoded by
+    the port's reader."""
+    from bigdl_tpu_torch.visualization import decode_event, read_records
+    out = []
+    for root, _, files in os.walk(log_dir):
+        for f in sorted(files):
+            if f.startswith("events.out.tfevents"):
+                out += [decode_event(r)
+                        for r in read_records(os.path.join(root, f))]
+    return out
+
+
+def tel_scalars(events: list, tag: str) -> list:
+    return [(e["step"], v["simple_value"]) for e in events
+            for v in e["values"] if v["tag"] == tag]
+
+
+def tel_train(model, init: dict, samples, armed: bool, out_dir: str,
+              full: bool = True) -> dict:
+    """A bf16 run of phase 6's LM from ``init`` (SGD momentum, seed-0
+    batch order), disarmed or with every telemetry output armed (into
+    ``out_dir``).  ``full``: TEL_STEPS steps with a validation every
+    TEL_STEPS // 2, an asynchronous checkpoint at the last step and,
+    armed, the torch.profiler window; else TEL_OVER_STEPS steps and none
+    of these.  Counts its synchronizing calls and its flash launches (a
+    difference of the counts: the phase reads them once)."""
+    import torch
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.dataset import LocalDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, max_iteration,
+                                       several_iteration)
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
+
+    steps = TEL_STEPS if full else TEL_OVER_STEPS
+    os.makedirs(out_dir, exist_ok=True)
+    model.load_state_dict(init)
+    RandomGenerator.RNG().set_seed(SEED)
+    crit = lm_criterion()
+    ds = LocalDataSet(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+    opt = (Optimizer.create(model, ds, crit, device=DEVICE)
+           .set_optim_method(SGD(0.01, momentum=0.9))
+           .set_precision("bf16")
+           .set_end_when(max_iteration(steps)))
+    label = ("armed" if armed else "disarmed") + ("" if full else
+                                                  " (overhead)")
+    if full:
+        opt.set_validation(several_iteration(TEL_STEPS // 2),
+                           samples[:TEL_VAL], [Loss(crit)],
+                           batch_size=TEL_VAL)
+        opt.set_checkpoint(os.path.join(out_dir, f"ck_{label}"),
+                           several_iteration(TEL_STEPS), async_write=True)
+    keys = {}
+    summaries = []
+    if armed:
+        logs = os.path.join(out_dir, "logs")
+        summaries = [TrainSummary(logs, "lm"), ValidationSummary(logs, "lm")]
+        opt.set_train_summary(summaries[0])
+        opt.set_validation_summary(summaries[1])
+        if full:
+            opt.set_trace_profile(os.path.join(out_dir, "profile"),
+                                  *TEL_PROFILE)
+        keys = dict(bigdl__telemetry__trace=True,
+                    bigdl__telemetry__tracePath=os.path.join(out_dir,
+                                                             "trace.json"),
+                    bigdl__telemetry__snapshotPath=out_dir,
+                    bigdl__telemetry__mfu=True,
+                    bigdl__telemetry__peakTflops=PEAK_FLOPS["bfloat16"] /
+                    1e12)
+    torch.cuda.synchronize()
+    before = dict(fa.launches)
+    t = time.perf_counter()
+    try:
+        with properties(**keys), _SyncCount() as syncs:
+            opt.optimize()
+        torch.cuda.synchronize()
+    finally:
+        telemetry.disarm()
+    wall = time.perf_counter() - t
+    for s in summaries:
+        s.flush()
+    hist = opt.history
+    out = {"losses": [h["loss"] for h in hist],
+           "step_ms": [h["seconds"] * 1e3 for h in hist],
+           "launches": {k: n - before.get(k, 0)
+                        for k, n in fa.launches.items()},
+           "syncs": syncs.total, "profiler_syncs": syncs.profiler,
+           "wall": wall, "opt": opt, "summaries": summaries,
+           "account": opt._step_account}
+    log(f"[telemetry] {label} run: {steps} steps in {wall:.2f} s, "
+        f"step ms {[round(x, 2) for x in out['step_ms']]}, "
+        f"{syncs.total} synchronizing calls ({syncs.total / steps:.2f} "
+        f"a step; torch.profiler's own {syncs.profiler}), launches "
+        f"{out['launches']}")
+    return out
+
+
+def tel_median(xs: list) -> tuple:
+    """The median of ``xs`` and its distribution-free 95% interval (the
+    order statistics n/2 -+ 0.98 sqrt(n), 1-based)."""
+    xs = sorted(xs)
+    n = len(xs)
+    lo = max(int(math.floor(n / 2 - 0.98 * math.sqrt(n))), 1)
+    hi = min(int(math.ceil(n / 2 + 1 + 0.98 * math.sqrt(n))), n)
+    return statistics.median(xs), xs[lo - 1], xs[hi - 1]
+
+
+def tel_overhead(card: str, runs: list) -> None:
+    """Log the armed overhead from the overhead runs (``(armed, result)``
+    in the order D A A D D A A D), past each run's first two steps (the
+    flop counter's and the allocator's): each run's median, the medians
+    pooled by arming with their 95% intervals, each ABBA block's
+    overhead, and whether the reading resolves a 5% difference (both
+    intervals within 2.5% of their medians and the blocks within 5
+    points of each other)."""
+    def steps(rs):
+        return [x for _, r in rs for x in r["step_ms"][2:]]
+
+    def overhead(rs):
+        return (tel_median(steps([r for r in rs if r[0]]))[0] /
+                tel_median(steps([r for r in rs if not r[0]]))[0] - 1)
+
+    pooled = {k: tel_median(steps([r for r in runs if r[0] == armed]))
+              for k, armed in (("disarmed", False), ("armed", True))}
+    half = [(v[2] - v[1]) / 2 / v[0] for v in pooled.values()]
+    blocks = [overhead(runs[i:i + 4]) for i in range(0, len(runs), 4)]
+    over = pooled["armed"][0] / pooled["disarmed"][0] - 1
+    resolved = max(half) <= 0.025 and max(blocks) - min(blocks) <= 0.05
+    log(f"[telemetry] overhead runs, step medians past step 2, ms: " +
+        ", ".join(f"{'A' if a else 'D'} "
+                  f"{statistics.median(r['step_ms'][2:]):.3f}"
+                  for a, r in runs) +
+        "; pooled disarmed {:.3f} [{:.3f}, {:.3f}], armed {:.3f} "
+        "[{:.3f}, {:.3f}]".format(*pooled["disarmed"], *pooled["armed"]) +
+        f"; armed overhead {100 * over:+.2f}% (interval half-widths "
+        f"{100 * half[0]:.2f}%/{100 * half[1]:.2f}%), by ABBA block " +
+        "/".join(f"{100 * b:+.2f}%" for b in blocks) +
+        f": a 5% difference {'resolved' if resolved else 'NOT resolved'} "
+        f"on {card}")
+
+
+def tel_training(card: str, tmp: str) -> None:
+    """Phase 13 (a): the traced LM training (see the docstring)."""
+    import torch
+    from bigdl_tpu_torch import telemetry
+
+    model = lm(flash=True)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    samples = lm_samples()
+    over = []
+    for i, armed in enumerate([False, True, True, False] * 2):
+        r = tel_train(model, init, samples, armed,
+                      os.path.join(tmp, f"over{i}"), full=False)
+        for s in r.pop("summaries"):
+            s.close()
+        r.pop("opt")
+        over.append((armed, r))
+    off = tel_train(model, init, samples, False, tmp)
+    on = tel_train(model, init, samples, True, tmp)
+    ts, vs = on["summaries"]
+    events = tel_events(ts.log_dir)
+    sizes = {}
+    for root, dirs, files in os.walk(tmp):
+        dirs[:] = [d for d in dirs if not d.startswith("over")]
+        for f in files:
+            if f.endswith((".json",)) or f.startswith("events.out"):
+                sizes[os.path.relpath(os.path.join(root, f), tmp)] = \
+                    os.path.getsize(os.path.join(root, f))
+    steady = range(2, TEL_STEPS + 1)
+    med = {}
+    for part in telemetry.PARTS + ("unaccounted", "step"):
+        vals = [v for s, v in tel_scalars(events, f"Telemetry/{part}_ms")
+                if s in steady]
+        med[part] = statistics.median(vals) if vals else float("nan")
+    mfu = [v for s, v in tel_scalars(events, "Telemetry/mfu") if s > 1]
+    tflops = [v for s, v in tel_scalars(events, "Telemetry/tflops") if s > 1]
+    val_events = tel_events(vs.log_dir)
+    acct = on["account"].summary()
+    tel_overhead(card, over)
+    log(f"[telemetry] armed run's parts, median ms of steps 2-"
+        f"{TEL_STEPS}: " +
+        ", ".join(f"{k} {v:.3f}" for k, v in med.items()) +
+        f"; run account {acct}")
+    log(f"[telemetry] Telemetry/mfu median {statistics.median(mfu):.4f} "
+        f"({statistics.median(tflops):.1f} TFLOP/s against "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f}); step FLOPs "
+        f"{on['opt']._step_flops:.4e}; files {sizes} on {card}")
+    for s in (ts, vs):
+        s.close()
+    gates = []
+    if on["losses"] != off["losses"] or len(on["losses"]) != TEL_STEPS:
+        gates.append(f"armed losses {on['losses']} differ from disarmed "
+                     f"{off['losses']}")
+    for i, (_, r) in enumerate(over):
+        if r["losses"] != over[0][1]["losses"] or \
+                r["losses"] != off["losses"][:TEL_OVER_STEPS]:
+            gates.append(f"overhead run {i}'s losses {r['losses']} differ "
+                         f"from the first's {over[0][1]['losses']}")
+    bf16 = [f"flash_attention_{k}_bf16" for k in ("fwd", "bwd_dkv",
+                                                  "bwd_dq")]
+    if [on["launches"][k] for k in bf16] != \
+            [off["launches"][k] for k in bf16] or \
+            off["launches"][bf16[1]] != N_LAYERS * TEL_STEPS:
+        gates.append(f"flash launches armed {on['launches']} disarmed "
+                     f"{off['launches']}")
+    if on["syncs"] > off["syncs"]:
+        gates.append(f"armed run made {on['syncs']} synchronizing calls, "
+                     f"the disarmed {off['syncs']}")
+    for step in range(1, TEL_STEPS + 1):
+        parts = {p: v for p in telemetry.PARTS + ("unaccounted",)
+                 for s, v in tel_scalars(events, f"Telemetry/{p}_ms")
+                 if s == step}
+        (wall,) = [v for s, v in tel_scalars(events, "Telemetry/step_ms")
+                   if s == step]
+        if len(parts) != 5 or min(parts.values()) < 0 or \
+                parts["unaccounted"] > 0.02 * wall:
+            gates.append(f"step {step}: parts {parts}, wall {wall} ms")
+    loss_ev = tel_scalars(events, "Loss")
+    want = [(i + 1, float(torch.tensor(x, dtype=torch.float32)))
+            for i, x in enumerate(on["losses"])]
+    if loss_ev != want:
+        gates.append(f"event-file Loss {loss_ev} against the loop's {want}")
+    if not tel_scalars(val_events, "Loss"):
+        gates.append("the validation summary holds no Loss")
+    with open(os.path.join(tmp, "trace.json")) as f:
+        doc = json.load(f)
+    lanes = {e["args"]["name"] for e in doc["traceEvents"]
+             if e.get("name") == "thread_name"}
+    if not {"driver", "prefetch-fetch", "bigdl-ckpt-writer"} <= lanes:
+        gates.append(f"Chrome trace lanes {sorted(lanes)}")
+    with open(os.path.join(tmp, "telemetry.json")) as f:
+        snap = json.load(f)
+    if snap["step_summary"]["steps"] != TEL_STEPS:
+        gates.append(f"telemetry.json step summary {snap['step_summary']}")
+    with open(os.path.join(tmp, "profile", "torch_profile.json")) as f:
+        prof = f.read()
+    missing = [k for k in SOURCE_KERNELS["flash_attention_fwd.cu"][1:] +
+               SOURCE_KERNELS["flash_attention_bwd.cu"][1::2]
+               if k not in prof]
+    if missing:
+        gates.append(f"the torch.profiler trace names no {missing}")
+    if not (mfu and all(0 < x < 1 for x in mfu)):
+        gates.append(f"Telemetry/mfu {mfu}")
+    if gates:
+        raise AssertionError("phase 13 (a): " + "; ".join(gates))
+    del model
+
+
+def tel_driver(card: str, tmp: str) -> None:
+    """Phase 13 (b): ``models/resnet/train.py`` with ``--log-dir`` and
+    ``--profile-dir``."""
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    logs, prof = os.path.join(tmp, "drv_logs"), os.path.join(tmp, "drv_prof")
+    opt, _, wall = run_driver(resnet_train.main, TEL_DRV_ARGS + [
+        "--log-dir", logs, "--profile-dir", prof, "--device", DEVICE])
+    opt.train_summary.flush()
+    opt.validation_summary.flush()
+    train = tel_events(os.path.join(logs, "resnet", "train"))
+    val = tel_events(os.path.join(logs, "resnet", "validation"))
+    opt.train_summary.close()
+    opt.validation_summary.close()
+    losses = [v for _, v in tel_scalars(train, "Loss")]
+    want = [float(__import__("numpy").float32(h["loss"]))
+            for h in opt.history]
+    tags = sorted({v["tag"] for e in train for v in e["values"]})
+    log(f"[telemetry] resnet driver {wall:.1f} s: {len(train)} train and "
+        f"{len(val)} validation events, tags {tags}; profile "
+        f"{os.listdir(prof)} on {card}")
+    if losses != want or not tel_scalars(val, "Top1Accuracy") or \
+            not os.path.isfile(os.path.join(prof, "torch_profile.json")):
+        raise AssertionError(f"phase 13 (b): Loss events {losses} against "
+                             f"{want}, validation {val[:2]}, profile "
+                             f"{os.listdir(prof)}")
+
+
+def tel_lm_serving(card: str, model) -> None:
+    """Phase 13 (c): phase 7's LMServingEngine with request traces, 48
+    requests at once, against an untraced run of the same requests."""
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.serving import LMServingEngine, sample_lm_workload
+    from bigdl_tpu_torch.telemetry import request_trace
+
+    reqs = sample_lm_workload(LM_FULL_REQUESTS, VOCAB, seed=8,
+                              **LM_WORKLOAD)
+
+    def run(traced: bool):
+        telemetry.REGISTRY.drop_prefix("LM/")
+        if traced:
+            request_trace.arm()
+        eng = LMServingEngine(model, max_batch=MAX_BATCH,
+                              block_size=LM_BLOCK, max_context=SEQ,
+                              deadline_ms=600_000.0, device=DEVICE)
+        try:
+            eng.warmup()
+            eng.start()
+            t = time.perf_counter()
+            streams = [eng.submit(p, max_new_tokens=o) for p, o in reqs]
+            tokens = [s.result(timeout=600) for s in streams]
+            wall = time.perf_counter() - t
+        finally:
+            eng.close()
+            request_trace.disarm()
+        reg = telemetry.REGISTRY
+        hist = {n: reg.histogram(f"LM/{n}") for n in ("ttft_ms", "itl_ms",
+                                                      "latency_ms")}
+        counters = reg.snapshot()["counters"]
+        return streams, tokens, wall, hist, counters, eng
+
+    _, plain, plain_s, _, _, _ = run(False)
+    streams, tokens, wall, hist, counters, eng = run(True)
+    chains = [request_trace.get(s.trace_id) for s in streams]
+    verdicts = [sum(sp["name"] == "request/verdict" for sp in c["spans"])
+                for c in chains]
+    n_tok = sum(map(len, tokens))
+    per = {n: (h.percentile(50), h.percentile(99)) for n, h in hist.items()}
+    log(f"[telemetry] LM serving, {len(reqs)} requests at once: untraced "
+        f"{sum(map(len, plain)) / plain_s:,.1f} tokens/s, traced "
+        f"{n_tok / wall:,.1f}; TTFT p50/p99 {per['ttft_ms'][0]:.2f}/"
+        f"{per['ttft_ms'][1]:.2f} ms, ITL p50/p99 {per['itl_ms'][0]:.2f}/"
+        f"{per['itl_ms'][1]:.2f} ms (the histograms' windows of "
+        f"{hist['itl_ms']._window.maxlen}; phase 7's all-at-once run "
+        f"{PHASE7_LATENCY}); LM counters {counters}; spans of request 0 "
+        f"{[sp['name'] for sp in chains[0]['spans']][:6]}... on {card}")
+    gates = []
+    if verdicts != [1] * len(reqs) or any(c["verdict"] != "completed"
+                                          for c in chains):
+        gates.append(f"verdicts {verdicts}")
+    if hist["latency_ms"].count != len(reqs) or \
+            counters.get("LM/completed") != len(reqs):
+        gates.append(f"LM/latency_ms count {hist['latency_ms'].count}, "
+                     f"completed {counters.get('LM/completed')}")
+    if counters.get("LM/tokens") != n_tok:
+        gates.append(f"LM/tokens {counters.get('LM/tokens')} against "
+                     f"{n_tok} streamed")
+    if tokens != plain:
+        gates.append("traced tokens differ from the untraced run's")
+    if eng.cache.used_blocks != 0:
+        gates.append(f"{eng.cache.used_blocks} blocks held after close()")
+    if gates:
+        raise AssertionError("phase 13 (c): " + "; ".join(gates))
+
+
+def tel_serving(card: str, model, tmp: str) -> None:
+    """Phase 13 (d): phase 4's requests through a traced ServingEngine,
+    a poison payload among them, against an untraced run."""
+    import numpy as np
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.telemetry import incident, request_trace
+
+    rows = np.random.default_rng(SEED).integers(
+        1, VOCAB + 1, (N_REQUESTS, SEQ)).astype(np.float32)
+    payloads = list(rows[:TEL_POISON_AT]) + [rows[0][:SEQ // 2]] + \
+        list(rows[TEL_POISON_AT:])
+
+    def run(traced: bool):
+        telemetry.REGISTRY.drop_prefix("Serving/")
+        incident.reset()
+        if traced:
+            request_trace.arm()
+        eng = ServingEngine(model, max_batch=MAX_BATCH,
+                            deadline_ms=600_000.0, start=False,
+                            device=DEVICE)
+        try:
+            eng.warmup(rows[0])
+            handles = [eng.submit(p) for p in payloads]
+            eng.start()
+            out = []
+            for h in handles:
+                try:
+                    out.append(h.result(timeout=600))
+                except Exception as e:  # noqa: BLE001 - the poison
+                    out.append(e)
+        finally:
+            eng.close()
+            request_trace.disarm()
+        return handles, out, eng.stats()
+
+    with properties(bigdl__incident__dir=tmp):
+        _, plain, _ = run(False)
+        handles, out, stats = run(True)
+    hist = telemetry.REGISTRY.histogram("Serving/latency_ms")
+    counters = telemetry.REGISTRY.snapshot()["counters"]
+    chains = [request_trace.get(h.trace_id) for h in handles]
+    verdicts = [c["verdict"] for c in chains]
+    ones = [sum(sp["name"] == "request/verdict" for sp in c["spans"])
+            for c in chains]
+    kinds = [e["kind"] for e in incident.events()]
+    bundles = incident.dumped()
+    log(f"[telemetry] ServingEngine, {len(payloads)} payloads: verdicts "
+        f"{verdicts}; latency p50/p99 {hist.percentile(50):.1f}/"
+        f"{hist.percentile(99):.1f} ms over {hist.count}; counters "
+        f"{counters}; incident events {kinds}, bundles "
+        f"{[os.path.basename(b) for b in bundles]}; stats {stats} on {card}")
+    gates = []
+    if ones != [1] * len(payloads):
+        gates.append(f"verdict spans {ones}")
+    if verdicts[TEL_POISON_AT] != "quarantined" or \
+            verdicts.count("completed") != N_REQUESTS:
+        gates.append(f"verdicts {verdicts}")
+    if hist.count != N_REQUESTS:
+        gates.append(f"Serving/latency_ms count {hist.count}")
+    if "serving/quarantine" not in kinds or len(bundles) != 1:
+        gates.append(f"incident events {kinds}, bundles {bundles}")
+    else:
+        with open(bundles[0]) as f:
+            if json.load(f)["trace"]["verdict"] != "quarantined":
+                gates.append("the bundle's trace is not the quarantined "
+                             "request's")
+    same = all(isinstance(a, Exception) and isinstance(b, Exception) or
+               (not isinstance(a, Exception) and
+                not isinstance(b, Exception) and np.array_equal(a, b))
+               for a, b in zip(out, plain))
+    if not same:
+        gates.append("traced results differ from the untraced run's")
+    if gates:
+        raise AssertionError("phase 13 (d): " + "; ".join(gates))
+
+
+def phase_telemetry(card: str) -> dict:
+    """Phase 13: the telemetry on the slices' paths (see the docstring).
+    Returns the flash launch counts of the phase."""
+    import shutil
+    import tempfile
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.telemetry import incident, request_trace
+
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    try:
+        with driver_logging(tmp):
+            tel_training(card, tmp)
+            torch.cuda.empty_cache()
+            tel_driver(card, tmp)
+            torch.cuda.empty_cache()
+        model = lm(flash=True)
+        tel_lm_serving(card, model)
+        torch.cuda.empty_cache()
+        tel_serving(card, model, tmp)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        request_trace.disarm()
+        request_trace.reset()
+        incident.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    log(f"[telemetry] phase 13 took {time.perf_counter() - t:.1f} s on "
+        f"{card}; flash launches {launches}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
-                drivers: dict) -> list:
+                drivers: dict, traced: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
     numbers from phase 3; ``distri_launches`` counts its launches in
     phase 10's DistriOptimizer run of the LM, ``drivers_launches`` in
-    phase 12 (the drivers build no flash model: 0)."""
+    phase 12 (the drivers build no flash model: 0), ``telemetry_launches``
+    in phase 13."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -3184,7 +3723,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": counts[name], **rec,
                     "distri_launches": distri[name],
-                    "drivers_launches": drivers[name]})
+                    "drivers_launches": drivers[name],
+                    "telemetry_launches": traced[name]})
     return out
 
 
@@ -3280,9 +3820,11 @@ def main(argv=None) -> int:
     phase_realdata(card)
     torch.cuda.empty_cache()
     drivers = phase_drivers(card)
+    torch.cuda.empty_cache()
+    traced = phase_telemetry(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
-                          fp32_step, distri, drivers)
+                          fp32_step, distri, drivers, traced)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -852,16 +852,14 @@ def test_zoo_driver_trains(main, argv, snapshots, printed, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("main,flag", [
-    (lenet_train.main, ["--log-dir", "/tmp/x"]),
-    (lenet_train.main, ["--profile-dir", "/tmp/x"]),
     (lm_train.main, ["--seq-parallel", "2"]),
     (lm_train.main, ["--tensor-parallel", "2"]),
     (lm_train.main, ["--moe-experts", "4"]),
     (lm_train.main, ["--expert-parallel", "2"]),
     (lm_train.main, ["--pipeline", "2"]),
     (lm_train.main, ["--remat", "full"]),
-], ids=["log-dir", "profile-dir", "seq-parallel", "tensor-parallel",
-        "moe-experts", "expert-parallel", "pipeline", "remat"])
+], ids=["seq-parallel", "tensor-parallel", "moe-experts", "expert-parallel",
+        "pipeline", "remat"])
 def test_refused_flags_raise(main, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--synthetic", "8", "--device", "cpu"] + flag)

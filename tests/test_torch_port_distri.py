@@ -38,6 +38,7 @@ Tolerances:
 
 import contextlib
 import copy
+import json
 import logging
 import math
 import os
@@ -221,7 +222,7 @@ _WORKER = textwrap.dedent(r'''
             keep(f"{leg}/{fam}", as_jax(model, ts))
 
     def run(leg, key, samples, batch, steps, method, crit=None,
-            overlap=True, compression=None, **ds_kw):
+            overlap=True, compression=None, setup=None, **ds_kw):
         RandomGenerator.RNG().set_seed(SEED)
         config.set_property("bigdl.parallel.overlap", overlap)
         model = copy.deepcopy(inp[key])
@@ -234,6 +235,8 @@ _WORKER = textwrap.dedent(r'''
             opt = DistriOptimizer(model, ds, crit, compression=compression,
                                   device="cpu")
         opt.set_optim_method(method).set_end_when(max_iteration(steps))
+        if setup is not None:
+            setup(opt)
         opt.optimize()
         record(leg, opt, model)
         return opt, model
@@ -244,6 +247,29 @@ _WORKER = textwrap.dedent(r'''
             SGD(0.2, momentum=0.9), overlap=overlap)
         run(f"bn_{name}", "bn", d["bn"], 32, 6,
             SGD(0.1, momentum=0.9), overlap=overlap)
+    # the bucketed MLP leg again with the telemetry armed: the tracer, the
+    # MFU probe (its first step runs under the flop counter with the
+    # collectives in flight), a TrainSummary and a profiler window; each
+    # rank's outputs go to its own directory, the profiles to one
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.visualization import TrainSummary
+    tel = os.path.join(outdir, f"tel{rank}")
+    os.makedirs(tel)
+    summary = TrainSummary(os.path.join(tel, "logs"), "mlp")
+    armed = {"bigdl.telemetry.trace": True,
+             "bigdl.telemetry.tracePath": os.path.join(tel, "trace.json"),
+             "bigdl.telemetry.snapshotPath": tel,
+             "bigdl.telemetry.mfu": True,
+             "bigdl.telemetry.peakTflops": 1.0}
+    for k, v in armed.items():
+        config.set_property(k, v)
+    run("mlp_armed", "mlp", d["mlp"], 64, 6, SGD(0.2, momentum=0.9),
+        setup=lambda opt: opt.set_train_summary(summary).set_trace_profile(
+            os.path.join(outdir, "tel_profile"), 3, 2))
+    for k in armed:
+        config.clear_property(k)
+    telemetry.disarm()
+    summary.close()
     # every leg runs with the prefetcher at its default depth (2); this
     # one fetches on the training thread
     config.set_property("bigdl.prefetch.depth", 0)
@@ -688,6 +714,54 @@ def test_perf_harness_trains_with_two_partitions(ranks):
         assert str(out["perf/trainer"]) == "DistriOptimizer"
         assert len(out["perf/loss"]) == 4
         assert np.isfinite(out["perf/loss"]).all()
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def test_dp2_armed_telemetry_changes_nothing_and_rank0_writes(ranks):
+    """The MLP's bucketed leg trained again with the tracer, the MFU
+    probe, a TrainSummary and a profiler window: losses, weights, slots
+    and statistics bit-identical to the disarmed leg on both ranks; rank 0
+    alone writes the summary, the Chrome trace (with the collectives'
+    ``parallel/*`` spans) and ``telemetry.json``; each rank its profile."""
+    outs, _, inputs = ranks
+    for out in outs:
+        keys = [k for k in out if k.startswith("mlp_bucketed/")]
+        assert len(keys) > 4
+        for k in keys:
+            np.testing.assert_array_equal(
+                out[k.replace("mlp_bucketed/", "mlp_armed/")], out[k],
+                err_msg=k)
+    outdir = inputs["outdir"]
+    assert _files(os.path.join(outdir, "tel1")) == []
+    tel0 = os.path.join(outdir, "tel0")
+    files = _files(tel0)
+    (events,) = [f for f in files if f.startswith("logs/mlp/train/")]
+    assert sorted(set(files) - {events}) == ["telemetry.json", "trace.json"]
+    assert _files(os.path.join(outdir, "tel_profile")) == [
+        f"process_{r}/torch_profile.json" for r in range(2)]
+    from bigdl_tpu_torch.visualization import decode_event, read_records
+    decoded = [decode_event(r)
+               for r in read_records(os.path.join(tel0, events))]
+    scalars = {}
+    for e in decoded:
+        for v in e["values"]:
+            scalars.setdefault(v["tag"], []).append(v["simple_value"])
+    np.testing.assert_array_equal(scalars["Loss"],
+                                  np.float32(outs[0]["mlp_armed/loss"]))
+    (buckets,) = set(scalars["Parallel/overlap_buckets"])
+    assert len(scalars["Parallel/overlap_buckets"]) == 6 and buckets > 1
+    assert all(x > 0 for x in scalars["Telemetry/mfu"])
+    with open(os.path.join(tel0, "trace.json")) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    assert {"parallel/reduce_scatter", "parallel/update",
+            "parallel/all_gather", "driver/device_step"} <= names
+    with open(os.path.join(tel0, "telemetry.json")) as f:
+        snap = json.load(f)
+    assert snap["step_summary"]["steps"] == 6
 
 
 def test_dp2_validation_merges_the_ranks_and_rank0_checkpoints(ranks):

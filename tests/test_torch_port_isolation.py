@@ -14,13 +14,20 @@
   predicting with ``fold_bn=True``, and training it two epochs with a
   validation and an asynchronous checkpoint each epoch (the training
   contract's modules: the evaluator, the checkpoint manager, file IO, the
-  fingerprint, CRC32C and the topology record) builds no kernel, starts
+  fingerprint, CRC32C and the topology record), and training it armed
+  (the span tracer, a ``TrainSummary`` whose writer thread its ``close``
+  joins, ``telemetry.json`` and the Chrome trace) builds no kernel, starts
   no process,
   leaves no thread running, imports neither package, and changes no state
   global to the process (torch's default dtype, thread count, RNG, TF32
   flags and ``cudnn.benchmark``, numpy's global RNG, the environment).  The tier-1 run shares worker
   processes between test files, so the port must not change what the other
   files see.
+* Importing the port arms nothing and fills nothing: the telemetry's
+  tracer and request traces are disarmed, and its registry, span rings,
+  trace store and incident ring are empty (the telemetry modules are the
+  port's own, ``bigdl_tpu_torch/telemetry``, ``visualization`` and
+  ``resources``, covered by the import walk above).
 """
 
 import ast
@@ -129,6 +136,13 @@ import chip_smoke
 from bigdl_tpu_torch.dataset import native
 assert threading.active_count() == 1, threading.enumerate()
 assert not native.loaded()
+from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch.telemetry import incident, request_trace
+assert not telemetry.tracing_enabled() and not request_trace.enabled()
+assert telemetry.REGISTRY.snapshot() == {
+    "counters": {}, "gauges": {}, "histograms": {}, "provided": {}}
+assert telemetry.events() == [] and incident.events() == []
+assert request_trace.traces() == []
 from bigdl_tpu_torch.dataset import (LocalDataSet, Sample, SampleToMiniBatch,
                                      StreamingIngest)
 from bigdl_tpu_torch.dataset.image import LabeledImageBytes
@@ -218,6 +232,25 @@ assert len(opt.validation_history) == 2
 assert CheckpointManager(ckpt).latest_valid()[2] == 4
 shutil.rmtree(ckpt)
 assert threading.active_count() == 1, threading.enumerate()
+
+from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.visualization import TrainSummary, read_records
+logs = tempfile.mkdtemp()
+telemetry.arm()
+config.set_property("bigdl.telemetry.tracePath", os.path.join(logs, "t.json"))
+config.set_property("bigdl.telemetry.snapshotPath", logs)
+summary = TrainSummary(logs, "isolation")
+opt = Optimizer.create(net, four, ClassNLLCriterion(), batch_size=2,
+                       device="cpu")
+opt.set_optim_method(SGD(0.01)).set_train_summary(summary)
+opt.set_end_when(max_iteration(2)).optimize()
+summary.close()
+telemetry.disarm()
+for key in ("bigdl.telemetry.tracePath", "bigdl.telemetry.snapshotPath"):
+    config.clear_property(key)
+assert sorted(os.listdir(logs)) == ["isolation", "t.json", "telemetry.json"]
+assert threading.active_count() == 1, threading.enumerate()
+shutil.rmtree(logs)
 
 assert global_state() == before, "process-global state changed"
 leaked = sorted(n for n in sys.modules
