@@ -1,18 +1,20 @@
 """Layers of the port (``bigdl_tpu/nn``): the module and criterion shells,
-the layers the transformer LM and the convnet zoo (ResNet, LeNet, AlexNet,
-VGG, Inception) are built from, the device-side ingest head
-(``DeviceAugment``, ``ChannelNormalize``), their initialisers, the channels-last
-layout pass, conv + BN folding and the losses."""
+the layers the transformer LM, the convnet zoo (ResNet, LeNet, AlexNet,
+VGG, Inception), the recurrent models (the RNN and LSTM language models,
+the TreeLSTM), the autoencoder and the text classifier are built from,
+the device-side ingest head (``DeviceAugment``, ``ChannelNormalize``),
+their initialisers, the channels-last layout pass, conv + BN folding and
+the losses."""
 
 from bigdl_tpu_torch.nn import init
-from bigdl_tpu_torch.nn.activation import (Dropout, LogSoftMax, ReLU, Tanh,
-                                           Threshold)
+from bigdl_tpu_torch.nn.activation import (Dropout, LogSoftMax, ReLU,
+                                           Sigmoid, Tanh, Threshold)
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
                                           paged_attention,
                                           scaled_dot_product_attention)
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
-                                          CrossEntropyCriterion,
+                                          CrossEntropyCriterion, MSECriterion,
                                           TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.fuse import fold_conv_bn
 from bigdl_tpu_torch.nn.init import (InitializationMethod, RandomNormal,
@@ -28,21 +30,30 @@ from bigdl_tpu_torch.nn.normalization import (BatchNormalization,
                                               SpatialCrossMapLRN)
 from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
                                         SpatialMaxPooling)
+from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent,
+                                          BinaryTreeLSTM, Cell,
+                                          ConvLSTMPeephole,
+                                          ConvLSTMPeephole3D, LSTMPeephole,
+                                          Recurrent, RnnCell, TimeDistributed,
+                                          TreeLSTM)
 from bigdl_tpu_torch.nn.structural import (ChannelNormalize, DeviceAugment,
                                           Identity, MulConstant, Reshape,
-                                          View)
+                                          Select, Transpose, View)
 from bigdl_tpu_torch.nn.table import CAddTable, Concat, ConcatTable
 
-__all__ = ["BatchNormalization", "CAddTable", "ChannelNormalize",
-           "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
-           "Criterion", "CrossEntropyCriterion", "DeviceAugment", "Dropout",
-           "Identity", "InitializationMethod", "Linear", "LogSoftMax",
-           "LookupTable",
-           "Module", "MulConstant", "MultiHeadAttention", "NCHWToNHWC",
-           "NHWCToNCHW", "RandomNormal", "RandomUniform", "ReLU", "Reshape",
-           "Sequential", "SpatialAveragePooling", "SpatialBatchNormalization",
+__all__ = ["BatchNormalization", "BiRecurrent", "BinaryTreeLSTM", "CAddTable",
+           "Cell", "ChannelNormalize", "ClassNLLCriterion", "Concat",
+           "ConcatTable", "Container", "ConvLSTMPeephole",
+           "ConvLSTMPeephole3D", "Criterion", "CrossEntropyCriterion",
+           "DeviceAugment", "Dropout", "GRU", "Identity",
+           "InitializationMethod", "LSTM", "LSTMPeephole", "Linear",
+           "LogSoftMax", "LookupTable", "MSECriterion", "Module",
+           "MulConstant", "MultiHeadAttention", "NCHWToNHWC", "NHWCToNCHW",
+           "RandomNormal", "RandomUniform", "ReLU", "Recurrent", "Reshape",
+           "RnnCell", "Select", "Sequential", "Sigmoid",
+           "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling",
-           "Tanh", "Threshold", "TimeDistributedCriterion", "View", "Xavier",
-           "Zeros", "apply_layout", "fold_conv_bn", "init", "is_stochastic",
-           "paged_attention", "random_stream", "scaled_dot_product_attention",
-           "to_channels_last"]
+           "Tanh", "Threshold", "TimeDistributed", "TimeDistributedCriterion",
+           "Transpose", "TreeLSTM", "View", "Xavier", "Zeros", "apply_layout",
+           "fold_conv_bn", "init", "is_stochastic", "paged_attention",
+           "random_stream", "scaled_dot_product_attention", "to_channels_last"]

@@ -1,5 +1,7 @@
 """Activation layers (``bigdl_tpu/nn/activation.py``: ``ReLU`` :30,
-``Tanh`` :70, ``LogSoftMax`` :116, ``Threshold`` :185, ``Dropout`` :298)."""
+``Tanh`` :70, ``Sigmoid`` :84, ``LogSoftMax`` :116, ``Threshold`` :185,
+``Dropout`` :298).  Each is a module and, like any module, callable on a
+tensor, so a recurrent cell takes one as its activation."""
 
 from __future__ import annotations
 
@@ -27,6 +29,15 @@ class Tanh(Module):
 
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         return torch.tanh(input)
+
+
+class Sigmoid(Module):
+    """Logistic sigmoid (reference ``nn/Sigmoid.scala``)."""
+
+    layout_role = "agnostic"
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(input)
 
 
 class LogSoftMax(Module):

@@ -1,6 +1,9 @@
 """Structural layers (``bigdl_tpu/nn/structural.py``: ``Identity`` :37,
-``Reshape`` :66, ``View`` :88, ``MulConstant`` :582, ``ChannelNormalize``
-:595, ``DeviceAugment`` :635).
+``Reshape`` :66, ``View`` :88, ``Transpose`` :167, ``Select`` :202,
+``MulConstant`` :582, ``ChannelNormalize`` :595, ``DeviceAugment`` :635).
+
+Dimension arguments are 1-based (Torch convention), as in the reference;
+:func:`_axis` maps them to 0-based axes.
 
 Shapes are logical (NCHW for image maps) whatever the memory format: a
 channels-last tensor (:mod:`bigdl_tpu_torch.nn.layout`) is not contiguous in
@@ -16,6 +19,20 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from bigdl_tpu_torch.nn.module import Module
+
+
+def _axis(dim_1based: int, ndim: int, n_input_dims: int = -1) -> int:
+    """A 1-based dim as a 0-based axis (``bigdl_tpu/nn/structural.py:26``):
+    a negative dim counts from the end; with ``n_input_dims`` (the dims
+    of one sample), an input of one dim more has a batch dim in front and
+    the axis moves right by one."""
+    d = dim_1based
+    if d < 0:
+        return ndim + d
+    ax = d - 1
+    if n_input_dims > 0 and ndim == n_input_dims + 1:
+        ax += 1
+    return ax
 
 
 class Identity(Module):
@@ -74,6 +91,42 @@ class View(Module):
                 and math.prod(input.shape[1:]) == n):
             return input.reshape((input.shape[0],) + sizes)
         return input.reshape(sizes)
+
+
+class Transpose(Module):
+    """Swap the listed 1-based dim pairs, in order (reference
+    ``nn/Transpose.scala``).  A negative dim counts from the end, as
+    :func:`_axis` reads it (the JAX package's ``Transpose`` subtracts one
+    from it instead, so there -1 is the second-to-last dim).  The result is
+    a view."""
+
+    def __init__(self, permutations: Sequence[Sequence[int]]):
+        super().__init__()
+        self.permutations = [tuple(p) for p in permutations]
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        x = input
+        for d1, d2 in self.permutations:
+            x = x.transpose(_axis(d1, x.dim()), _axis(d2, x.dim()))
+        return x
+
+
+class Select(Module):
+    """The 1-based ``index`` along the 1-based ``dimension``, which is
+    dropped (reference ``nn/Select.scala``); a negative index counts from
+    the end (``Select(2, -1)``: the last row of dim 2).  The result is a
+    view."""
+
+    def __init__(self, dimension: int, index: int):
+        super().__init__()
+        self.dimension = dimension
+        self.index = index
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = _axis(self.dimension, input.dim())
+        i = self.index - 1 if self.index > 0 else \
+            input.shape[ax] + self.index
+        return input.select(ax, i)
 
 
 class MulConstant(Module):

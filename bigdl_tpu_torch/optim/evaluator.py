@@ -34,7 +34,7 @@ from bigdl_tpu_torch.dataset.sample import Sample
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
 from bigdl_tpu_torch.engine import (DeviceLike, allgather_sum,
                                     check_on_device, default_device,
-                                    to_device)
+                                    tree_to_device)
 from bigdl_tpu_torch.optim.validation_method import (ValidationMethod,
                                                      ValidationResult)
 
@@ -109,7 +109,7 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     totals: List = [None] * len(methods)
     with eval_mode(model) as fwd:
         for batch in batches:
-            out = fwd(to_device(batch.get_input(), device)).cpu().numpy()
+            out = fwd(tree_to_device(batch.get_input(), device)).cpu().numpy()
             tgt = batch.get_target()
             for i, m in enumerate(methods):
                 r = m.apply(out, tgt)

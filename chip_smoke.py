@@ -226,14 +226,43 @@ Phases, each fatal on any fault:
    against an untraced one: one verdict per trace, the poison quarantined
    with its incident record and one bundle whose trace is the poison's,
    ``Serving/latency_ms`` counting the completed rows, every result
-   bit-identical.
+   bit-identical;
+14. the recurrent stack and the rest of the zoo (no flash model: no flash
+   kernel may launch).  (a) The LSTM language model at the PTB "medium"
+   widths of Zaremba et al. 2014 (``lstm_lm``: vocabulary 10000, hidden
+   650, unroll 35, batch 20, one layer) over one-hot rows as the rnn driver
+   builds them, built on the CPU from the seed and copied to the card: a B2
+   training-mode step, TF32 off, on the card against the port's CPU path
+   (fp32 log-probs within 1e-4, gradient norm within 1e-3 relative, both
+   logged beside a CPU float64 step), then 12 iterations in fp32 and 12 in
+   bf16 through ``Optimizer.create(...).optimize()`` with the driver's
+   ``TimeDistributedCriterion(ClassNLL)`` and ``Adagrad(0.1, decay
+   0.001)``: every loss finite; logged: step time and tokens/s (the median
+   of iterations 3-11), peak memory, and the trainer's torch.profiler
+   window (``set_trace_profile``) over iteration 12: its kernel launches
+   against the 35 timesteps, and the device's busy share, kernel and copy
+   time over the step.  (b) The binary constituency TreeLSTM at Tai et al.
+   2015's widths (``tree_lstm_sentiment``: 300-d leaves, memory 150, 5
+   classes) over trees of 32 leaves (left-leaning, balanced, and a 16-leaf
+   tree behind rows of -1), B25: the same card-against-CPU step on one tree
+   of each shape, 8 fp32 iterations with Adagrad(0.1) (finite losses;
+   samples/s, the launches and busy share of the profiled last iteration).
+   (c) The text classifier at its builder's widths (1000 x 200 inputs, 20
+   classes), B128: the same step at B2, 16 bf16 iterations with
+   Adagrad(0.01, decay 0.0002) (finite losses; samples/s, the loop's wait
+   and the producer's fetch, peak memory).  (d) The rnn (``--cell rnn`` and
+   ``--cell lstm``), autoencoder, textclassifier and treelstm drivers
+   through ``main(argv)`` with ``--synthetic``, 2 epochs each: finite
+   losses and a validation result after each epoch; each driver's wall time
+   logged.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
-run, as ``drivers_launches`` in phase 12 and as ``telemetry_launches`` in
-phase 13; phases 8, 9, 11 and 12 run none of them), then the result line ``{"ok": true, "device": {...}}``
-last.  Exits non-zero without a result
+run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
+phase 13 and as ``zoo_rnn_launches`` in phase 14; phases 8, 9, 11, 12 and
+14 run none of them), then the result line ``{"ok": true, "device":
+{...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
 
@@ -383,6 +412,31 @@ R50_DISTRI_STEPS = 5
 DP_LEGS = (("mlp", 6, 0.2), ("bn", 4, 0.1))
 DP_RTOL, DP_ATOL = 2e-4, 2e-5     # tests/test_distri_optimizer.py:111
 DP_TIMEOUT = 420.0          # seconds for all ranks, then they are killed
+#: phase 14: the recurrent stack and the rest of the zoo.  (a) the LSTM
+#: language model at the PTB "medium" widths of Zaremba et al. 2014
+#: (vocabulary 10000, hidden 650, unroll 35, batch 20; one layer, as
+#: lstm_lm builds it) over one-hot rows, 2 iterations an epoch
+ZR_VOCAB, ZR_HIDDEN, ZR_SEQ, ZR_BATCH = 10000, 650, 35, 20
+ZR_ITERS, ZR_SAMPLES = 12, 40
+ZR_CHECK_BATCH = 2      # rows of the card-against-CPU steps
+ZR_LOGP_ATOL = 1e-4     # fp32 outputs, card against CPU
+ZR_GRAD_RTOL = 1e-3     # fp32 gradient norm, card against CPU
+#: (b) the binary constituency Tree-LSTM of Tai et al. 2015 (300-d leaf
+#: vectors, memory 150, 5 classes, batch 25) over trees of 32 leaves
+TREE_DIM, TREE_MEM, TREE_CLASSES, TREE_BATCH = 300, 150, 5, 25
+TREE_LEAVES, TREE_ITERS = 32, 8
+#: (c) the text classifier at its builder's widths, 20 classes, B128; 16
+#: iterations, as the producer's stack and copy of a 102 MB batch takes
+#: longer than a step: the first few steps take batches fetched while the
+#: first ones ran, so 8 iterations' median can miss the steady wait
+TC_SEQ, TC_EMBED, TC_CLASSES, TC_BATCH, TC_ITERS = 1000, 200, 20, 128, 16
+#: (d) the four drivers, 2 epochs each of: 230 sentences at B32 (8
+#: iterations), 600 images at B150 (4), 128 sequences at B32 (4), 256
+#: trees at B32 (8)
+ZR_DRV_RNN = ["--synthetic", "256"]
+ZR_DRV_AE = ["--synthetic", "600"]
+ZR_DRV_TC = ["--synthetic", "160", "-b", "32"]
+ZR_DRV_TREE = ["--synthetic", "256"]
 TPU_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNEL_FILES = {   # kind -> (source, the TPU kernel it replaces)
     "fwd": ("bigdl_tpu_torch/csrc/flash_attention_fwd.cu", f"{TPU_FLASH}:589"),
@@ -437,11 +491,22 @@ def log(msg: str) -> None:
 
 
 def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi`` gives them.  A
+    failed query is repeated, 5 s apart, three times in all:
+    ``nvidia-smi`` can fail once (status 6) on a card that answers the
+    next query.  The last failure raises."""
+    for attempt in range(3):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+        log(f"chip_smoke: nvidia-smi exited {out.returncode}: "
+            f"{(out.stderr or out.stdout).strip()[:200]}")
+        if attempt < 2:
+            time.sleep(5)
+    raise RuntimeError("nvidia-smi gave no card name and power limit")
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 10) -> float:
@@ -3699,16 +3764,344 @@ def phase_telemetry(card: str) -> dict:
     return launches
 
 
+def zr_step(model, inputs, y, crit, device: str, dtype) -> tuple:
+    """One training-mode forward and backward of ``model`` on ``device``
+    in ``dtype`` (integer inputs keep theirs): outputs and gradients in
+    float64 on the host."""
+    import torch
+    model.train()
+    xs = [torch.from_numpy(a).to(device) for a in (
+        inputs if isinstance(inputs, list) else [inputs])]
+    xs = [a.to(dtype) if a.is_floating_point() else a for a in xs]
+    out = model(xs if isinstance(inputs, list) else xs[0])
+    loss = crit.apply(out, torch.from_numpy(y).to(device))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return out.detach().double().cpu(), [g.double().cpu() for g in grads]
+
+
+def zr_check(card: str, name: str, cpu_model, inputs, y, crit) -> None:
+    """One training-mode step (B2, or three trees), TF32 off, fp32 on the
+    card against the port's CPU path from the same weights and batch:
+    outputs within ZR_LOGP_ATOL and the gradient's norm within
+    ZR_GRAD_RTOL relative; both fp32 steps' distances from the CPU's
+    float64 step logged."""
+    import copy
+    import torch
+    runs = {}
+    with tf32_off():
+        for dev, dtype in (("cpu", torch.float32), (DEVICE, torch.float32),
+                           ("cpu", torch.float64)):
+            m = copy.deepcopy(cpu_model).to(dev, dtype)
+            runs[(dev, dtype)] = zr_step(m, inputs, y, crit, dev, dtype)
+            del m
+    card32, cpu32, cpu64 = (runs[k] for k in (
+        (DEVICE, torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64)))
+    vec = [torch.cat([g.flatten() for g in r[1]])
+           for r in (card32, cpu32, cpu64)]
+    lp = (card32[0] - cpu32[0]).abs().max().item()
+    norm = (abs(vec[0].norm() - vec[1].norm()) / vec[1].norm()).item()
+    log(f"[zoo-rnn] {name}: step B{len(y)}, TF32 off, fp32 card "
+        f"against CPU: outputs {lp:.2e} (limit {ZR_LOGP_ATOL}), gradient "
+        f"norm {norm:.2e} (limit {ZR_GRAD_RTOL}), whole gradient "
+        f"||diff||/||ref|| "
+        f"{((vec[0] - vec[1]).norm() / vec[1].norm()).item():.2e}; from "
+        f"the CPU's float64 step: card "
+        f"{((vec[0] - vec[2]).norm() / vec[2].norm()).item():.2e}, CPU "
+        f"{((vec[1] - vec[2]).norm() / vec[2].norm()).item():.2e}; on "
+        f"{card}")
+    if not (lp <= ZR_LOGP_ATOL and norm <= ZR_GRAD_RTOL):
+        raise AssertionError(f"{name} step: the card and the CPU disagree")
+
+
+def trace_device_time(path: str) -> dict:
+    """Kernels and copies (or sets) in a torch.profiler Chrome trace: their
+    counts and their device time in ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for kind, cats in (("kernels", ("kernel",)),
+                       ("copies", ("gpu_memcpy", "gpu_memset"))):
+        picked = [e for e in events if e.get("cat") in cats]
+        out[kind] = len(picked)
+        out[kind + "_ms"] = sum(e.get("dur", 0) for e in picked) / 1e3
+    return out
+
+
+def zr_train(card: str, name: str, cpu_model, samples, crit, method,
+             iters: int, batch: int, precision=None,
+             trace_dir: str = None) -> dict:
+    """``iters`` iterations of a copy of ``cpu_model`` on the card through
+    ``Optimizer.create(...).optimize()``; every loss finite.  Logs the
+    step time (the median of iterations 3 to ``iters`` - 1), records/s,
+    the loop's wait for the batch and the producer's fetch (medians) and
+    peak memory.  With ``trace_dir``, the last iteration runs inside the
+    trainer's torch.profiler window (``set_trace_profile``): its kernel
+    launches and the device's busy share, its kernel and copy time over
+    the profiled step and over the unprofiled median step.  Returns the
+    numbers."""
+    import copy
+    import torch
+    from bigdl_tpu_torch.optim import Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    model = copy.deepcopy(cpu_model).to(DEVICE)
+    RandomGenerator.RNG().set_seed(SEED)
+    opt = (Optimizer.create(model, samples, crit, batch_size=batch,
+                            device=DEVICE)
+           .set_optim_method(method).set_precision(precision)
+           .set_end_when(max_iteration(iters)))
+    if trace_dir:
+        opt.set_trace_profile(trace_dir, start_iteration=iters,
+                              n_iterations=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    losses = [h["loss"] for h in opt.history]
+    timed = opt.history[2:iters - 1]
+    step_s = statistics.median(h["seconds"] for h in timed)
+    label = f"{name} {precision or 'fp32'}"
+    out = {"step_ms": step_s * 1e3, "per_s": batch / step_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "wait_ms": statistics.median(h["wait_seconds"] for h in timed)
+           * 1e3,
+           "fetch_ms": statistics.median(h["fetch_seconds"] for h in timed)
+           * 1e3}
+    log(f"[zoo-rnn] {label}: {iters} iterations of B{batch} in {wall:.2f} "
+        f"s; losses {[round(x, 4) for x in losses]}; step "
+        f"{out['step_ms']:.2f} ms (median of iterations 3-{iters - 1}), "
+        f"{out['per_s']:,.1f} records/s, the loop's wait "
+        f"{out['wait_ms']:.2f} ms and the producer's fetch "
+        f"{out['fetch_ms']:.2f} ms a batch (medians), peak memory "
+        f"{out['peak_gib']:.2f} GiB on {card}")
+    if len(losses) != iters or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    if trace_dir:
+        dev = trace_device_time(os.path.join(trace_dir,
+                                             "torch_profile.json"))
+        profiled_ms = opt.history[-1]["seconds"] * 1e3
+        busy_ms = dev["kernels_ms"] + dev["copies_ms"]
+        out.update(launches=dev["kernels"], busy=busy_ms / out["step_ms"])
+        log(f"[zoo-rnn] {label}: the profiled step (iteration {iters}, "
+            f"{profiled_ms:.2f} ms) launched {dev['kernels']} kernels and "
+            f"{dev['copies']} copies or sets; device busy "
+            f"{dev['kernels_ms']:.2f} ms in kernels and "
+            f"{dev['copies_ms']:.2f} ms in copies: "
+            f"{100 * busy_ms / profiled_ms:.1f}% of the profiled step, "
+            f"{100 * out['busy']:.1f}% of the unprofiled median on {card}"
+            + ("" if dev["kernels"] else ": not measured"))
+    del opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def zr_lm_samples(n: int, seed: int) -> list:
+    """``n`` one-hot PTB-shaped rows as the rnn driver builds them
+    (``LabeledSentenceToSample(vocab, fixed_length, one_hot=True)``):
+    random word ids, each sequence's labels its ids shifted by one."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset.text import (LabeledSentence,
+                                              LabeledSentenceToSample)
+    rng = np.random.RandomState(seed)
+    sents = [LabeledSentence(ids[:-1], ids[1:]) for ids in
+             rng.randint(0, ZR_VOCAB, size=(n, ZR_SEQ + 1))]
+    return list(LabeledSentenceToSample(ZR_VOCAB, fixed_length=ZR_SEQ,
+                                        one_hot=True)(iter(sents)))
+
+
+def zr_lstm(card: str, tmp: str) -> dict:
+    """Phase 14 (a): the LSTM language model at PTB "medium" widths."""
+    import numpy as np
+    from bigdl_tpu_torch.models import lstm_lm
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Adagrad
+
+    cpu_model = lstm_lm(ZR_VOCAB, ZR_HIDDEN, ZR_VOCAB, device="cpu",
+                        seed=SEED)
+    samples = zr_lm_samples(ZR_SAMPLES, SEED + 20)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    check = samples[:ZR_CHECK_BATCH]
+    zr_check(card, "lstm_lm", cpu_model,
+             np.stack([s.feature for s in check]),
+             np.stack([s.label for s in check]), crit)
+    runs = {}
+    for precision in (None, "bf16"):
+        runs[precision or "fp32"] = zr_train(
+            card, "lstm_lm", cpu_model, samples, crit,
+            Adagrad(0.1, learning_rate_decay=0.001), ZR_ITERS, ZR_BATCH,
+            precision, os.path.join(tmp, f"lstm_{precision}"))
+    for name, r in runs.items():
+        r["tokens_per_s"] = ZR_BATCH * ZR_SEQ / r["step_ms"] * 1e3
+        log(f"[zoo-rnn] lstm_lm {name}: {r['tokens_per_s']:,.0f} tokens/s; "
+            f"{r['launches'] / ZR_SEQ:.1f} kernel launches per timestep "
+            f"({r['launches']} a step of {ZR_SEQ} timesteps) on {card}")
+    return runs
+
+
+def tree_rows(n_leaves: int) -> list:
+    """Three trees over ``n_leaves`` leaves (a power of two), as child
+    index rows (row j is node n_leaves + j, children first): left-leaning,
+    balanced, and a left-leaning tree over half the leaves behind rows of
+    -1 (padding; its root stays last)."""
+    def left(used, pad):
+        rows, cur = [[-1, -1]] * pad, 0
+        for leaf in range(1, used):
+            rows.append([cur, leaf])
+            cur = n_leaves + len(rows) - 1
+        return rows
+
+    level, bal = list(range(n_leaves)), []
+    while len(level) > 1:
+        up = []
+        for a, b in zip(level[0::2], level[1::2]):
+            bal.append([a, b])
+            up.append(n_leaves + len(bal) - 1)
+        level = up
+    half = n_leaves // 2
+    return [left(n_leaves, 0), bal, left(half, n_leaves - half)]
+
+
+def tree_samples(n: int, seed: int) -> list:
+    import numpy as np
+    from bigdl_tpu_torch.dataset import Sample
+    rng = np.random.RandomState(seed)
+    shapes = [np.asarray(t, np.int32) for t in tree_rows(TREE_LEAVES)]
+    return [Sample([rng.normal(0, 0.5, (TREE_LEAVES, TREE_DIM)).astype(
+        np.float32), shapes[i % 3]],
+        np.float32(rng.randint(TREE_CLASSES) + 1)) for i in range(n)]
+
+
+def zr_tree(card: str, tmp: str) -> dict:
+    """Phase 14 (b): the binary constituency TreeLSTM at Tai et al.'s
+    widths."""
+    import numpy as np
+    from bigdl_tpu_torch.models import tree_lstm_sentiment
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adagrad
+
+    cpu_model = tree_lstm_sentiment(TREE_DIM, TREE_MEM, TREE_CLASSES,
+                                    device="cpu", seed=SEED)
+    samples = tree_samples(2 * TREE_BATCH, SEED + 21)
+    check = samples[:3]       # one tree of each shape
+    zr_check(card, "tree_lstm_sentiment", cpu_model,
+             [np.stack([s.features[i] for s in check]) for i in range(2)],
+             np.stack([s.label for s in check]).reshape(-1),
+             ClassNLLCriterion())
+    return zr_train(card, "tree_lstm_sentiment", cpu_model, samples,
+                    ClassNLLCriterion(), Adagrad(0.1), TREE_ITERS,
+                    TREE_BATCH, trace_dir=os.path.join(tmp, "tree"))
+
+
+def zr_text(card: str) -> dict:
+    """Phase 14 (c): the text classifier at its builder's widths."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.models import text_classifier
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adagrad
+
+    cpu_model = text_classifier(TC_CLASSES, device="cpu", seed=SEED)
+    rng = np.random.RandomState(SEED + 22)
+    x = rng.normal(0, 0.5, (2 * TC_BATCH, TC_SEQ, TC_EMBED)).astype(
+        np.float32)
+    y = (rng.randint(0, TC_CLASSES, 2 * TC_BATCH) + 1).astype(np.float32)
+    zr_check(card, "text_classifier", cpu_model, x[:ZR_CHECK_BATCH],
+             y[:ZR_CHECK_BATCH], ClassNLLCriterion())
+    samples = [Sample(a, b) for a, b in zip(x, y)]
+    return zr_train(card, "text_classifier", cpu_model, samples,
+                    ClassNLLCriterion(),
+                    Adagrad(0.01, learning_rate_decay=0.0002), TC_ITERS,
+                    TC_BATCH, "bf16")
+
+
+def zr_drivers(card: str, tmp: str) -> dict:
+    """Phase 14 (d): the four drivers through ``main(argv)`` on the card:
+    finite losses and a validation result after each epoch."""
+    import torch
+    from bigdl_tpu_torch.models.autoencoder import train as ae_train
+    from bigdl_tpu_torch.models.rnn import train as rnn_train
+    from bigdl_tpu_torch.models.textclassifier import train as tc_train
+    from bigdl_tpu_torch.models.treelstm import train as tree_train
+
+    walls = {}
+    for name, main, argv, metric in (
+            ("rnn", rnn_train.main, ZR_DRV_RNN + ["--cell", "rnn"], "Loss"),
+            ("lstm", rnn_train.main, ZR_DRV_RNN + ["--cell", "lstm"],
+             "Loss"),
+            ("autoencoder", ae_train.main, ZR_DRV_AE, "Loss"),
+            ("textclassifier", tc_train.main, ZR_DRV_TC, "Top1Accuracy"),
+            ("treelstm", tree_train.main, ZR_DRV_TREE, "Top1Accuracy")):
+        opt, _, wall = run_driver(main, argv + ["-e", "2", "--device",
+                                                DEVICE])
+        walls[name] = wall
+        losses = [h["loss"] for h in opt.history]
+        scores = [v.get(metric) for v in opt.validation_history]
+        log(f"[zoo-rnn] driver {name}: {len(losses)} iterations in "
+            f"{wall:.1f} s, losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"{metric} after each epoch {scores} on {card}")
+        if not losses or not all(math.isfinite(v) for v in losses) or \
+                len(scores) != 2 or not all(
+                    s is not None and math.isfinite(s) for s in scores):
+            raise AssertionError(f"driver {name}: losses {losses}, "
+                                 f"validation {opt.validation_history}")
+        del opt
+        torch.cuda.empty_cache()
+    return walls
+
+
+def phase_zoo_rnn(card: str) -> dict:
+    """Phase 14: the recurrent stack and the rest of the zoo (see the
+    docstring).  Returns the flash launch counts of the phase, which must
+    all be 0."""
+    import shutil
+    import tempfile
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_rnn_")
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    try:
+        lstm = zr_lstm(card, tmp)
+        tree = zr_tree(card, tmp)
+        text = zr_text(card)
+        with driver_logging(tmp):
+            walls = zr_drivers(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    lines = [f"LSTM LM {k}: {r['tokens_per_s']:,.0f} tokens/s, "
+             f"{r['launches']} launches a step, busy "
+             f"{100 * r['busy']:.1f}%" for k, r in lstm.items()]
+    lines.append(f"TreeLSTM {tree['per_s']:,.1f} samples/s, "
+                 f"{tree['launches']} launches a step, busy "
+                 f"{100 * tree['busy']:.1f}%")
+    lines.append(f"text classifier bf16 {text['per_s']:,.1f} samples/s, "
+                 f"peak {text['peak_gib']:.2f} GiB")
+    lines.append("drivers " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in walls.items()))
+    log(f"[zoo-rnn] phase 14 took {time.perf_counter() - t:.1f} s on "
+        f"{card}: " + "; ".join(lines) + f"; flash launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched flash kernels: {launches}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
-                drivers: dict, traced: dict) -> list:
+                drivers: dict, traced: dict, zoo_rnn: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
     numbers from phase 3; ``distri_launches`` counts its launches in
     phase 10's DistriOptimizer run of the LM, ``drivers_launches`` in
     phase 12 (the drivers build no flash model: 0), ``telemetry_launches``
-    in phase 13."""
+    in phase 13, ``zoo_rnn_launches`` in phase 14 (no flash model: 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -3724,7 +4117,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "replaces": replaces, "launches": counts[name], **rec,
                     "distri_launches": distri[name],
                     "drivers_launches": drivers[name],
-                    "telemetry_launches": traced[name]})
+                    "telemetry_launches": traced[name],
+                    "zoo_rnn_launches": zoo_rnn[name]})
     return out
 
 
@@ -3822,9 +4216,11 @@ def main(argv=None) -> int:
     drivers = phase_drivers(card)
     torch.cuda.empty_cache()
     traced = phase_telemetry(card)
+    torch.cuda.empty_cache()
+    zoo_rnn = phase_zoo_rnn(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
-                          fp32_step, distri, drivers, traced)
+                          fp32_step, distri, drivers, traced, zoo_rnn)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
