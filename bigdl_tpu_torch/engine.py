@@ -12,9 +12,14 @@ The topology is PyTorch's: one process per rank (the ``torchrun`` model),
 joined into a ``torch.distributed`` process group by the one explicit call
 :meth:`Engine.init_distributed` (NCCL for a CUDA rank, gloo for a CPU one).
 Nothing joins a group at import or when a trainer is built.  A "node" of the
-reference is a rank of the group and a "core" the one device a rank drives;
-the JAX package's meshes have no counterpart (the port is data-parallel
-only).
+reference is a rank of the group and a "core" the one device a rank drives.
+The JAX package's named device mesh (``Engine.create_mesh``, :467-498) is a
+:class:`Mesh` here: the group's ranks laid out row-major over named axes,
+with one subgroup per axis line.  :func:`bind_axes` is the twin of a
+``shard_map`` binding its axes: inside it, :func:`bound_axis` gives the
+subgroup of a named axis to the modules that split work over it (the
+Megatron head split, the expert-parallel dispatch); outside it, those
+modules run whole.
 """
 
 from __future__ import annotations
@@ -138,6 +143,30 @@ class Engine:
                                 **kwargs)
 
     @staticmethod
+    def create_mesh(mesh_shape=None, axis_names=None,
+                    group: Optional[dist.ProcessGroup] = None) -> "Mesh":
+        """The ranks of ``group`` (the default group; without one, this
+        process alone) as a named mesh.  Default: every rank on a
+        ``data`` axis.  ``prod(mesh_shape)`` must be the rank count.
+        Collective: every rank of the group calls it, in the same order
+        (it makes the axis subgroups)."""
+        world = (dist.get_world_size(group)
+                 if dist.is_available() and dist.is_initialized() else 1)
+        if mesh_shape is None:
+            mesh_shape = (world,)
+            axis_names = axis_names or ("data",)
+        mesh_shape = tuple(int(s) for s in mesh_shape)
+        axis_names = tuple(axis_names or
+                           MESH_AXES[:len(mesh_shape)])
+        if len(axis_names) != len(mesh_shape):
+            raise ValueError(f"{len(axis_names)} axis names for a mesh of "
+                             f"{len(mesh_shape)} dims")
+        if int(np.prod(mesh_shape)) != world:
+            raise ValueError(f"mesh shape {mesh_shape} does not cover "
+                             f"{world} devices")
+        return Mesh(mesh_shape, axis_names, group)
+
+    @staticmethod
     def node_number() -> int:
         """The ranks of the default group (1 without a group)."""
         return dist.get_world_size() if dist.is_initialized() else 1
@@ -146,6 +175,89 @@ class Engine:
     def core_number() -> int:
         """Devices a rank drives: one, in the one-process-per-rank model."""
         return 1
+
+
+#: the JAX package's default axis names, in order (``Engine.MESH_AXES``)
+MESH_AXES = ("data", "model", "seq")
+
+
+class Mesh:
+    """The ranks of a process group laid out row-major over named axes,
+    as the JAX package lays its devices out (``np.reshape`` of the device
+    list): rank ``r`` sits at ``np.unravel_index(r, shape)``, so on a
+    ``("data", "model")`` mesh ``rank = d * n_model + m``, and a
+    ``ShardedDataSet`` partition reaches the same coordinates in both
+    packages.  ``shape`` maps each axis name to its size, as
+    ``jax.sharding.Mesh.shape`` does.  :meth:`group` is this rank's
+    subgroup along an axis: the ranks that share every other coordinate.
+    Built by :meth:`Engine.create_mesh`."""
+
+    def __init__(self, mesh_shape, axis_names, group=None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, mesh_shape))
+        self.size = int(np.prod(mesh_shape))
+        self.parent = group
+        on = dist.is_available() and dist.is_initialized()
+        self.rank = dist.get_rank(group) if on else 0
+        self.coords = dict(zip(self.axis_names, (int(c) for c in
+                               np.unravel_index(self.rank, mesh_shape))))
+        self._groups = {}
+        if not on:
+            return
+        ranks = np.arange(self.size).reshape(mesh_shape)
+        if group is not None:
+            ranks = np.vectorize(
+                lambda r: dist.get_global_rank(group, int(r)))(ranks)
+        for i, name in enumerate(self.axis_names):
+            # every line along axis i, in one order on every rank: each
+            # rank takes part in every new_group call
+            lines = np.moveaxis(ranks, i, -1).reshape(-1, mesh_shape[i])
+            for line in lines:
+                g = dist.new_group([int(r) for r in line])
+                if dist.get_rank() in line:
+                    self._groups[name] = g
+
+    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
+        """This rank's subgroup along ``axis`` (None without a process
+        group)."""
+        if axis not in self.shape:
+            raise KeyError(f"mesh has no {axis!r} axis: {self.axis_names}")
+        return self._groups.get(axis)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.coords[axis]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+
+#: the axes :func:`bind_axes` binds, process-wide: autograd runs a CUDA
+#: backward (and a rematerialised forward inside it) on a thread of its own
+_BOUND = {"axes": {}}
+
+
+@contextlib.contextmanager
+def bind_axes(mesh: Mesh, axes):
+    """For the block, the named ``axes`` of ``mesh`` are bound (the twin of
+    a ``shard_map`` over them): :func:`bound_axis` returns their
+    subgroups."""
+    prev = _BOUND["axes"]
+    _BOUND["axes"] = dict(prev, **{a: (mesh.group(a), mesh.shape[a],
+                                       mesh.coord(a)) for a in axes})
+    try:
+        yield
+    finally:
+        _BOUND["axes"] = prev
+
+
+def bound_axis(name: Optional[str]):
+    """``(subgroup, size, coordinate)`` of the axis ``name`` while
+    :func:`bind_axes` binds it, else None (the JAX package's
+    ``_axis_bound``)."""
+    if not name:
+        return None
+    return _BOUND["axes"].get(name)
 
 
 def allgather_sum(rows, group: Optional[dist.ProcessGroup] = None

@@ -3,9 +3,12 @@
 
 Causal multi-head attention blocks with pre-norm residuals, the same layer
 order and parameter tree as the JAX package, so its parameters load with
-:func:`bigdl_tpu_torch.utils.convert.params_from_jax`.  Tensor parallelism,
-MoE feed-forward blocks, rematerialisation and sequence parallelism are not
-in this slice and raise :class:`NotImplementedError`.
+:func:`bigdl_tpu_torch.utils.convert.params_from_jax`.  ``tp=True`` tags
+the MLP pair for the Megatron split, ``moe_experts`` makes every block's
+feed-forward a :class:`~bigdl_tpu_torch.nn.MixtureOfExperts`, ``remat``
+wraps every block in :class:`~bigdl_tpu_torch.nn.Remat`.  The pipeline
+builder (``transformer_lm_pipeline``) is not ported and raises
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -111,14 +114,6 @@ class _Residual(Container):
         return input + inner(norm(input))
 
 
-def _not_in_slice(tp: bool, moe_experts: int, remat=False) -> None:
-    for flag, what in ((tp, "tensor parallelism (tp=True)"),
-                       (moe_experts, "MoE feed-forward blocks (moe_experts)"),
-                       (remat, "rematerialisation (remat)")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
-
-
 def _default_remat(remat):
     """Resolve :func:`transformer_lm`'s ``remat`` argument against the
     ``bigdl.remat.policy`` config preset, as the JAX package's
@@ -143,18 +138,37 @@ def _default_remat(remat):
 
 def transformer_block(d_model: int, n_head: int, ff_mult: int = 4,
                       tp: bool = False, moe_experts: int = 0,
-                      flash: bool = False, device: DeviceLike = "cuda",
+                      moe_capacity_factor: float = 1.25,
+                      moe_top_k: int = 1, flash: bool = False,
+                      device: DeviceLike = "cuda",
                       generator: Optional[torch.Generator] = None
                       ) -> bnn.Sequential:
-    """One pre-norm decoder block: causal MHA + ReLU MLP, both residual."""
-    _not_in_slice(tp, moe_experts)
+    """One pre-norm decoder block: causal MHA + ReLU MLP, both residual.
+
+    ``tp=True`` tags the MLP pair column/row for the Megatron split (the
+    attention's head split needs no tag).  ``moe_experts=E`` makes the MLP
+    a :class:`~bigdl_tpu_torch.nn.MixtureOfExperts` of E such MLPs, with
+    ``moe_capacity_factor`` and ``moe_top_k`` (1: Switch, 2: GShard).
+    ``tp`` with ``moe_experts`` raises :class:`ValueError`, as in the JAX
+    package."""
+    from bigdl_tpu_torch.parallel.tensor_parallel import (column_parallel,
+                                                          row_parallel)
+    if moe_experts and tp:
+        raise ValueError("pick one of tp / moe_experts per block")
     dev = default_device(device)
-    ffn = (bnn.Sequential()
-           .add(bnn.Linear(d_model, ff_mult * d_model, device=dev,
-                           generator=generator))
-           .add(bnn.ReLU())
-           .add(bnn.Linear(ff_mult * d_model, d_model, device=dev,
-                           generator=generator)))
+    up = bnn.Linear(d_model, ff_mult * d_model, device=dev,
+                    generator=generator)
+    down = bnn.Linear(ff_mult * d_model, d_model, device=dev,
+                      generator=generator)
+    if tp:
+        column_parallel(up)
+        row_parallel(down)
+    ffn = bnn.Sequential().add(up).add(bnn.ReLU()).add(down)
+    if moe_experts:
+        ffn = bnn.MixtureOfExperts(d_model, ffn, moe_experts,
+                                   capacity_factor=moe_capacity_factor,
+                                   top_k=moe_top_k, device=dev,
+                                   generator=generator)
     attn = bnn.MultiHeadAttention(d_model, n_head, causal=True, flash=flash,
                                   device=dev, generator=generator)
     return (bnn.Sequential()
@@ -164,28 +178,48 @@ def transformer_block(d_model: int, n_head: int, ff_mult: int = 4,
 
 def transformer_lm(vocab_size: int, d_model: int = 128, n_head: int = 4,
                    n_layers: int = 2, max_len: int = 4096,
-                   tp: bool = False, moe_experts: int = 0, remat=False,
-                   flash: bool = False, device: DeviceLike = "cuda",
+                   tp: bool = False, moe_experts: int = 0,
+                   moe_top_k: int = 1, remat=False, flash: bool = False,
+                   device: DeviceLike = "cuda",
                    seed: int = 0) -> bnn.Sequential:
     """Token ids (B, T), 1-based floats -> log-probs (B, T, vocab).
 
-    ``flash=True`` sets every block's attention on the flash kernel (the
-    JAX package's bench sets ``m.flash = True`` on each
-    ``MultiHeadAttention`` after building).  Initial weights are drawn from
-    one CPU generator seeded with ``seed``.  A ``remat`` left at its default
-    resolves against the ``bigdl.remat.policy`` preset
-    (:func:`_default_remat`); wherever it resolves to remat this raises
-    :class:`NotImplementedError`, since ``Remat`` is not ported."""
-    _not_in_slice(tp, moe_experts, _default_remat(remat))
+    ``moe_experts=E`` gives every block an MoE feed-forward routed
+    ``moe_top_k`` ways (train on a ``("data", "expert")`` mesh for expert
+    parallelism); ``tp=True`` tags the Megatron splits (train on a
+    ``("data", "model")`` mesh).  ``remat`` wraps every block in
+    :class:`~bigdl_tpu_torch.nn.Remat`: ``True`` saves nothing,
+    ``"dots"`` the matmul outputs, ``"save_attn"`` the attention context;
+    left at its default it resolves against the ``bigdl.remat.policy``
+    preset (:func:`_default_remat`).  ``flash=True`` sets every block's
+    attention on the flash kernel (the JAX package's bench sets
+    ``m.flash = True`` on each ``MultiHeadAttention`` after building).
+    Initial weights are drawn from one CPU generator seeded with
+    ``seed``."""
+    remat = _default_remat(remat)
     dev = default_device(device)
     g = torch.Generator().manual_seed(seed)
     m = (bnn.Sequential()
          .add(bnn.LookupTable(vocab_size, d_model, device=dev, generator=g))
          .add(PositionalEncoding(d_model, max_len, device=dev)))
     for _ in range(n_layers):
-        m.add(transformer_block(d_model, n_head, flash=flash, device=dev,
-                                generator=g))
+        block = transformer_block(d_model, n_head, tp=tp,
+                                  moe_experts=moe_experts,
+                                  moe_top_k=moe_top_k, flash=flash,
+                                  device=dev, generator=g)
+        if remat:
+            block = bnn.Remat(block, policy=None if remat is True else remat)
+        m.add(block)
     m.add(LayerNorm(d_model, device=dev))
     m.add(bnn.Linear(d_model, vocab_size, device=dev, generator=g))
     m.add(bnn.LogSoftMax())
     return m
+
+
+def transformer_lm_pipeline(*args, **kwargs):
+    """The GPipe builder (``(embed, blocks, head)`` for the JAX package's
+    ``PipelineOptimizer``) is not ported: raises
+    :class:`NotImplementedError`."""
+    raise NotImplementedError(
+        "transformer_lm_pipeline: GPipe (PipelineOptimizer) is not ported "
+        "yet")

@@ -10,14 +10,24 @@ Run::
         --d-model 1024 --heads 8 --layers 8 --seq-len 2048 -b 8 -i 3 \\
         --checkpoint /tmp/ckpt
 
-Data parallel only: ``--partitions N`` trains with the ``DistriOptimizer``
-(launch with ``torchrun``).  The JAX package's other parallelism modes
-(``--seq-parallel``, ``--tensor-parallel``, ``--moe-experts``,
-``--expert-parallel``, ``--pipeline``) and ``--remat`` are not ported:
-each raises :class:`NotImplementedError`, as ``transformer_lm(tp=,
-moe_experts=)`` does.  The model is built without ``flash=True``, as the
-JAX driver builds it.  ``main`` returns the optimizer (``model``,
-``history``).
+``--partitions N`` trains with the ``DistriOptimizer`` over N data ranks
+(launch with ``torchrun``).  ``--tensor-parallel M`` Megatron-splits the
+MLPs and heads over a ``("data", "model")`` mesh of N x M ranks,
+``--moe-experts E`` gives every block an MoE feed-forward of E experts
+(``--moe-top-k``: 1 Switch, 2 GShard) and ``--expert-parallel M`` splits
+them over a ``("data", "expert")`` mesh of N x M ranks, as the JAX driver
+does; ``--remat`` wraps every block in ``Remat`` (``full``, ``dots``,
+``save_attn``).  A mesh needs exactly its rank count in the process group
+(the JAX driver's ``_partial_mesh`` takes the first devices of a larger
+machine; here the launch sets the ranks).  ``--seq-parallel`` and
+``--pipeline`` are not ported and raise :class:`NotImplementedError`.  The
+model is built without ``flash=True``, as the JAX driver builds it.
+``main`` returns the optimizer (``model``, ``history``)::
+
+    torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.transformer.train \\
+        --synthetic 256 --partitions 2 --tensor-parallel 2
+    torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.transformer.train \\
+        --synthetic 256 --moe-experts 8 --partitions 2 --expert-parallel 2
 """
 
 import numpy as np
@@ -56,6 +66,23 @@ def _load_corpus(path: str, seq_len: int):
     return out
 
 
+def _partial_mesh(shape, names, device):
+    """The ``names`` mesh of ``shape`` over the process group (joined from
+    ``torchrun``'s environment where there is none yet), which must have
+    exactly ``prod(shape)`` ranks."""
+    import os
+    from bigdl_tpu_torch.engine import Engine
+    needed = int(np.prod(shape))
+    if "WORLD_SIZE" in os.environ:
+        Engine.init_distributed(device=device)
+    if Engine.node_number() != needed:
+        raise ValueError(
+            f"a {names} mesh of {tuple(shape)} needs {needed} ranks, but "
+            f"this run has {Engine.node_number()}: launch it with torchrun "
+            f"--nproc_per_node {needed}")
+    return Engine.create_mesh(shape, names)
+
+
 def main(argv=None):
     p = driver_utils.base_parser("Train a decoder-only transformer LM")
     p.add_argument("--seq-len", type=int, default=32)
@@ -65,34 +92,43 @@ def main(argv=None):
     p.add_argument("--seq-parallel", type=int, default=0,
                    help="not ported (sequence parallelism)")
     p.add_argument("--tensor-parallel", type=int, default=0,
-                   help="not ported (tensor parallelism)")
+                   help="N>1: Megatron-split over a ('data','model') mesh")
     p.add_argument("--moe-experts", type=int, default=0,
-                   help="not ported (MoE feed-forward blocks)")
+                   help="E>0: Switch-MoE FFNs with E experts per block")
     p.add_argument("--expert-parallel", type=int, default=0,
-                   help="not ported (expert parallelism)")
+                   help="N>1: all_to_all MoE dispatch over a "
+                        "('data','expert') mesh (needs --moe-experts)")
     p.add_argument("--moe-top-k", type=int, default=1,
-                   help="experts per token (needs --moe-experts)")
+                   help="experts per token: 1 = Switch (default), "
+                        "2 = the GShard configuration (needs --moe-experts)")
     p.add_argument("--pipeline", type=int, default=0,
                    help="not ported (GPipe)")
     p.add_argument("--n-micro", type=int, default=4,
                    help="GPipe microbatches per replica (with --pipeline)")
     p.add_argument("--remat", choices=["full", "dots", "save_attn"],
-                   default=None, help="not ported (activation checkpoints)")
+                   default=None,
+                   help="activation-checkpoint every decoder block: 'full' "
+                        "saves nothing per block, 'dots' keeps matmul "
+                        "outputs, 'save_attn' keeps only the attention "
+                        "context")
     args = driver_utils.parse(p, argv)
     asked = [flag for flag, on in (
         ("--seq-parallel", args.seq_parallel > 1),
-        ("--tensor-parallel", args.tensor_parallel > 1),
-        ("--moe-experts", args.moe_experts > 0),
-        ("--expert-parallel", args.expert_parallel > 1),
-        ("--pipeline", args.pipeline > 1),
-        ("--remat", args.remat is not None)) if on]
+        ("--pipeline", args.pipeline > 1)) if on]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: the port's LM driver is data parallel "
-            "only; sequence, tensor, expert and pipeline parallelism, MoE "
-            "and remat are not ported yet")
-    if args.moe_top_k != 1:
+            f"{', '.join(asked)}: sequence and pipeline parallelism are not "
+            "ported yet")
+    modes = [m for m, on in (("--tensor-parallel", args.tensor_parallel > 1),
+                             ("--expert-parallel", args.expert_parallel > 1))
+             if on]
+    if len(modes) > 1:
+        raise SystemExit(f"pick one parallelism mode, got {modes}")
+    if args.expert_parallel > 1 and not args.moe_experts:
+        raise SystemExit("--expert-parallel needs --moe-experts")
+    if args.moe_top_k != 1 and not args.moe_experts:
         raise SystemExit("--moe-top-k needs --moe-experts")
+    remat = {"full": True, None: False}.get(args.remat, args.remat)
     driver_utils.init_logging()
     batch = args.batch_size or 32
 
@@ -108,10 +144,29 @@ def main(argv=None):
         args, lambda: transformer_lm(VOCAB, args.d_model, args.heads,
                                      args.layers,
                                      max_len=max(4096, args.seq_len),
+                                     tp=args.tensor_parallel > 1,
+                                     moe_experts=args.moe_experts,
+                                     moe_top_k=args.moe_top_k, remat=remat,
                                      device=args.device),
         lambda: optim.Adam(learning_rate=lr))
-    ds = driver_utils.make_dataset(records, args, batch)
-    opt = optim.Optimizer.create(model, ds, crit, device=args.device)
+    dp = max(1, args.partitions or 1)
+    if args.tensor_parallel > 1:
+        mesh = _partial_mesh((dp, args.tensor_parallel), ("data", "model"),
+                             args.device)
+    elif args.expert_parallel > 1:
+        mesh = _partial_mesh((dp, args.expert_parallel),
+                             ("data", "expert"), args.device)
+    else:
+        mesh = None
+    if mesh is not None:
+        from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+        from bigdl_tpu_torch.parallel import DistriOptimizer
+        ds = ShardedDataSet(records, dp).transform(
+            SampleToMiniBatch(batch, dp))
+        opt = DistriOptimizer(model, ds, crit, mesh=mesh, device=args.device)
+    else:
+        ds = driver_utils.make_dataset(records, args, batch)
+        opt = optim.Optimizer.create(model, ds, crit, device=args.device)
     opt.set_optim_method(method)
     driver_utils.configure(opt, args, default_epochs=10,
                            app_name="transformer")

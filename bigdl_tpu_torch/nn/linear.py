@@ -23,7 +23,18 @@ from bigdl_tpu_torch.nn.module import Module, make_generator
 class Linear(Module):
     """y = x W^T + b (reference ``nn/Linear.scala``), initialised
     U(-1/sqrt(in), 1/sqrt(in)) by
-    :class:`~bigdl_tpu_torch.nn.init.RandomUniform`."""
+    :class:`~bigdl_tpu_torch.nn.init.RandomUniform`.
+
+    ``_tp`` tags one half of a Megatron pair (``"column"`` or ``"row"``,
+    :func:`~bigdl_tpu_torch.parallel.tensor_parallel.column_parallel`);
+    while the mesh axis ``model_parallel`` is bound, the layer holds its
+    rank's block and runs its half
+    (:func:`~bigdl_tpu_torch.parallel.tensor_parallel.linear_forward`,
+    which adds a row half's bias after the product, split or not)."""
+
+    _tp: Optional[str] = None
+    #: the mesh axis of the Megatron split, set by the trainer
+    model_parallel: Optional[str] = None
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, w_regularizer=None,
@@ -59,6 +70,12 @@ class Linear(Module):
         return self
 
     def forward(self, input: torch.Tensor) -> torch.Tensor:
+        if self._tp is not None:
+            from bigdl_tpu_torch.engine import bound_axis
+            from bigdl_tpu_torch.parallel.tensor_parallel import \
+                linear_forward
+            return linear_forward(self, input,
+                                  bound_axis(self.model_parallel))
         return F.linear(input, self.weight, self.bias)
 
 

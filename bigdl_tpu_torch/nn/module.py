@@ -14,7 +14,7 @@ is what :func:`bigdl_tpu_torch.utils.convert.params_from_jax` walks.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -36,6 +36,28 @@ def state_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
     constant."""
     return {k: b for k, b in module.named_buffers(recurse=False)
             if k not in module._non_persistent_buffers_set}
+
+
+def semantic_state_leaves(module: nn.Module) -> List[torch.Tensor]:
+    """The state tensors of ``module`` that must thread across steps: every
+    module's :func:`state_buffers` but the per-forward diagnostics it
+    declares in ``diagnostic_state_keys`` (``bigdl_tpu/nn/module.py:58``).
+    The exclusion is the declaring module's alone: another module keeping
+    real state under the same name still counts."""
+    return [b for m in module.modules()
+            for k, b in state_buffers(m).items()
+            if k not in (getattr(m, "diagnostic_state_keys", ()) or ())]
+
+
+def collect_diagnostics(module: nn.Module, key: str) -> List[torch.Tensor]:
+    """The per-forward diagnostic ``key`` of every module of ``module``
+    that declares it (``bigdl_tpu/nn/module.py:92``), as the last forward
+    left it, still in the autograd graph: the trainers fold MoE's
+    ``aux_loss`` into the loss with it.  A module keeps its live values
+    in ``_diagnostics``."""
+    return [m._diagnostics[key] for m in module.modules()
+            if key in (getattr(m, "diagnostic_state_keys", ()) or ())
+            and key in (getattr(m, "_diagnostics", None) or {})]
 
 
 def is_stochastic(model: nn.Module) -> bool:

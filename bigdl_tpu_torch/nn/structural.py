@@ -1,6 +1,7 @@
 """Structural layers (``bigdl_tpu/nn/structural.py``: ``Identity`` :37,
 ``Reshape`` :66, ``View`` :88, ``Transpose`` :167, ``Select`` :202,
-``MulConstant`` :582, ``ChannelNormalize`` :595, ``DeviceAugment`` :635).
+``Remat`` :449, ``MulConstant`` :582, ``ChannelNormalize`` :595,
+``DeviceAugment`` :635).
 
 Dimension arguments are 1-based (Torch convention), as in the reference;
 :func:`_axis` maps them to 0-based axes.
@@ -18,7 +19,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Container, Module
 
 
 def _axis(dim_1based: int, ndim: int, n_input_dims: int = -1) -> int:
@@ -95,10 +96,9 @@ class View(Module):
 
 class Transpose(Module):
     """Swap the listed 1-based dim pairs, in order (reference
-    ``nn/Transpose.scala``).  A negative dim counts from the end, as
-    :func:`_axis` reads it (the JAX package's ``Transpose`` subtracts one
-    from it instead, so there -1 is the second-to-last dim).  The result is
-    a view."""
+    ``nn/Transpose.scala``).  Every dim is shifted down by one, as the JAX
+    package's ``jnp.swapaxes(x, d1 - 1, d2 - 1)`` shifts it: 0 is the last
+    dim and -1 the second-to-last.  The result is a view."""
 
     def __init__(self, permutations: Sequence[Sequence[int]]):
         super().__init__()
@@ -107,7 +107,7 @@ class Transpose(Module):
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         x = input
         for d1, d2 in self.permutations:
-            x = x.transpose(_axis(d1, x.dim()), _axis(d2, x.dim()))
+            x = x.transpose(d1 - 1, d2 - 1)
         return x
 
 
@@ -127,6 +127,120 @@ class Select(Module):
         i = self.index - 1 if self.index > 0 else \
             input.shape[ax] + self.index
         return input.select(ax, i)
+
+
+class Remat(Container):
+    """Activation checkpointing (rematerialisation) around one module:
+    ``torch.utils.checkpoint`` (non-reentrant) of the wrapped module's
+    forward, so that the backward recomputes its activations from its
+    input instead of keeping them (the JAX package's ``jax.checkpoint``
+    of the child's ``apply``).  The numerics are the unwrapped module's.
+
+    ``policy`` says what may be kept anyway
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts``):
+
+    - ``None`` / ``"nothing"``: nothing, the whole forward recomputes;
+    - ``"dots"``: the outputs of the matrix products without batch dims
+      (``aten.mm``, ``aten.addmm``; the JAX package's
+      ``dots_with_no_batch_dims_saveable``): the batched attention and
+      expert products, the norms and elementwise ops recompute;
+    - ``"save_attn"``: only the attention context that
+      :class:`~bigdl_tpu_torch.nn.attention.MultiHeadAttention` names
+      (:func:`~bigdl_tpu_torch.nn.attention.attn_ctx`), one (B, T, d)
+      tensor per block; the flash forward is launched again in the
+      recompute, since the backward needs its log-sum-exp;
+    - a callable: a selective-checkpoint policy function
+      ``(ctx, op, *args, **kwargs) -> CheckpointPolicy``.
+
+    An unknown policy raises :class:`ValueError` here, at construction.
+    A ``Dropout`` inside draws the same mask in the recompute as in the
+    forward: the random streams of the wrapped module's stochastic layers
+    are wound back for the recompute and put forward again after it.
+    A container of one child, so that ``params_from_jax``, ``tp_specs``
+    and the trainers see through it."""
+
+    def __init__(self, inner: torch.nn.Module, policy=None):
+        super().__init__()
+        self.add(inner)
+        self.policy = policy
+        self.checkpoint_policy()   # a typo'd policy fails here
+
+    def add(self, module: torch.nn.Module) -> "Container":
+        if len(self.layers):
+            raise ValueError("Remat wraps exactly one module; compose a "
+                             "Sequential inside it instead")
+        return super().add(module)
+
+    def checkpoint_policy(self):
+        """The selective-checkpoint policy: a list of ops to save, a
+        policy function, or None (save nothing)."""
+        if callable(self.policy):
+            return self.policy
+        if self.policy in (None, "nothing"):
+            return None
+        if self.policy == "dots":
+            return [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+        if self.policy == "save_attn":
+            from bigdl_tpu_torch.nn.attention import attn_ctx  # noqa: F401
+            return [torch.ops.bigdl_tpu_torch.attn_ctx.default]
+        raise ValueError(
+            f"unknown remat policy {self.policy!r}: expected None, "
+            "'nothing', 'dots', 'save_attn', or a selective-checkpoint "
+            "policy callable")
+
+    def forward(self, input):
+        inner = self.layers[0]
+        if not torch.is_grad_enabled():
+            return self._run(inner, input)
+        from torch.utils.checkpoint import (
+            checkpoint, create_selective_checkpoint_contexts)
+        policy = self.checkpoint_policy()
+        kwargs = {}
+        if policy is not None:
+            kwargs["context_fn"] = (
+                lambda: create_selective_checkpoint_contexts(policy))
+        # the parameters in effect now (a trainer's bf16 casts or its
+        # tensor-parallel blocks, put in by torch.func.functional_call):
+        # the recompute runs after that call has put the module's own back
+        params = dict(inner.named_parameters())
+        streams = [(m, m.generator) for m in inner.modules()
+                   if getattr(m, "stochastic", False)
+                   and getattr(m, "generator", None) is not None]
+        gens = {id(g): g for _, g in streams}
+        wound = {k: g.get_state() for k, g in gens.items()}
+        calls = {"n": 0}
+
+        def fn(x):
+            calls["n"] += 1
+            if calls["n"] == 1:
+                return self._run(inner, x, params)
+            # the recompute: replay the forward's draws from the same
+            # streams, then put the streams back where they were
+            saved = [(m, m.generator) for m, _ in streams]
+            now = {k: g.get_state() for k, g in gens.items()}
+            for m, g in streams:
+                m.generator = g
+            for k, g in gens.items():
+                g.set_state(wound[k])
+            try:
+                return self._run(inner, x, params)
+            finally:
+                for k, g in gens.items():
+                    g.set_state(now[k])
+                for m, g in saved:
+                    m.generator = g
+
+        return checkpoint(fn, input, use_reentrant=False, **kwargs)
+
+    def _run(self, inner, x, params=None):
+        from torch.func import functional_call
+        run = (lambda: inner(x)) if params is None else \
+            (lambda: functional_call(inner, params, (x,)))
+        if self.policy == "save_attn":
+            from bigdl_tpu_torch.nn.attention import naming_attn_ctx
+            with naming_attn_ctx():
+                return run()
+        return run()
 
 
 class MulConstant(Module):

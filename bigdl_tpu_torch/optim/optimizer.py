@@ -107,7 +107,8 @@ from bigdl_tpu_torch.dataset.transformer import (ChainedTransformer,
 from bigdl_tpu_torch.engine import (BatchPrefetcher, DeviceLike,
                                     allgather_sum, check_on_device,
                                     default_device)
-from bigdl_tpu_torch.nn.module import (Container, Criterion, grad_scales,
+from bigdl_tpu_torch.nn.module import (Container, Criterion,
+                                       collect_diagnostics, grad_scales,
                                        is_stochastic, random_stream,
                                        state_buffers)
 from bigdl_tpu_torch.optim import trigger as triggers
@@ -164,7 +165,8 @@ def cast_floats(tree, dtype: torch.dtype):
 
 
 def mixed_precision_forward(model: torch.nn.Module, inputs,
-                            precision: Optional[str] = "bf16"):
+                            precision: Optional[str] = "bf16",
+                            params: Optional[Dict[str, torch.Tensor]] = None):
     """Forward in the compute precision, outputs back in fp32.
 
     ``"bf16"``: the parameters and the floating inputs are cast down for
@@ -176,11 +178,14 @@ def mixed_precision_forward(model: torch.nn.Module, inputs,
     differentiable, so under autograd the gradients come back to the fp32
     master parameters.  As in the JAX package, float token ids are cast
     too, so ids above 256 round to bf16's grid.  Any other precision is a
-    plain forward."""
+    plain forward.  ``params`` (by ``named_parameters()`` name) stand in
+    for the model's own (the tensor-parallel trainer's blocks)."""
     if precision != "bf16":
-        return model(inputs)
-    params = cast_floats(dict(model.named_parameters()), torch.bfloat16)
-    out = functional_call(model, params,
+        return model(inputs) if params is None else \
+            functional_call(model, params, (inputs,))
+    if params is None:
+        params = dict(model.named_parameters())
+    out = functional_call(model, cast_floats(params, torch.bfloat16),
                           (cast_floats(inputs, torch.bfloat16),))
     return cast_floats(out, torch.float32)
 
@@ -244,6 +249,22 @@ def regularization_penalty(module: torch.nn.Module) -> Optional[torch.Tensor]:
             terms.append(breg.penalty([own["bias"]]))
     terms = [t for t in terms if t is not None]
     return sum(terms[1:], terms[0]) if terms else None
+
+
+def moe_aux_penalty(model: torch.nn.Module,
+                    weight: float) -> Optional[torch.Tensor]:
+    """MoE's load-balancing term: ``weight`` times the sum of every
+    declared ``aux_loss`` diagnostic of the last forward, in fp32 (the
+    JAX package's ``moe_aux_penalty``, ``optim/optimizer.py:132``).
+    Without it the router feels no pressure to balance.  None when the
+    model has no MoE layer or the weight is 0."""
+    aux = collect_diagnostics(model, "aux_loss")
+    if not aux or weight == 0.0:
+        return None
+    total = aux[0].float()
+    for a in aux[1:]:
+        total = total + a.float()
+    return weight * total
 
 
 def _yields_minibatches(ds: AbstractDataSet) -> bool:
@@ -415,6 +436,9 @@ class Optimizer:
         self.optim_method: OptimMethod = SGD()
         self.end_when: Trigger = triggers.max_iteration(100)
         self.precision: Optional[str] = None   # None = fp32; "bf16" = mixed
+        #: weight of MoE's balance term in the loss (the Switch paper's
+        #: alpha; :meth:`set_moe_aux_weight`)
+        self.moe_aux_weight: float = 0.01
         self.history: List[Dict[str, Any]] = []
         self.prefetcher: Optional[BatchPrefetcher] = None
         self.checkpoint: Optional[Checkpoint] = None
@@ -520,6 +544,23 @@ class Optimizer:
         self.precision = precision
         return self
 
+    def set_moe_aux_weight(self, weight: float) -> "Optimizer":
+        """The weight of the MoE load-balancing term folded into the loss
+        (:func:`moe_aux_penalty`); 0 takes the pressure off (the
+        diagnostic stays in the layer's ``aux_loss``)."""
+        self.moe_aux_weight = float(weight)
+        return self
+
+    def _loss(self, out, targets) -> torch.Tensor:
+        """The step's objective: the criterion, the layers' regularizer
+        penalties and MoE's balance term, in the JAX step's order."""
+        loss = self.criterion.apply(out, targets)
+        for term in (regularization_penalty(self.model),
+                     moe_aux_penalty(self.model, self.moe_aux_weight)):
+            if term is not None:
+                loss = loss + term
+        return loss
+
     def optimize(self) -> torch.nn.Module:
         """Train until the end trigger fires, retrying failures from the
         newest valid snapshot (reference ``DistriOptimizer.scala:750-816``);
@@ -590,6 +631,11 @@ class Optimizer:
     def _group_size(self) -> int:
         return 1
 
+    def _validation_group(self):
+        """The group whose ranks score the validation set's partitions
+        between them (the ``data`` axis of a mesh)."""
+        return self._group()
+
     def _any_rank(self, flag: bool) -> bool:
         """``flag`` on any rank of :meth:`_group`; a barrier when there
         are several."""
@@ -638,7 +684,7 @@ class Optimizer:
         t0 = time.perf_counter()
         results = evaluate_dataset(self.model, self.validation_dataset,
                                    self.validation_methods, self.device,
-                                   group=self._group())
+                                   group=self._validation_group())
         record = {"neval": state["neval"] - 1, "epoch": state["epoch"],
                   "records": results[0][1].count if results else 0,
                   "seconds": time.perf_counter() - t0}
@@ -1011,10 +1057,7 @@ class LocalOptimizer(Optimizer):
         snapshotted first, to be put back after a bad step."""
         saved = [b.clone() for b in mstate] if guard else []
         out = mixed_precision_forward(self.model, inputs, self.precision)
-        loss = self.criterion.apply(out, targets)
-        penalty = regularization_penalty(self.model)
-        if penalty is not None:
-            loss = loss + penalty
+        loss = self._loss(out, targets)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]

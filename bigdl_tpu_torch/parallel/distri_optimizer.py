@@ -65,9 +65,29 @@ this rank's step (its collectives add no FLOPs).  With NCCL a wait only
 orders the current stream, so the spans show the host's enqueue; with gloo
 it blocks.  Summaries, the trace and the snapshot are rank 0's alone.
 
+Meshes (:meth:`DistriOptimizer.set_mesh`, an
+:meth:`Engine.create_mesh <bigdl_tpu_torch.engine.Engine.create_mesh>` over
+the group; JAX :221-256).  A ``("data", "expert")`` mesh is the dp x ep step
+(JAX :258-337): every ``MixtureOfExperts`` is wired to the ``expert`` axis
+(:meth:`_wire_expert_parallel`), rank (d, e) feeds partition d and takes
+block e of its rows, the step runs with the axis bound, so each rank runs
+its expert block on the tokens every rank of its ``expert`` line routed to
+it, and the flat step above runs over all ``data x expert`` ranks (the sum
+over the ``expert`` axis and the reduce-scatter over ``data`` are one
+reduce-scatter over both; slots 1/(data x expert)).  A ``("data",
+"model")`` mesh is the dp x tp step, the counterpart of the JAX package's
+GSPMD step (:892-1050; :meth:`_optimize_tp`): each rank keeps its
+``model`` block of the split weights (``tensor_parallel.tp_shard_params``)
+and trains them under the bound axis; the gradients are averaged over the
+``data`` subgroup per parameter and the update runs ZeRO-1 over that
+subgroup along the dim ``zero1_slot_specs`` gives each slot.  Validation,
+``predict``, snapshots and the end of ``optimize()`` see the whole model
+and canonical, unsharded slots (the blocks are gathered at each publish),
+so a restore onto another mesh re-slices them.
+
 Not ported, each raising :class:`NotImplementedError` where asked for: the
-``seq``/``model``/``expert`` mesh axes (the GSPMD step, ring attention,
-expert parallelism; :meth:`DistriOptimizer.set_mesh`), integrity
+``seq`` mesh axis (ring attention), a regularizer under the dp x tp step,
+integrity
 fingerprints and desync healing (``bigdl.integrity.everyN > 0``), the audit
 fault injections (``bigdl.chaos.extraAllGather``,
 ``bigdl.chaos.dropBucketCollective``), elastic drain and resume
@@ -79,6 +99,7 @@ joins the local partitions' minibatches on its producer thread.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional
 
@@ -88,7 +109,7 @@ import torch.distributed as dist
 
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.dataset.dataset import ShardedDataSet
-from bigdl_tpu_torch.engine import DeviceLike
+from bigdl_tpu_torch.engine import DeviceLike, Mesh, bind_axes
 from bigdl_tpu_torch.nn.module import (Criterion, grad_scales, is_stochastic,
                                        random_stream)
 from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
@@ -96,7 +117,6 @@ from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
                                              mixed_precision_forward,
                                              module_state,
                                              refuse_unported,
-                                             regularization_penalty,
                                              select_tree)
 from bigdl_tpu_torch.parallel.all_reduce import (AllReduceParameter,
                                                  axis_mean, axis_min,
@@ -144,13 +164,15 @@ class DistriOptimizer(Optimizer):
     <bigdl_tpu_torch.engine.Engine.init_distributed>` must have created).
     A CUDA ``device`` trains over NCCL and the CPU over gloo; any other
     pairing raises.  ``compression="bf16"`` sends the gradients as bf16.
+    ``mesh`` (:meth:`set_mesh`) lays the group's ranks out over named
+    axes.
     """
 
     def __init__(self, model: torch.nn.Module, dataset: ShardedDataSet,
                  criterion: Criterion,
                  group: Optional[dist.ProcessGroup] = None,
                  compression: Optional[str] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh: Optional[Mesh] = None):
         super().__init__(model, dataset, criterion, device=device)
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(
@@ -170,6 +192,11 @@ class DistriOptimizer(Optimizer):
         self._arp: Optional[AllReduceParameter] = None
         self._kept_shards = None
         self._slot_shards: Dict[str, torch.Tensor] = {}
+        self._mesh: Optional[Mesh] = None
+        #: a dp x tp run's blocks on this rank (:meth:`_optimize_tp`)
+        self.tp_shards: Optional[Dict[str, dict]] = None
+        if mesh is not None:
+            self.set_mesh(mesh)
 
     def _group(self):
         return self.group
@@ -177,15 +204,75 @@ class DistriOptimizer(Optimizer):
     def _group_size(self) -> int:
         return dist.get_world_size(self.group)
 
-    def _topology_meta(self):
-        return elastic.describe_topology(dist.get_world_size(self.group),
-                                         step="distri", slot_axis="data")
+    def _validation_group(self):
+        return self.group if self._mesh is None else \
+            self._mesh.group("data")
 
-    def set_mesh(self, mesh) -> "DistriOptimizer":
-        raise NotImplementedError(
-            "the port's DistriOptimizer is data-parallel over a process "
-            "group: meshes with seq/model/expert axes (sequence, tensor and "
-            "expert parallelism) are not ported yet")
+    def _topology_meta(self):
+        mesh = self._mesh
+        return elastic.describe_topology(
+            dist.get_world_size(self.group),
+            step="tensor_parallel" if self.model_axis else "distri",
+            slot_axis="data", axes=None if mesh is None else mesh.shape)
+
+    # ---- meshes (JAX :221-256) ----------------------------------------------
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The named mesh over the group (None: every rank on ``data``)."""
+        return self._mesh
+
+    def set_mesh(self, mesh: Mesh) -> "DistriOptimizer":
+        """Train over ``mesh``: ``("data",)``, ``("data", "expert")`` (dp x
+        ep) or ``("data", "model")`` (dp x tp).  A ``seq`` axis (ring
+        attention) raises :class:`NotImplementedError`; a mesh without a
+        ``data`` axis or with an unknown one :class:`ValueError`."""
+        if "seq" in mesh.shape:
+            raise NotImplementedError(
+                "a mesh with a 'seq' axis (sequence parallelism, ring "
+                "attention) is not ported yet")
+        unknown = [a for a in mesh.axis_names
+                   if a not in ("data", "model", "expert")]
+        if unknown or "data" not in mesh.shape:
+            raise ValueError(f"mesh axes {mesh.axis_names}: expected 'data' "
+                             "with 'model' or 'expert'")
+        self._mesh = mesh
+        return self
+
+    @property
+    def seq_axis(self) -> Optional[str]:
+        """The sequence-parallel axis: never set, since :meth:`set_mesh`
+        refuses a ``seq`` axis."""
+        return None
+
+    @property
+    def expert_axis(self) -> Optional[str]:
+        """``"expert"`` when the mesh has that axis (dp x ep)."""
+        mesh = self._mesh
+        return "expert" if mesh is not None and "expert" in mesh.shape \
+            else None
+
+    @property
+    def model_axis(self) -> Optional[str]:
+        """``"model"`` when the mesh has that axis (dp x tp)."""
+        mesh = self._mesh
+        return "model" if mesh is not None and "model" in mesh.shape \
+            else None
+
+    def _wire_expert_parallel(self, module: torch.nn.Module) -> None:
+        """Point every ``MixtureOfExperts`` at the mesh's ``expert`` axis
+        (JAX :875-890).  A dp x ep mesh without one would be plain data
+        parallelism at twice the mesh: raises :class:`ValueError`."""
+        from bigdl_tpu_torch.nn.moe import MixtureOfExperts
+        n = self._mesh.shape["expert"]
+        moes = [m for m in module.modules()
+                if isinstance(m, MixtureOfExperts)]
+        if not moes:
+            raise ValueError(
+                "mesh declares an 'expert' axis but the model has no "
+                "MixtureOfExperts layer — use a ('data',) mesh")
+        for m in moes:
+            m.set_expert_parallel("expert", n)
 
     # ---- the step ----------------------------------------------------------
 
@@ -200,10 +287,7 @@ class DistriOptimizer(Optimizer):
         n = arp.n_shards
         saved = [b.clone() for b in mstate] if guard else []
         out = mixed_precision_forward(self.model, inputs, self.precision)
-        loss = self.criterion.apply(out, targets)
-        penalty = regularization_penalty(self.model)
-        if penalty is not None:
-            loss = loss + penalty
+        loss = self._loss(out, targets)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         with torch.no_grad():
             loss = loss.detach()
@@ -294,13 +378,20 @@ class DistriOptimizer(Optimizer):
         self.optim_method.set_slots({k: arp.unflatten(v)
                                      for k, v in full.items()})
 
-    def _optimize(self) -> torch.nn.Module:
-        group = self.group
+    def _check_run(self) -> List[int]:
+        """The checks every run makes before its first step; returns the
+        partitions this rank feeds."""
+        group, mesh = self.group, self._mesh
         n = dist.get_world_size(group)
-        if self.dataset.partition_num != n:
+        if mesh is not None and mesh.size != n:
+            raise ValueError(f"mesh of {mesh.size} ranks over a process "
+                             f"group of {n}")
+        n_data = n if mesh is None else mesh.shape["data"]
+        if self.dataset.partition_num != n_data:
             raise ValueError(
                 f"dataset has {self.dataset.partition_num} partitions but "
-                f"the process group has {n} ranks: they must match "
+                f"the {'process group' if mesh is None else 'data axis'} "
+                f"has {n_data} ranks: they must match "
                 "(reference DistriOptimizer.scala:492)")
         refuse_unported()
         if (config.get_bool("bigdl.chaos.extraAllGather", False) or
@@ -309,16 +400,43 @@ class DistriOptimizer(Optimizer):
             raise NotImplementedError(
                 "bigdl.chaos.extraAllGather/dropBucketCollective: the "
                 "audit's fault injection is not ported yet")
-        rank = dist.get_rank(group)
-        local = local_data_partitions(group)
+        local = (local_data_partitions(group) if mesh is None
+                 else [mesh.coord("data")])
         missing = [p for p in local
                    if p not in self.dataset.local_partitions]
         if missing:
             raise ValueError(
-                f"rank {rank} feeds partitions {missing}, which the "
-                f"dataset does not hold: build ShardedDataSet(..., "
-                f"local_partitions={local}) on this rank")
+                f"rank {dist.get_rank(group)} feeds partitions {missing}, "
+                f"which the dataset does not hold: build "
+                f"ShardedDataSet(..., local_partitions={local}) on this "
+                "rank")
+        return local
+
+    def _optimize(self) -> torch.nn.Module:
+        if self.model_axis:
+            # the JAX package's refusals (distri_optimizer.py:626-645)
+            if self.expert_axis:
+                raise ValueError(
+                    "the tensor-parallel step composes with 'data' only — "
+                    "a mesh mixing 'model' with 'expert' is not supported")
+            if self.compression:
+                raise ValueError(
+                    "compression='bf16' is the wire of the data-parallel "
+                    "step's reduce-scatter; the tensor-parallel ('model') "
+                    "step has no such wire — drop compression for this "
+                    "mesh (set_precision('bf16') already keeps the "
+                    "activations and backward matmuls in bf16)")
+            return self._optimize_tp()
+        group, mesh = self.group, self._mesh
+        n = dist.get_world_size(group)
+        local = self._check_run()
+        rank = dist.get_rank(group)
         model = self.model
+        if self.expert_axis:
+            self._wire_expert_parallel(model)
+        axes = ["expert"] if self.expert_axis else []
+        n_e = mesh.shape["expert"] if axes else 1
+        e = mesh.coord("expert") if axes else 0
         model.train()
         params = list(model.parameters())
         self._arp = arp = AllReduceParameter(params, n, self.compression,
@@ -348,16 +466,24 @@ class DistriOptimizer(Optimizer):
                             for p in local}
 
         def fetch_batch():
-            return _global_batch(it["shards"], self.dataset.partition_num)
+            inputs, targets, count = _global_batch(
+                it["shards"], self.dataset.partition_num)
+            if n_e > 1:
+                # tokens co-shard over the expert axis: block e of the rows
+                inputs, targets = (_block(x, e, n_e)
+                                   for x in (inputs, targets))
+            return inputs, targets, count
 
         def run_step(inputs, targets, hyper, seed):
             args = (params, flat, row, slots, mstate, edges, guard, inputs,
                     targets, hyper, scales)
-            if stream is None:
-                return self._step(*args)
-            stream.manual_seed(_rank_seed(seed, rank))
-            with random_stream(model, stream):
-                return self._step(*args)
+            with bind_axes(mesh, axes) if axes else \
+                    contextlib.nullcontext():
+                if stream is None:
+                    return self._step(*args)
+                stream.manual_seed(_rank_seed(seed, rank))
+                with random_stream(model, stream):
+                    return self._step(*args)
 
         self._sync_dataset_epoch()
         reset_epoch()
@@ -376,6 +502,246 @@ class DistriOptimizer(Optimizer):
             close_iterators(self.prefetcher, it["shards"].values())
         self._publish_slots()
         return model
+
+    # ---- dp x tp: the Megatron step (JAX _optimize_gspmd :892-1050) ---------
+
+    def _optimize_tp(self) -> torch.nn.Module:
+        """Train over a ``("data", "model")`` mesh.  Each rank holds its
+        ``model`` block of every split weight (``tp_specs``; fresh tensors
+        the step trains, the model's own replicated parameters beside
+        them) and the ``data`` block of each of their slots along the dim
+        ``zero1_slot_specs`` gives it (none: the slot is whole on every
+        ``data`` rank).  A step: the forward and backward with the
+        ``model`` axis bound (the Megatron pairs' all-reduces), then per
+        parameter the gradient's mean over the ``data`` subgroup (a
+        reduce-scatter along the slot dim, else an all-reduce), the
+        update of this rank's block, the global divergence verdict, and
+        the all-gather of the updated blocks.  :meth:`_publish_tp` gathers
+        the model and canonical slots for validation, snapshots and the
+        end of the run."""
+        from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+        from bigdl_tpu_torch.nn.linear import Linear
+        from bigdl_tpu_torch.parallel.tensor_parallel import (
+            named_specs, split_dim, tp_shard_params, zero1_slot_specs)
+        mesh, group, model = self._mesh, self.group, self.model
+        local = self._check_run()
+        specs = named_specs(model, "model", mesh)
+        if any(getattr(m, "w_regularizer", None) is not None or
+               getattr(m, "b_regularizer", None) is not None
+               for m in model.modules()):
+            raise NotImplementedError(
+                "regularizers under the tensor-parallel step are not "
+                "ported yet")
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.set_model_parallel("model")
+            elif isinstance(m, Linear) and m._tp:
+                m.model_parallel = "model"
+        n_d, c_d, g_d = (mesh.shape["data"], mesh.coord("data"),
+                         mesh.group("data"))
+        model.train()
+        names = [k for k, _ in model.named_parameters()]
+        full = [p for _, p in model.named_parameters()]
+        split = [split_dim(specs[k], "model") for k in names]
+        slot_specs = zero1_slot_specs(
+            {k: tuple(p.shape) for k, p in zip(names, full)}, specs, n_d)
+        sdims = [split_dim(slot_specs[k], "data") for k in names]
+        om = self.optim_method
+        kept, self._kept_shards = self._kept_shards, None
+        if kept is not None and kept[0] is om and kept[1] is om._slots:
+            live, slots = kept[2], kept[3]
+        else:
+            blocks = tp_shard_params(model, mesh, specs)
+            live = [blocks[k].requires_grad_() if k in blocks else p
+                    for k, p in zip(names, full)]
+            slots = self._tp_slots(names, full, specs, live, sdims)
+
+        #: this rank's blocks, the split parameters' and every slot's
+        self.tp_shards = {
+            "params": {k: t for k, t, d in zip(names, live, split)
+                       if d is not None},
+            "slots": {fam: dict(zip(names, per))
+                      for fam, per in slots.items()}}
+
+        def piece(t, k):
+            return t if k is None else _block_dim(t, k, c_d, n_d)
+
+        def publish():
+            self._publish_tp(full, live, split, slots, sdims)
+
+        mstate = module_state(model)
+        scales = grad_scales(model, full)
+        om.state.setdefault("epoch", 1)
+        guard = config.get_bool("bigdl.divergence.guard", True)
+        stream = (torch.Generator(device=self.device)
+                  if is_stochastic(model) else None)
+        it = {"shards": None}
+
+        def reset_epoch():
+            self.dataset.shuffle()
+            it["shards"] = {p: self.dataset.shard_data(p, train=True)
+                            for p in local}
+
+        def fetch_batch():
+            return _global_batch(it["shards"], self.dataset.partition_num)
+
+        def step(inputs, targets, hyper):
+            saved = [b.clone() for b in mstate] if guard else []
+            with bind_axes(mesh, ["model"]):
+                out = mixed_precision_forward(model, inputs, self.precision,
+                                              params=dict(zip(names, live)))
+                loss = self._loss(out, targets)
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+            with torch.no_grad():
+                loss = loss.detach()
+                grads = [torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, live)]
+                if scales is not None:
+                    grads = [g if sc == 1.0 else g * sc
+                             for g, sc in zip(grads, scales)]
+                with telemetry.span("parallel/reduce_scatter"):
+                    g_b = [_mean_block(g, k, g_d, n_d)
+                           for g, k in zip(grads, sdims)]
+                p_b = [piece(p.detach(), k) for p, k in zip(live, sdims)]
+                with telemetry.span("parallel/update"):
+                    new_p, new_s = om.pure_update(g_b, p_b, slots, hyper)
+                ok = True
+                if guard:
+                    ok = axis_min(all_finite(loss, g_b).to(torch.int32),
+                                  group).bool()
+                select_tree(ok, new_p, p_b)
+                select_tree(ok, new_s, slots)
+                with telemetry.span("parallel/all_gather"):
+                    for p, b, k in zip(live, p_b, sdims):
+                        if k is not None and n_d > 1:
+                            p.detach().copy_(_gather_dim(b, k, g_d, n_d))
+                if guard:
+                    for live_b, kept_b in zip(mstate, saved):
+                        torch.where(ok, live_b, kept_b, out=live_b)
+                    loss = torch.where(ok, loss,
+                                       torch.full_like(loss, math.nan))
+                loss = axis_mean(loss, group)
+                pmean_floats(mstate, group)
+            return loss
+
+        def run_step(inputs, targets, hyper, seed):
+            if stream is None:
+                return step(inputs, targets, hyper)
+            # the model ranks of a data row share their masks
+            stream.manual_seed(_rank_seed(seed, c_d))
+            with random_stream(model, stream):
+                return step(inputs, targets, hyper)
+
+        self._sync_dataset_epoch()
+        reset_epoch()
+        try:
+            self._drive(fetch_batch, run_step, reset_epoch,
+                        epoch_size=self.dataset.size(), publish=publish)
+        except BaseException:
+            self._kept_shards = (om, om._slots, live, slots)
+            raise
+        finally:
+            close_iterators(self.prefetcher, it["shards"].values())
+        publish()
+        return model
+
+    def _tp_slots(self, names, full, specs, live, sdims
+                  ) -> Dict[str, List[torch.Tensor]]:
+        """This rank's slot blocks: the method's canonical per-parameter
+        slots (a restore, an earlier run) cut to this rank's ``model``
+        and ``data`` blocks (``sdims``: each slot's ``data`` dim), else
+        fresh ones."""
+        from bigdl_tpu_torch.parallel.tensor_parallel import local_slice
+        mesh, om = self._mesh, self.optim_method
+        n_d, c_d = mesh.shape["data"], mesh.coord("data")
+        n_m, c_m = mesh.shape["model"], mesh.coord("model")
+        if om._slots is None:
+            return om.init_slots([t.detach() if k is None else
+                                  _block_dim(t.detach(), k, c_d, n_d)
+                                  for t, k in zip(live, sdims)])
+        canon = map_over_slots(om, _same_shape, om._slots, full)
+        out = {}
+        for fam, per in canon.items():
+            blocks = []
+            for name, s_full, k in zip(names, per, sdims):
+                b = local_slice(s_full.to(self.device), specs[name],
+                                "model", n_m, c_m)
+                if k is not None:
+                    b = _block_dim(b, k, c_d, n_d)
+                blocks.append(b.clone())
+            out[fam] = blocks
+        return out
+
+    def _publish_tp(self, full, live, split, slots, sdims) -> None:
+        """Gather the whole model into its own parameters and the
+        canonical slots into the method (the twin of ``publish``):
+        ``split`` and ``sdims`` are each parameter's ``model`` dim and
+        its slots' ``data`` dim."""
+        mesh = self._mesh
+        n_d, g_d = mesh.shape["data"], mesh.group("data")
+        n_m, g_m = mesh.shape["model"], mesh.group("model")
+        with torch.no_grad():
+            for p, t, d in zip(full, live, split):
+                if d is not None:
+                    p.copy_(_gather_dim(t.detach(), d, g_m, n_m))
+            canon = {}
+            for fam, per in slots.items():
+                out = []
+                for s_b, k, d in zip(per, sdims, split):
+                    if k is not None:
+                        s_b = _gather_dim(s_b, k, g_d, n_d)
+                    if d is not None:
+                        s_b = _gather_dim(s_b, d, g_m, n_m)
+                    out.append(s_b.clone())
+                canon[fam] = out
+        self.optim_method.set_slots(canon)
+
+
+def _block_dim(t: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
+    """Block ``i`` of ``n`` of ``t`` along ``dim`` (a view)."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def _mean_block(g: torch.Tensor, dim: Optional[int], group, n: int
+                ) -> torch.Tensor:
+    """The mean of ``g`` over ``group``'s ``n`` ranks: this rank's block
+    along ``dim`` (a reduce-scatter), or all of it (an all-reduce) where
+    ``dim`` is None."""
+    if n == 1:
+        return g.clone()
+    if dim is None:
+        t = g.contiguous().clone()
+        dist.all_reduce(t, group=group)
+        return t / n
+    moved = g.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return (out / n).movedim(0, dim)
+
+
+def _gather_dim(block: torch.Tensor, dim: int, group, n: int
+                ) -> torch.Tensor:
+    """Every rank's ``block`` of ``group``, joined along ``dim``."""
+    if n == 1:
+        return block
+    moved = block.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] * n,) + tuple(moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def _block(x, i: int, n: int):
+    """Block ``i`` of ``n`` along the batch rows of a host batch (nested
+    lists of arrays)."""
+    if isinstance(x, (list, tuple)):
+        return [_block(t, i, n) for t in x]
+    x = np.asarray(x)
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                         f"over an axis of {n} ranks")
+    rows = x.shape[0] // n
+    return x[i * rows:(i + 1) * rows]
 
 
 def _global_batch(shard_iters, partition_num: int):

@@ -17,7 +17,12 @@ layouts differ: ``Linear`` weights are (in, out) in the JAX package and
 out) there and (out, in/groups, kh, kw) here.  A JAX model built with
 ``layout="NCHW"`` has no channels-last boundary modules; its trees are also
 accepted by a port model built with ``layout="NHWC"``, whose boundary
-modules hold nothing (:mod:`bigdl_tpu_torch.nn.layout`).
+modules hold nothing (:mod:`bigdl_tpu_torch.nn.layout`).  A
+``MixtureOfExperts`` entry is ``{"gate": ..., "experts": tree}``, the
+expert template's tree with a leading expert dim on every leaf (the
+layouts above apply behind it), and its state ``{"expert": tree,
+"aux_loss": scalar}``.  ``Remat`` is a container of one child in both
+packages.
 """
 
 from __future__ import annotations
@@ -73,8 +78,67 @@ def _copy(dst: torch.Tensor, value, what: str) -> None:
         dst.copy_(torch.from_numpy(np.array(value)))
 
 
+def _moe_entries(module, own):
+    """A ``MixtureOfExperts``' entries, keyed as the JAX package keys
+    them: (own entries, expert template, the stacked tensors by the
+    template's names)."""
+    if own is _params:
+        return ({"gate": module.gate}, module.expert,
+                module.stacked_parameters())
+    return ({"aux_loss": module.aux_loss}, module.expert, {})
+
+
+def _load_stacked(jax_tree, template, stacked, what, lead=1):
+    """Fill the stacked expert tensors (by template name) from a JAX tree
+    whose leaves carry ``lead`` leading dims."""
+    def walk(tree, mod, prefix):
+        if isinstance(mod, Container):
+            for i, (sub, child) in enumerate(zip(
+                    tree, _children(mod, tree, what))):
+                walk(sub, child, f"{prefix}layers.{i}.")
+            return
+        for key, value in tree.items():
+            axes = _axes(_FROM_JAX, mod, key)
+            value = np.asarray(value)
+            if axes is not None:
+                value = np.transpose(value, tuple(range(lead)) +
+                                     tuple(a + lead for a in axes))
+            _copy(stacked[prefix + key], value, f"experts.{prefix}{key}")
+    walk(jax_tree, template, "")
+
+
+def _dump_stacked(template, stacked, lead=1):
+    def walk(mod, prefix):
+        if isinstance(mod, Container):
+            return [walk(c, f"{prefix}layers.{i}.")
+                    for i, c in enumerate(mod.layers)]
+        out = {}
+        for key, _ in mod.named_parameters(recurse=False):
+            value = stacked[prefix + key].detach().cpu().numpy()
+            axes = _axes(_TO_JAX, mod, key)
+            if axes is not None:
+                value = np.transpose(value, tuple(range(lead)) +
+                                     tuple(a + lead for a in axes))
+            out[key] = np.array(value)
+        return out
+    return walk(template, "")
+
+
 def _load(jax_tree: Any, module: nn.Module, what: str,
           own: Callable[[nn.Module], Dict[str, torch.Tensor]]) -> nn.Module:
+    from bigdl_tpu_torch.nn.moe import MixtureOfExperts
+    if isinstance(module, MixtureOfExperts):
+        mine, template, stacked = _moe_entries(module, own)
+        sub = "experts" if own is _params else "expert"
+        if set(jax_tree) != set(mine) | {sub}:
+            raise ValueError(f"MixtureOfExperts: JAX {what} entries "
+                             f"{sorted(jax_tree)} do not match "
+                             f"{sorted(set(mine) | {sub})}")
+        for key, t in mine.items():
+            _copy(t, jax_tree[key], f"MixtureOfExperts.{key}")
+        if own is _params:
+            _load_stacked(jax_tree[sub], template, stacked, what)
+        return module
     if isinstance(module, Container):
         for sub, child in zip(jax_tree, _children(module, jax_tree, what)):
             _load(sub, child, what, own)
@@ -97,6 +161,15 @@ def _load(jax_tree: Any, module: nn.Module, what: str,
 
 def _dump(module: nn.Module,
           own: Callable[[nn.Module], Dict[str, torch.Tensor]]) -> Any:
+    from bigdl_tpu_torch.nn.moe import MixtureOfExperts
+    if isinstance(module, MixtureOfExperts):
+        mine, template, stacked = _moe_entries(module, own)
+        out = {k: np.array(t.detach().cpu().numpy()) for k, t in mine.items()}
+        if own is _params:
+            out["experts"] = _dump_stacked(template, stacked)
+        else:
+            out["expert"] = _dump(template, own)
+        return out
     if isinstance(module, Container):
         return [_dump(child, own) for child in module.layers]
     out = {}

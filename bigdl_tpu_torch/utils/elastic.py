@@ -46,15 +46,19 @@ class TopologyMismatchError(RuntimeError):
 
 
 def describe_topology(world_size: int = 1, step: str = "local",
-                      slot_axis: Optional[str] = None) -> Dict[str, Any]:
+                      slot_axis: Optional[str] = None,
+                      axes: Optional[Dict[str, int]] = None
+                      ) -> Dict[str, Any]:
     """The JSON-serializable topology of a trainer: ``world_size`` ranks
-    on a ``data`` axis (none for one local process), the step (``local``
-    or ``distri``) and the slots' shard axis (None: unsharded)."""
+    on a ``data`` axis, or on the named ``axes`` of a mesh (none for one
+    local process), the step (``local``, ``distri`` or
+    ``tensor_parallel``) and the slots' shard axis (None: unsharded)."""
     if step == "local":
         return {"device_count": 1, "axes": {}, "step": step,
                 "slot_axis": slot_axis}
-    return {"device_count": int(world_size),
-            "axes": {"data": int(world_size)}, "step": step,
+    axes = {"data": int(world_size)} if axes is None else \
+        {str(a): int(n) for a, n in axes.items()}
+    return {"device_count": int(world_size), "axes": axes, "step": step,
             "slot_axis": slot_axis}
 
 

@@ -4,6 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --dp 4 nccl     # phase 10's data-parallel legs
                                           # and the LM on 4 cards
+    python3 chip_smoke.py --tp 4 nccl     # phase 15: the LM Megatron-split
+                                          # over 4 cards
+    python3 chip_smoke.py --ep 4 nccl     # phase 15: the 604M MoE LM's
+                                          # experts split over 4 cards
 
 Phases, each fatal on any fault:
 
@@ -254,14 +258,56 @@ Phases, each fatal on any fault:
    ``--cell lstm``), autoencoder, textclassifier and treelstm drivers
    through ``main(argv)`` with ``--synthetic``, 2 epochs each: finite
    losses and a validation result after each epoch; each driver's wall time
-   logged.
+   logged;
+15. the sharded transformer.  (a) The JAX package's 604M MoE LM
+   (``MOE_r05.json``: phase 4's LM with every feed-forward a
+   ``MixtureOfExperts`` of 8 experts 4096 wide, flash, random weights from
+   the seed) trained in bf16 with Adam(1e-4) at B8/T2048 through
+   ``Optimizer.create(...).optimize()``, top-1 (Switch) then top-2
+   (GShard), 2 warm-up and 10 timed steps each, beside the dense LM of the
+   same width (30 timed steps) in the same call.  Gates: finite losses;
+   each bf16 flash kernel launched 8 times a step and nothing else; every
+   layer's ``aux_loss`` finite and within [1, 8]; at top-1 one bf16
+   forward under ``bigdl.moe.impl`` ``einsum`` (the (16384, 8, 2560)
+   dispatch and combine tensors a layer) and ``grouped`` from the same
+   weights: the same next token everywhere, log-probs within 1e-2; at
+   top-2 the blocks wrapped in ``Remat("save_attn")`` in place: one bf16
+   forward and backward with the same gradients (within 1e-5 of each
+   parameter's norm) as unwrapped, the flash forward launched twice a
+   layer.  Logged: step ms with its median's 95% interval and whether it
+   resolves a 5% change, tokens/s, peak memory, each against the dense
+   step; a profile of one more step by category (the dispatch and
+   combine einsums are GEMMs; the routing's softmax, sort, one-hot,
+   cumsum and indexing apart) with the card's busy share; both impls'
+   forward time and peak; both remat peaks.  (b) A small MoE LM (E4,
+   top-2) with chunked attention (chunk 32) and ``Remat("save_attn")``,
+   fp32, TF32 off, B2/T128: card against the port's CPU path (log-probs
+   1e-4; each parameter's gradient difference within 1e-3 of the whole
+   gradient's norm) and against the same model without ``Remat`` on the
+   card (1e-6); both peaks logged.  (c) dp2 x tp2 and dp2 x ep2
+   (drop-free, aux weight 0) of a tiny LM on CPU tensors in four gloo
+   children of this script (``--mp-rank``; MP_TIMEOUT for all, every one
+   killed when one fails): weights, momentum and losses within rtol 2e-4
+   / atol 2e-5 of ``LocalOptimizer`` over the same rows; then one NCCL
+   rank, meshes (1, 1) ``("data", "model")`` over the tp-tagged LM and
+   ``("data", "expert")`` over the MoE LM (d_model 256, fp32): bit-identical
+   to ``LocalOptimizer``.  (d) ``models/transformer/train.py``'s
+   ``main(argv)`` with ``--moe-experts 8 --moe-top-k 2 --remat save_attn``
+   (the driver builds no flash model, as the JAX driver): finite losses,
+   every ``aux_loss`` within [1, 8].  By hand on four cards (not in the
+   default run): ``--tp 4 nccl`` trains phase 4's LM, tp-tagged and
+   without flash (the head split refuses it), and ``--ep 4 nccl`` the
+   top-2 MoE LM with flash, each over a (1, 4) mesh, 6 bf16 Adam steps at
+   B8/T2048: finite losses, every rank's weights the same; rank 0 logs
+   the step, tokens/s and peak memory a card.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
 run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
-phase 13 and as ``zoo_rnn_launches`` in phase 14; phases 8, 9, 11, 12 and
-14 run none of them), then the result line ``{"ok": true, "device":
+phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
+in phase 15 (a); phases 8, 9, 11, 12 and 14 run none of them), then the
+result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
 """
@@ -4092,16 +4138,710 @@ def phase_zoo_rnn(card: str) -> dict:
     return launches
 
 
+# ---- phase 15: the sharded transformer ---------------------------------------
+
+MOE_EXPERTS = 8             # the JAX package's 604M MoE LM (MOE_r05.json)
+MOE_WARMUP, MOE_TIMED = 2, 10
+MOE_DENSE_TIMED = 30        # the dense step, a third of top-1's, varies more
+MOE_LR = 1e-4
+MOE_SPREAD = 0.05           # the timed steps resolve a 5% change when their
+                            # median's 95% interval is narrower
+MOE_GROUPED_ATOL = 1e-2     # bf16 log-probs, grouped against einsum
+MOE_REMAT_RTOL = 1e-5       # bf16 gradients, Remat("save_attn") against none
+SMALL_MOE = dict(vocab_size=64, d_model=64, n_head=4, n_layers=2,
+                 max_len=128, moe_experts=4, moe_top_k=2)
+SMALL_CHUNK, SMALL_BATCH = 32, 2
+SMALL_LOGP_ATOL = 1e-4      # fp32 log-probs, card against CPU
+SMALL_GRAD_RTOL = 1e-3      # fp32, card against CPU: each parameter's
+                            # gradient difference over the whole gradient's
+                            # norm (the key biases' exact gradient is 0)
+SMALL_REMAT_RTOL = 1e-6     # fp32 gradients on the card, Remat against none
+MP_WORLD = 4                # phase 15 (c): dp2 x tp2 and dp2 x ep2 over gloo
+MP_LM = dict(vocab_size=64, d_model=32, n_head=4, n_layers=2, max_len=16)
+MP_SAMPLES, MP_BATCH, MP_STEPS = 8, 8, 3   # one batch an epoch: the same
+                                           # rows every step, whatever the
+                                           # two datasets' shuffles
+MP_RTOL, MP_ATOL = 2e-4, 2e-5   # against LocalOptimizer over the full batch
+MP_TIMEOUT = 300.0
+NCCL_MP_LM = dict(vocab_size=64, d_model=256, n_head=2, n_layers=2,
+                  max_len=128)
+NCCL_MP_STEPS = 4
+DRV_MOE_ARGS = ["--synthetic", "16", "--d-model", "256", "--heads", "2",
+                "--layers", "2", "--seq-len", "256", "-b", "8", "-i", "3",
+                "--moe-experts", "8", "--moe-top-k", "2", "--remat",
+                "save_attn"]
+#: kernel-name fragments -> the share of an MoE training step; the
+#: dispatch and combine einsums are GEMMs, the routing's bookkeeping is not
+MOE_CATEGORIES = (
+    ("flash forward", ("flash_fwd",)),
+    ("flash dK/dV", ("flash_bwd_dkv",)),
+    ("flash dQ", ("flash_bwd_dq",)),
+    ("GEMMs (experts, dispatch and combine einsums, dense)",
+     ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("routing (softmax, sort, one-hot, cumsum, index)",
+     ("softmax", "sort", "one_hot", "scan", "cumsum", "index", "scatter",
+      "gather")),
+    ("optimizer update", ("multi_tensor_apply", "foreach")),
+    ("casts and copies", ("copy", "convert")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
+)
+
+
+def moe_lm(top_k: int, flash: bool = True, experts: int = MOE_EXPERTS):
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    return transformer_lm(VOCAB, d_model=D_MODEL, n_head=N_HEAD,
+                          n_layers=N_LAYERS, max_len=SEQ, moe_experts=experts,
+                          moe_top_k=top_k, flash=flash, device=DEVICE,
+                          seed=SEED)
+
+
+def moes(model) -> list:
+    from bigdl_tpu_torch.nn import MixtureOfExperts
+    return [m for m in model.modules() if isinstance(m, MixtureOfExperts)]
+
+
+def median_interval(xs: list) -> tuple:
+    """The median of ``xs`` and its 95% interval by order statistics (the
+    binomial rank bounds, normal approximation)."""
+    s = sorted(xs)
+    n = len(s)
+    half = 1.96 * math.sqrt(n) / 2
+    lo, hi = max(0, int(n / 2 - half)), min(n - 1, int(n / 2 + half))
+    return statistics.median(s), s[lo], s[hi]
+
+
+def moe_train(card: str, label: str, model, samples,
+              timed_steps: int = MOE_TIMED) -> dict:
+    """``MOE_WARMUP + timed_steps`` bf16 Adam steps of ``model`` at
+    B{TRAIN_BATCH}/T{SEQ} through Optimizer.create(...).optimize(), then a
+    profile of one more step.  Returns the run's numbers and launches."""
+    import torch
+    from bigdl_tpu_torch.dataset import LocalDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.optim import Adam, Optimizer, max_iteration
+
+    steps = MOE_WARMUP + timed_steps
+    ds = LocalDataSet(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+    opt = (Optimizer.create(model, ds, lm_criterion(), device=DEVICE)
+           .set_optim_method(Adam(MOE_LR)).set_precision("bf16")
+           .set_end_when(max_iteration(steps)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    opt.optimize()
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in opt.history]
+    timed = [h["seconds"] for h in opt.history][MOE_WARMUP:]
+    med, lo, hi = median_interval(timed)
+    tokens = TRAIN_BATCH * SEQ
+    resolves = (hi - lo) / med < MOE_SPREAD
+    log(f"[moe] {label}: {steps} steps, losses "
+        f"{[round(x, 4) for x in losses]}; step {med * 1e3:.2f} ms (median "
+        f"of steps {MOE_WARMUP + 1}-{steps}, 95% interval {lo * 1e3:.2f}-"
+        f"{hi * 1e3:.2f} ms: {'resolves' if resolves else 'does NOT resolve'}"
+        f" a 5% change), {tokens / med:,.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} on {card}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label} losses {losses}")
+    expect = {f"flash_attention_{k}_bf16": N_LAYERS * steps
+              for k in ("fwd", "bwd_dkv", "bwd_dq")}
+    if {k: launches[k] for k in expect} != expect or any(
+            launches[k] for k in launches if k not in expect):
+        raise AssertionError(f"{label} launches {launches}, expected "
+                             f"{expect} and no others")
+    opt.set_end_when(max_iteration(steps + 1))
+    profile(f"{label} bf16 step B{TRAIN_BATCH}/T{SEQ}", opt.optimize, card,
+            MOE_CATEGORIES)
+    return {"step_s": med, "tokens_s": tokens / med, "peak": peak,
+            "launches": launches, "losses": losses}
+
+
+def moe_aux_check(label: str, model) -> list:
+    """Every MoE layer's ``aux_loss`` after the training forwards: finite
+    and within [1, E]."""
+    aux = [float(m.aux_loss) for m in moes(model)]
+    log(f"[moe] {label}: aux_loss per layer {[round(a, 4) for a in aux]}")
+    if len(aux) != N_LAYERS or not all(
+            math.isfinite(a) and 1.0 <= a <= MOE_EXPERTS for a in aux):
+        raise AssertionError(f"{label} aux_loss {aux} outside [1, "
+                             f"{MOE_EXPERTS}]")
+    return aux
+
+
+def moe_impls(card: str, model, ids) -> None:
+    """One bf16 forward of the top-1 model under ``bigdl.moe.impl``
+    ``einsum`` and ``grouped``, from the same weights: the same next token
+    everywhere, the log-probs within MOE_GROUPED_ATOL; each forward's time
+    and peak memory (the einsum path builds the (16384, 8, 2560) dispatch
+    and combine tensors per layer)."""
+    import torch
+    from bigdl_tpu_torch.optim.optimizer import mixed_precision_forward
+    outs, times, peaks = {}, {}, {}
+    model.eval()
+    try:
+        for impl in ("einsum", "grouped"):
+            with properties(bigdl__moe__impl=impl), torch.no_grad():
+                def fwd():
+                    return mixed_precision_forward(model, ids, "bf16")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                outs[impl] = fwd()
+                torch.cuda.synchronize()
+                peaks[impl] = torch.cuda.max_memory_allocated()
+                times[impl] = time_ms(fwd, warmup=1, reps=3)
+    finally:
+        model.train()
+    same = bool(torch.equal(outs["einsum"].argmax(-1),
+                            outs["grouped"].argmax(-1)))
+    diff = (outs["einsum"] - outs["grouped"]).abs().max().item()
+    log(f"[moe] top-1 bf16 forward B{TRAIN_BATCH}/T{SEQ}: einsum "
+        f"{times['einsum']:.2f} ms, peak {peaks['einsum'] / 2**30:.2f} GiB; "
+        f"grouped {times['grouped']:.2f} ms, peak "
+        f"{peaks['grouped'] / 2**30:.2f} GiB; same tokens {same}, max "
+        f"|log-prob diff| {diff:.3g} (bit-identical: {diff == 0.0}) on "
+        f"{card}")
+    if not same or not diff <= MOE_GROUPED_ATOL:
+        raise AssertionError(f"grouped against einsum: same tokens {same}, "
+                             f"max diff {diff}")
+
+
+def moe_grads(model, ids, labels) -> tuple:
+    """One bf16 forward and backward of the training objective (the
+    criterion and the aux term at the trainers' weight 0.01): the
+    gradients and the peak memory."""
+    import torch
+    from bigdl_tpu_torch.optim.optimizer import (mixed_precision_forward,
+                                                 moe_aux_penalty)
+    crit = lm_criterion()
+    params = list(model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = mixed_precision_forward(model, ids, "bf16")
+    loss = crit.apply(out, labels)
+    aux = moe_aux_penalty(model, 0.01)
+    if aux is not None:
+        loss = loss + aux
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    return grads, torch.cuda.max_memory_allocated()
+
+
+def moe_remat(card: str, model, ids, labels) -> dict:
+    """The top-2 model's blocks wrapped in ``Remat("save_attn")`` in place
+    (same weights), one bf16 forward and backward against the unwrapped
+    model's: the same gradients within MOE_REMAT_RTOL of each parameter's
+    norm, both peak memories, and the flash forward launched twice per
+    layer (the recompute).  The blocks are unwrapped after."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.nn import Remat
+    plain, plain_peak = moe_grads(model, ids, labels)
+    blocks = [i for i, m in enumerate(model.layers) if moes(m)]
+    for i in blocks:
+        model.layers[i] = Remat(model.layers[i], "save_attn")
+    try:
+        fa.reset_launches()
+        remat, remat_peak = moe_grads(model, ids, labels)
+        launches = dict(fa.launches)
+    finally:
+        for i in blocks:
+            model.layers[i] = model.layers[i].layers[0]
+    worst = max(((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(1e-30)).item()
+                for a, b in zip(remat, plain))
+    exact = all(torch.equal(a, b) for a, b in zip(remat, plain))
+    log(f"[moe] Remat('save_attn') top-2 bf16 step B{TRAIN_BATCH}/T{SEQ}: "
+        f"peak {remat_peak / 2**30:.2f} GiB against "
+        f"{plain_peak / 2**30:.2f} GiB without; gradients bit-identical "
+        f"{exact}, worst relative difference {worst:.3g}; launches "
+        f"{launches} on {card}")
+    expect = {"flash_attention_fwd_bf16": 2 * N_LAYERS,
+              "flash_attention_bwd_dkv_bf16": N_LAYERS,
+              "flash_attention_bwd_dq_bf16": N_LAYERS}
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"Remat launches {launches}, expected {expect}")
+    if not worst <= MOE_REMAT_RTOL:
+        raise AssertionError(f"Remat gradients differ by {worst}")
+    return launches
+
+
+def phase_moe_full(card: str) -> dict:
+    """Phase 15 (a): the 604M MoE LM (d_model 1024, 8 heads, 8 layers, 8
+    experts of 4096 wide, vocab 16384, T 2048; random weights from the
+    seed) trained in bf16 with Adam at B8, top-1 (Switch) then top-2
+    (GShard), beside the dense LM of the same width in the same call.
+    Returns the phase's flash launches."""
+    import gc
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    total = {k: 0 for k in fa.launches}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    samples = lm_samples()
+    ids, labels = (torch.from_numpy(np.stack(a[:TRAIN_BATCH])).to(DEVICE)
+                   for a in ([s.feature for s in samples],
+                             [s.label for s in samples]))
+    dense = lm(flash=True)
+    runs = {"dense": moe_train(card, "dense LM (Adam)", dense, samples,
+                               MOE_DENSE_TIMED)}
+    add(runs["dense"]["launches"])
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in (1, 2):
+        t = time.perf_counter()
+        model = moe_lm(k)
+        n = sum(p.numel() for p in model.parameters())
+        log(f"[moe] top-{k}: {n:,} parameters, {MOE_EXPERTS} experts a "
+            f"layer, capacity {moes(model)[0].capacity(TRAIN_BATCH * SEQ)} "
+            f"a layer's forward, built in {time.perf_counter() - t:.1f} s")
+        runs[k] = moe_train(card, f"MoE top-{k}", model, samples)
+        add(runs[k]["launches"])
+        moe_aux_check(f"MoE top-{k}", model)
+        fa.reset_launches()
+        if k == 1:
+            moe_impls(card, model, ids)
+        else:
+            moe_remat(card, model, ids, labels)
+        add(fa.launches)
+        del model
+        gc.collect()        # the trainer's closures hold the model in cycles
+        torch.cuda.empty_cache()
+    d = runs["dense"]
+    for k in (1, 2):
+        r = runs[k]
+        log(f"[moe] top-{k} against dense: step {r['step_s'] * 1e3:.2f} / "
+            f"{d['step_s'] * 1e3:.2f} ms, {r['tokens_s']:,.0f} / "
+            f"{d['tokens_s']:,.0f} tokens/s "
+            f"({r['tokens_s'] / d['tokens_s']:.3f}x), peak "
+            f"{r['peak'] / 2**30:.2f} / {d['peak'] / 2**30:.2f} GiB on {card}")
+    return total
+
+
+def phase_moe_small(card: str) -> None:
+    """Phase 15 (b): a small MoE LM (SMALL_MOE: E4, top-2) with chunked
+    attention (chunk SMALL_CHUNK) and Remat("save_attn"), fp32, TF32 off:
+    one training-mode forward and backward on the card against the port's
+    CPU path from the same weights and rows (log-probs SMALL_LOGP_ATOL,
+    each parameter's gradient norm SMALL_GRAD_RTOL), and against the same
+    model without Remat on the card (SMALL_REMAT_RTOL); both peak
+    memories logged."""
+    import copy
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    from bigdl_tpu_torch.nn import MultiHeadAttention
+
+    def build(remat):
+        m = transformer_lm(remat=remat, device="cpu", seed=SEED, **SMALL_MOE)
+        for x in m.modules():
+            if isinstance(x, MultiHeadAttention):
+                x.chunk = SMALL_CHUNK
+        return m
+
+    t_len = SMALL_MOE["max_len"]
+    rows = np.random.default_rng(SEED + 15).integers(
+        1, SMALL_MOE["vocab_size"] + 1,
+        (SMALL_BATCH, t_len + 1)).astype(np.float32)
+    crit = lm_criterion()
+
+    def step(model, device):
+        x = torch.from_numpy(rows[:, :-1]).to(device)
+        y = torch.from_numpy(rows[:, 1:]).to(device)
+        model.train()
+        base = 0
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out = model(x)
+        grads = torch.autograd.grad(crit.apply(out, y),
+                                    list(model.parameters()))
+        peak = (torch.cuda.max_memory_allocated() - base
+                if device != "cpu" else 0)
+        return out.detach().cpu(), [g.cpu() for g in grads], peak
+
+    cpu = build("save_attn")
+    with tf32_off():
+        c_out, c_grads, _ = step(cpu, "cpu")
+        d_out, d_grads, r_peak = step(copy.deepcopy(cpu).to(DEVICE), DEVICE)
+        p_out, p_grads, p_peak = step(build(False).to(DEVICE), DEVICE)
+    logp = (d_out - c_out).abs().max().item()
+    whole = torch.cat([g.reshape(-1) for g in c_grads]).norm()
+    gnorm = max((a - b).norm().item() for a, b in zip(d_grads, c_grads)) \
+        / whole.item()
+    remat = max((a - b).norm().item() for a, b in zip(d_grads, p_grads)) \
+        / whole.item()
+    log(f"[moe] small MoE LM (E4 top-2, chunk {SMALL_CHUNK}, Remat "
+        f"save_attn) fp32 B{SMALL_BATCH}/T{t_len}: card against CPU "
+        f"log-probs {logp:.3g}, worst gradient {gnorm:.3g} of the whole "
+        f"gradient's norm; Remat against none on the card {remat:.3g}; "
+        f"the step's peak above what was allocated {r_peak / 2**20:.1f} MiB "
+        f"with Remat, {p_peak / 2**20:.1f} MiB without, on {card}")
+    if not (logp <= SMALL_LOGP_ATOL and gnorm <= SMALL_GRAD_RTOL and
+            remat <= SMALL_REMAT_RTOL):
+        raise AssertionError(f"small MoE LM: log-probs {logp}, gradients "
+                             f"{gnorm}, Remat {remat}")
+
+
+def mp_models(leg: str, device: str, widths: dict = MP_LM):
+    """The two models of a mesh leg from the seed: the Megatron-tagged
+    (``tp``) or drop-free MoE (``ep``: top-2, capacity_factor E / k) LM
+    at ``widths``, and its twin for LocalOptimizer."""
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    kw = dict(widths, device=device, seed=SEED)
+    if leg == "tp":
+        return transformer_lm(tp=True, **kw), transformer_lm(tp=True, **kw)
+    out = []
+    for _ in range(2):
+        m = transformer_lm(moe_experts=4, moe_top_k=2, **kw)
+        for x in moes(m):
+            x.capacity_factor = x.n_experts / x.top_k
+        out.append(m)
+    return tuple(out)
+
+
+def mp_samples(vocab: int, seq: int, n: int) -> list:
+    import numpy as np
+    from bigdl_tpu_torch.dataset import Sample
+    ids = np.random.default_rng(SEED + 16).integers(
+        1, vocab + 1, (n, seq + 1)).astype(np.float32)
+    return [Sample(r[:-1], r[1:]) for r in ids]
+
+
+def mp_train(model, samples, batch: int, steps: int, device: str,
+             mesh=None, dp: int = 1):
+    """SGD(0.1, momentum 0.9) over ``samples``: a LocalOptimizer without
+    ``mesh``, else a DistriOptimizer over it (``dp`` partitions); MoE's
+    aux weight 0, since the aux term of a batch split over ranks is the
+    mean of the parts' (the layer's batch-split semantics).  (Adam would
+    blow the key biases' rounding-level gradients, zero in exact
+    arithmetic, up to steps of the learning rate.)  Returns (losses,
+    parameters, slots)."""
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    if mesh is None:   # the mesh's rows in the mesh's order
+        opt = LocalOptimizer(model, ShardedDataSet(samples, 1).transform(
+            SampleToMiniBatch(batch)), crit, device=device)
+    else:
+        ds = ShardedDataSet(samples, dp).transform(
+            SampleToMiniBatch(batch, dp))
+        opt = DistriOptimizer(model, ds, crit, mesh=mesh, device=device)
+    opt.set_moe_aux_weight(0.0).set_optim_method(SGD(0.1, momentum=0.9))
+    opt.set_end_when(max_iteration(steps)).optimize()
+    return ([h["loss"] for h in opt.history],
+            [p.detach().cpu() for p in model.parameters()],
+            [s.cpu() for k in sorted(opt.optim_method._slots)
+             for s in opt.optim_method._slots[k]])
+
+
+def mp_rank(rank: int, world: int, store: str, outdir: str) -> int:
+    """One gloo rank of phase 15 (c): dp2 x tp2 and dp2 x ep2 over a mesh of
+    MP_WORLD ranks (each rank also trains the LocalOptimizer reference over
+    the full batch); the results go to ``outdir/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+    torch.set_num_threads(1)
+    Engine.init_distributed(backend="gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world, device="cpu")
+    out = {}
+    samples = mp_samples(MP_LM["vocab_size"], MP_LM["max_len"], MP_SAMPLES)
+    for leg, axes in (("tp", ("data", "model")), ("ep", ("data", "expert"))):
+        mesh = Engine.create_mesh((2, world // 2), axes)
+        model, ref = mp_models(leg, "cpu")
+        runs = (mp_train(model, samples, MP_BATCH, MP_STEPS, "cpu",
+                         mesh=mesh, dp=2),
+                mp_train(ref, samples, MP_BATCH, MP_STEPS, "cpu"))
+        for name, (losses, params, slots) in zip(("mesh", "local"), runs):
+            out[f"{leg}/{name}/loss"] = np.array(losses)
+            for i, t in enumerate(params + slots):
+                out[f"{leg}/{name}/{i}"] = t.numpy()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_spawn(world: int) -> list:
+    """MP_WORLD ranks of :func:`mp_rank` as children of this script
+    (``--mp-rank``) on a file:// store, MP_TIMEOUT seconds for all, every
+    one killed when one fails.  Returns each rank's results."""
+    import shutil
+    import tempfile
+    import numpy as np
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        procs, logs = [], []
+        for rank in range(world):
+            logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-rank",
+                 str(rank), str(world), os.path.join(tmp, "store"), tmp],
+                cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+        try:
+            deadline = time.monotonic() + MP_TIMEOUT
+            while any(p.poll() is None for p in procs) and \
+                    time.monotonic() < deadline and \
+                    all(p.returncode in (None, 0) for p in procs):
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+            for f in logs:
+                f.close()
+        for rank, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+                    raise AssertionError(f"gloo rank {rank} of {world} "
+                                         f"exited {p.returncode}:\n"
+                                         f"{f.read()[-4000:]}")
+        outs = []
+        for rank in range(world):
+            with np.load(os.path.join(tmp, f"rank{rank}.npz")) as z:
+                outs.append(dict(z))
+        return outs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mesh_gloo(card: str) -> None:
+    """Phase 15 (c), the rank logic: dp2 x tp2 and dp2 x ep2 on CPU tensors
+    in MP_WORLD gloo children: every rank's weights, slots and losses
+    within MP_RTOL / MP_ATOL of LocalOptimizer over the full batch, and
+    every rank's weights the same."""
+    import numpy as np
+    t = time.perf_counter()
+    outs = mp_spawn(MP_WORLD)
+    worst = {}
+    for leg in ("tp", "ep"):
+        keys = sorted(k for k in outs[0] if k.startswith(f"{leg}/mesh/"))
+        for r, o in enumerate(outs):
+            for k in keys:
+                want = outs[0][k.replace("/mesh/", "/local/")]
+                np.testing.assert_allclose(
+                    o[k], want, rtol=MP_RTOL, atol=MP_ATOL,
+                    err_msg=f"{k} of rank {r} against LocalOptimizer")
+                if not k.endswith("loss") and r and not np.array_equal(
+                        o[k], outs[0][k]):
+                    raise AssertionError(f"{k}: rank {r} differs from 0")
+        worst[leg] = max(float(np.abs(outs[0][k] - outs[0][k.replace(
+            "/mesh/", "/local/")]).max()) for k in keys)
+    log(f"[mesh] dp2 x tp2 and dp2 x ep2 over gloo on the CPU: worst "
+        f"difference from LocalOptimizer tp {worst['tp']:.3g}, ep "
+        f"{worst['ep']:.3g} (rtol {MP_RTOL}, atol {MP_ATOL}) in "
+        f"{time.perf_counter() - t:.1f} s on the machine of {card}")
+
+
+def phase_mesh_nccl(card: str) -> None:
+    """Phase 15 (c) on the card: one NCCL rank, meshes (1, 1) ("data",
+    "model") over the tp-tagged LM and ("data", "expert") over the MoE LM
+    (NCCL_MP_LM, fp32, SGD): losses, weights and slots bit-identical to
+    LocalOptimizer from the same weights and rows."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    Engine.init_distributed(backend="nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1, device=DEVICE)
+    try:
+        samples = mp_samples(NCCL_MP_LM["vocab_size"], NCCL_MP_LM["max_len"],
+                             MP_SAMPLES)
+        for leg, axes in (("tp", ("data", "model")),
+                          ("ep", ("data", "expert"))):
+            model, ref = mp_models(leg, DEVICE, NCCL_MP_LM)
+            mesh = Engine.create_mesh((1, 1), axes)
+            t = time.perf_counter()
+            got = mp_train(model, samples, MP_BATCH, NCCL_MP_STEPS, DEVICE,
+                           mesh=mesh)
+            want = mp_train(ref, samples, MP_BATCH, NCCL_MP_STEPS, DEVICE)
+            same = got[0] == want[0] and all(
+                a.equal(b) for a, b in zip(got[1] + got[2],
+                                           want[1] + want[2]))
+            log(f"[mesh] {axes} (1, 1) over NCCL: losses "
+                f"{[round(x, 5) for x in got[0]]}, bit-identical to "
+                f"LocalOptimizer {same}, {time.perf_counter() - t:.1f} s on "
+                f"{card}")
+            if not same:
+                raise AssertionError(f"{axes} mesh differs from "
+                                     "LocalOptimizer")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_moe_driver(card: str) -> None:
+    """Phase 15 (d): ``models/transformer/train.py``'s ``main(argv)`` with
+    DRV_MOE_ARGS (MoE top-2, Remat("save_attn"); the driver builds no flash
+    model, as the JAX driver): finite losses, every layer's aux_loss in
+    [1, E]."""
+    import shutil
+    import tempfile
+    from bigdl_tpu_torch.models.transformer import train as lm_train
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_drv_")
+    try:
+        with driver_logging(tmp):
+            argv = DRV_MOE_ARGS + (["--device", "cpu"] if DEVICE == "cpu"
+                                   else [])
+            opt, _, wall = run_driver(lm_train.main, argv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [h["loss"] for h in opt.history]
+    aux = [float(m.aux_loss) for m in moes(opt.model)]
+    log(f"[moe] LM driver {' '.join(DRV_MOE_ARGS)}: losses "
+        f"{[round(x, 4) for x in losses]}, aux_loss {[round(a, 4) for a in aux]}"
+        f", {wall:.1f} s on {card}")
+    if not losses or not all(math.isfinite(x) for x in losses) or not all(
+            math.isfinite(a) and 1.0 <= a <= MOE_EXPERTS for a in aux):
+        raise AssertionError(f"driver losses {losses}, aux {aux}")
+
+
+MESH_STEPS = 6              # --tp N / --ep N on N cards
+
+
+def mesh_rank(rank: int, world: int, mode: str, store: str,
+              outdir: str) -> int:
+    """One NCCL rank of ``--tp N`` (the 134M LM, tp-tagged, no flash: the
+    head split refuses it) or ``--ep N`` (the 604M MoE LM, top-2, flash)
+    over a (1, N) mesh, MESH_STEPS bf16 Adam steps at B8/T2048 on card
+    ``rank``; rank 0 logs; results to ``outdir/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    from bigdl_tpu_torch.optim import Adam, max_iteration
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    global DEVICE
+    DEVICE = f"cuda:{rank}"
+    Engine.init_distributed(backend="nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world, device=DEVICE)
+    axis = "model" if mode == "tp" else "expert"
+    mesh = Engine.create_mesh((1, world), ("data", axis))
+    if mode == "tp":
+        model = transformer_lm(VOCAB, D_MODEL, N_HEAD, N_LAYERS, max_len=SEQ,
+                               tp=True, device=DEVICE, seed=SEED)
+    else:
+        model = moe_lm(2)
+    ds = ShardedDataSet(lm_samples(), 1).transform(
+        SampleToMiniBatch(TRAIN_BATCH, 1))
+    opt = DistriOptimizer(model, ds, lm_criterion(), mesh=mesh,
+                          device=DEVICE)
+    opt.set_optim_method(Adam(MOE_LR)).set_precision("bf16")
+    opt.set_end_when(max_iteration(MESH_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    opt.optimize()
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in opt.history]
+    step = statistics.median(h["seconds"] for h in opt.history[2:])
+    if rank == 0:
+        log(f"[mesh] --{mode} {world}: losses {[round(x, 4) for x in losses]}"
+            f"; step {step * 1e3:.2f} ms (median of steps 3-{MESH_STEPS}), "
+            f"{TRAIN_BATCH * SEQ / step:,.0f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB a card on "
+            f"{gpu_line()}")
+    flat = torch.cat([p.detach().float().reshape(-1)
+                      for p in model.parameters()])
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"),
+             loss=np.array(losses), sum=flat.sum().item(),
+             sq=flat.square().sum().item())
+    dist.destroy_process_group()
+    return 0
+
+
+def main_mesh(mode: str, world: int, backend: str) -> int:
+    """``chip_smoke.py --tp N nccl`` / ``--ep N nccl``: :func:`mesh_rank`
+    on N cards of one host; every rank's losses finite and its trained
+    weights the same as rank 0's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    if backend != "nccl" or torch.cuda.device_count() < world:
+        log(f"chip_smoke: --{mode} {world} needs nccl and {world} cards, "
+            f"found {torch.cuda.device_count()}")
+        return 1
+    sys.path.insert(0, HERE)
+    fail_fast()
+    card = gpu_line()
+    log(f"[mesh] --{mode} {world} nccl on {card}")
+    phase_build(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t = time.perf_counter()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(rank), str(world), mode, os.path.join(tmp, "store"), tmp],
+            cwd=HERE) for rank in range(world)]
+        try:
+            deadline = time.monotonic() + DP_TIMEOUT
+            while any(p.poll() is None for p in procs) and \
+                    time.monotonic() < deadline and \
+                    all(p.returncode in (None, 0) for p in procs):
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"--{mode} ranks exited "
+                                 f"{[p.returncode for p in procs]}")
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, o in enumerate(outs):
+        if not np.all(np.isfinite(o["loss"])) or (
+                o["sum"], o["sq"]) != (outs[0]["sum"], outs[0]["sq"]):
+            raise AssertionError(f"--{mode} rank {r}: {o}")
+    log(f"[mesh] --{mode} {world} nccl passed in "
+        f"{time.perf_counter() - t:.1f} s")
+    return 0
+
+
+def phase_sharded(card: str) -> dict:
+    """Phase 15: the sharded transformer.  Returns the flash launches of
+    (a), the phase's main path."""
+    import torch
+    t = time.perf_counter()
+    launches = phase_moe_full(card)
+    torch.cuda.empty_cache()
+    phase_moe_small(card)
+    phase_mesh_gloo(card)
+    phase_mesh_nccl(card)
+    phase_moe_driver(card)
+    torch.cuda.empty_cache()
+    log(f"[moe] phase 15 took {time.perf_counter() - t:.1f} s on {card}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
-                drivers: dict, traced: dict, zoo_rnn: dict) -> list:
+                drivers: dict, traced: dict, zoo_rnn: dict,
+                sharded: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
     numbers from phase 3; ``distri_launches`` counts its launches in
     phase 10's DistriOptimizer run of the LM, ``drivers_launches`` in
     phase 12 (the drivers build no flash model: 0), ``telemetry_launches``
-    in phase 13, ``zoo_rnn_launches`` in phase 14 (no flash model: 0)."""
+    in phase 13, ``zoo_rnn_launches`` in phase 14 (no flash model: 0),
+    ``sharded_launches`` in phase 15 (a)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -4118,7 +4858,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "distri_launches": distri[name],
                     "drivers_launches": drivers[name],
                     "telemetry_launches": traced[name],
-                    "zoo_rnn_launches": zoo_rnn[name]})
+                    "zoo_rnn_launches": zoo_rnn[name],
+                    "sharded_launches": sharded[name]})
     return out
 
 
@@ -4174,6 +4915,17 @@ def main(argv=None) -> int:
                        argv[5])
     if argv[:1] == ["--dp"]:
         return main_dp(int(argv[1]), argv[2])
+    if argv[:1] in (["--mp-rank"], ["--mesh-rank"]):  # a child of phase 15
+        if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
+            return 1
+        sys.path.insert(0, HERE)
+        fail_fast()
+        if argv[0] == "--mp-rank":
+            return mp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+        return mesh_rank(int(argv[1]), int(argv[2]), argv[3], argv[4],
+                         argv[5])
+    if argv[:1] in (["--tp"], ["--ep"]):
+        return main_mesh(argv[0][2:], int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
         return 1
@@ -4218,9 +4970,12 @@ def main(argv=None) -> int:
     traced = phase_telemetry(card)
     torch.cuda.empty_cache()
     zoo_rnn = phase_zoo_rnn(card)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
-                          fp32_step, distri, drivers, traced, zoo_rnn)
+                          fp32_step, distri, drivers, traced, zoo_rnn,
+                          sharded)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

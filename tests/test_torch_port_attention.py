@@ -108,10 +108,20 @@ def test_flash_constraints_raise_like_jax(hidden, n_head, tq, tk):
 
 
 def test_flash_and_chunk_are_exclusive_and_chunk_is_not_ported():
+    """``flash`` with ``chunk`` raises, as in the JAX package.  ``chunk``
+    alone is ported now: the layer gives the standard path's result
+    (``tests/test_torch_port_moe.py`` holds it against the JAX
+    package's)."""
     with pytest.raises(ValueError, match="pick one"):
         MultiHeadAttention(128, 1, flash=True, chunk=64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        MultiHeadAttention(128, 1, chunk=64, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 128, 128)).astype(np.float32))
+    plain = MultiHeadAttention(128, 1, causal=True, device="cpu")
+    chunked = MultiHeadAttention(128, 1, causal=True, chunk=64, device="cpu")
+    chunked.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(chunked(x), plain(x), atol=ATOL,
+                                   rtol=RTOL)
 
 
 @pytest.mark.parametrize("case", ["dtype", "head_dim", "seq_len", "shapes",

@@ -860,9 +860,29 @@ def test_zoo_driver_trains(main, argv, snapshots, printed, tmp_path, capsys,
     (lm_train.main, ["--remat", "full"]),
 ], ids=["seq-parallel", "tensor-parallel", "moe-experts", "expert-parallel",
         "pipeline", "remat"])
-def test_refused_flags_raise(main, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--synthetic", "8", "--device", "cpu"] + flag)
+def test_refused_flags_raise(main, flag, driver_logging):
+    """``--seq-parallel`` and ``--pipeline`` are still not ported and
+    raise.  The rest are ported now and act as the JAX driver's:
+    ``--expert-parallel`` without ``--moe-experts`` exits, a mesh asks
+    for as many ranks as it has, and ``--moe-experts``/``--remat`` train
+    (the meshes train in ``tests/test_torch_port_model_parallel.py``)."""
+    argv = ["--synthetic", "8", "--device", "cpu"] + flag
+    if flag[0] in ("--seq-parallel", "--pipeline"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(argv)
+    elif flag[0] == "--expert-parallel":
+        with pytest.raises(SystemExit, match="needs --moe-experts"):
+            main(argv)
+    elif flag[0] == "--tensor-parallel":
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            main(argv)
+    else:
+        with seeded(41):
+            opt = main(argv + ["-i", "1", "-b", "4", "--seq-len", "8",
+                               "--d-model", "16", "--heads", "2",
+                               "--layers", "1"])
+        assert len(opt.history) == 1
+        assert np.isfinite(opt.history[0]["loss"])
 
 
 def test_a_driver_asked_for_cuda_without_a_card_raises():

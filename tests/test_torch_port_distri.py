@@ -957,8 +957,10 @@ def test_unported_features_raise(group1, ask):
                           pnn.ClassNLLCriterion(), device="cpu")
     opt.set_end_when(max_iteration(1))
     if ask == "set_mesh":
-        with pytest.raises(NotImplementedError, match="seq/model/expert"):
-            opt.set_mesh(None)
+        # the model and expert axes are ported now; a seq axis (ring
+        # attention) is not
+        with pytest.raises(NotImplementedError, match="'seq' axis"):
+            opt.set_mesh(Engine.create_mesh((1, 1), ("data", "seq")))
         return
     value = True if ask.endswith(("Gather", "Signals")) else 1
     with properties([pconfig], **{ask.replace(".", "__"): value}):

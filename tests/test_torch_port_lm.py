@@ -28,7 +28,9 @@ from bigdl_tpu.models.transformer import transformer_lm as jax_lm
 from bigdl_tpu.optim.optimizer import \
     mixed_precision_forward as jax_mixed_precision_forward
 from bigdl_tpu_torch.models.transformer import (PositionOutOfRange,
-                                                transformer_lm)
+                                                transformer_lm,
+                                                transformer_lm_pipeline)
+from bigdl_tpu_torch.nn import Remat
 from bigdl_tpu_torch.optim.optimizer import mixed_precision_forward
 from bigdl_tpu.utils import config as jconfig
 from bigdl_tpu_torch.utils import config as pconfig
@@ -108,8 +110,25 @@ def test_token_ids_are_one_based_and_clipped_like_jax(jax_model):
 @pytest.mark.parametrize("kw", [{"tp": True}, {"moe_experts": 4},
                                 {"remat": True}])
 def test_options_outside_the_slice_raise(kw):
+    """``tp``, ``moe_experts`` and ``remat`` are ported now (held against
+    the JAX package in ``tests/test_torch_port_moe.py``): each builds what
+    the JAX package's builder builds.  The pipeline builder is still
+    outside the port and raises."""
+    m = transformer_lm(VOCAB, device="cpu", **SHAPE, **kw)
+    ref = jax_lm(VOCAB, **SHAPE, **kw)
+    assert [type(c).__name__ for c in m.layers] == \
+        [type(c).__name__ for c in ref.children]
+    kinds = {type(x).__name__ for x in m.modules()}
+    if kw.get("tp"):
+        assert [x._tp for x in m.modules()
+                if type(x).__name__ == "Linear" and x._tp] == \
+            ["column", "row"] * N_LAYERS
+    if kw.get("moe_experts"):
+        assert "MixtureOfExperts" in kinds
+    if kw.get("remat"):
+        assert "Remat" in kinds
     with pytest.raises(NotImplementedError):
-        transformer_lm(VOCAB, device="cpu", **SHAPE, **kw)
+        transformer_lm_pipeline(VOCAB, **SHAPE, **kw)
 
 
 def test_builders_default_to_cuda_and_refuse_without_it():
@@ -176,24 +195,27 @@ def remat_preset(value, via: str):
 @pytest.mark.parametrize("via", ["property", "env"])
 @pytest.mark.parametrize("preset", REMAT_PRESETS)
 def test_remat_preset_raises_where_the_reference_remats(preset, via):
-    """The port raises exactly where the JAX package's ``_default_remat``
-    resolves the preset to remat, and builds otherwise."""
+    """The port wraps its blocks in ``Remat`` exactly where the JAX
+    package's ``_default_remat`` resolves the preset to remat, with the
+    same policy (``Remat`` is ported now; it raised before), and builds
+    plain blocks otherwise."""
     with remat_preset(preset, via):
-        remats = bool(jax_default_remat(False))
-        if remats:
-            with pytest.raises(NotImplementedError, match="remat"):
-                transformer_lm(VOCAB, device="cpu", **SHAPE)
-        else:
-            assert transformer_lm(VOCAB, device="cpu", **SHAPE) is not None
-    assert remats == (preset in ("nothing", "true", "dots", "save_attn"))
+        remats = jax_default_remat(False)
+        blocks = transformer_lm(VOCAB, device="cpu", **SHAPE).layers[2:-3]
+    assert bool(remats) == (preset in ("nothing", "true", "dots",
+                                       "save_attn"))
+    if remats:
+        policy = None if remats is True else remats
+        assert all(isinstance(b, Remat) and b.policy == policy
+                   for b in blocks)
+    else:
+        assert not any(isinstance(b, Remat) for b in blocks)
 
 
 @pytest.mark.parametrize("remat,preset", [(None, "dots"), (True, "off")])
 def test_explicit_remat_argument_wins_over_the_preset(remat, preset):
     with remat_preset(preset, "property"):
         assert jax_default_remat(remat) is remat
-        if remat:
-            with pytest.raises(NotImplementedError, match="remat"):
-                transformer_lm(VOCAB, device="cpu", remat=remat, **SHAPE)
-        else:
-            transformer_lm(VOCAB, device="cpu", remat=remat, **SHAPE)
+        blocks = transformer_lm(VOCAB, device="cpu", remat=remat,
+                                **SHAPE).layers[2:-3]
+        assert all(isinstance(b, Remat) == bool(remat) for b in blocks)

@@ -27,7 +27,9 @@ def test_select_matches_jax(dim, index):
 
 
 @pytest.mark.parametrize("perms", [[(2, 3)], [(1, 2), (2, 3)],
-                                   [(3, 1)], [(1, 3), (1, 2)]])
+                                   [(3, 1)], [(1, 3), (1, 2)],
+                                   [(-1, 1)], [(0, -1)], [(-1, -2)],
+                                   [(-2, 0)], [(0, -1), (1, 3)]])
 def test_transpose_matches_jax(perms):
     x = np.random.default_rng(15).normal(size=(2, 3, 4)).astype(np.float32)
     ref, _ = jnn.Transpose(perms).apply({}, jnp.asarray(x), {})
@@ -36,8 +38,11 @@ def test_transpose_matches_jax(perms):
 
 
 def test_negative_dims_count_from_the_end():
+    """``Transpose`` shifts every dim down by one, as the JAX package's
+    does: (-1, -2) swaps the second- and third-to-last dims.  ``Select``
+    reads a negative dim from the end."""
     x = torch.arange(24.).reshape(2, 3, 4)
-    assert torch.equal(pnn.Transpose([(-1, -2)])(x), x.transpose(1, 2))
+    assert torch.equal(pnn.Transpose([(-1, -2)])(x), x.transpose(0, 1))
     assert torch.equal(pnn.Select(-1, -1)(x), x[..., -1])
 
 
