@@ -28,7 +28,12 @@ Data faults (a corrupt record, an undecodable image, an undersized frame)
 raise :class:`IngestDataError`: with ``bigdl.ingest.maxBadRecords`` > 0 the
 one record is skipped into a bounded :class:`RecordQuarantine`, else the
 error raises at the consumer.  A stage thread that dies without surfacing
-an error raises :class:`IngestInfraError` at the consumer.  Record reads go
+an error raises :class:`IngestInfraError` at the consumer.  A close (the
+run's generator closed, or exhausted) sets ``stop``, which every blocking
+wait of a stage thread polls, and joins every stage and decode thread
+within :data:`JOIN_TIMEOUT_S`: a thread still held then by work in hand (an
+upstream read, a decode) makes the close raise :class:`IngestInfraError`
+naming it, never return with it alive.  Record reads go
 straight to the file (the JAX package's transient retry comes with the
 port of ``utils/file_io.py``).
 
@@ -78,6 +83,10 @@ _END = object()          # upstream exhausted
 _NO_ITEM = object()      # a get that gave up
 
 _NAME_LOCK = threading.Lock()
+
+#: seconds a close waits for each stage thread to end once ``stop`` is set;
+#: a thread still alive then makes the close raise :class:`IngestInfraError`
+JOIN_TIMEOUT_S = 30.0
 _NAME_SEQ = [0]          # per-process engine names: ingest0, ingest1, ...
 
 #: the ingest stages' fault-injection keys of the JAX package
@@ -279,6 +288,20 @@ class _Ring:
             pass
 
 
+def join_threads(threads: Sequence[threading.Thread], what: str) -> None:
+    """Join ``threads`` within :data:`JOIN_TIMEOUT_S` seconds in all; raise
+    :class:`IngestInfraError` naming every thread still alive then, rather
+    than return with it running."""
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    alive = sorted(t.name for t in threads if t.is_alive())
+    if alive:
+        raise IngestInfraError(
+            f"{what}: threads {alive} still alive after the close waited "
+            f"{JOIN_TIMEOUT_S:g} s for them")
+
+
 class _DecodePool:
     """Decode worker threads (the JAX package's pool, which its autoscaler
     resizes; the port's stays at its size).  Workers take ``(future, fn,
@@ -314,11 +337,10 @@ class _DecodePool:
         self._tickets.put((fut, fn, args))
         return fut
 
-    def shutdown(self, cancel_futures: bool = False,
-                 timeout: Optional[float] = None) -> None:
-        """Stop the workers (each ends after its ticket in hand), cancel the
-        queued tickets if asked, and join the workers when ``timeout`` is
-        given."""
+    def shutdown(self, cancel_futures: bool = False) -> None:
+        """Stop the workers (each ends after its ticket in hand) and cancel
+        the queued tickets if asked; the owner joins :attr:`threads`
+        (:func:`join_threads`)."""
         self._shutdown.set()
         if cancel_futures:
             try:
@@ -327,9 +349,6 @@ class _DecodePool:
                     fut.cancel()
             except queue.Empty:
                 pass
-        if timeout is not None:
-            for t in self.threads:
-                t.join(timeout=timeout)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +459,11 @@ class ShardedSeqFileReader:
             stop.set()
             for ring in rings:
                 ring.drain()
-            for t in threads:
-                t.join(timeout=5)
-            for ring in rings:
-                ring.drain()
+            try:
+                join_threads(threads, "ShardedSeqFileReader")
+            finally:
+                for ring in rings:
+                    ring.drain()
 
 
 # ---------------------------------------------------------------------------
@@ -795,13 +815,20 @@ class StreamingIngest(Transformer):
                     if rec is None:      # upstream error, in order
                         raise fut
                     try:
-                        if fut.done():
-                            img = fut.result()
-                        else:            # waiting on decode: starve
+                        if not fut.done():   # waiting on decode: starve
                             t0 = time.monotonic()
-                            img = fut.result()
+                            while not stop.is_set():
+                                try:
+                                    fut.result(timeout=_Ring.POLL_S)
+                                    break
+                                except futures.TimeoutError:
+                                    continue
                             stats["assemble"].add(
                                 starve_s=time.monotonic() - t0)
+                            if stop.is_set():    # teardown mid-wait
+                                done["assembler"][0] = True
+                                return
+                        img = fut.result()
                     except BaseException as e:
                         if _is_data_error(e):
                             quarantine.admit("decode", idx, rec.name, e)
@@ -868,12 +895,16 @@ class StreamingIngest(Transformer):
             pool.shutdown(cancel_futures=True)
             for ring in (record_ring, batch_ring):
                 ring.drain()
-            for t in threads.values():
-                t.join(timeout=5)
-            pool.shutdown(timeout=5)
-            # a last put may land between the first drain and the joins
-            for ring in (record_ring, batch_ring):
-                ring.drain()
+            try:
+                # every wait of a stage thread polls ``stop``; what can
+                # still hold one is work in hand (an upstream read, a
+                # decode), and a close never returns with it running
+                join_threads(list(threads.values()) + pool.threads,
+                             f"StreamingIngest '{self.name}'")
+            finally:
+                # a last put may land between the first drain and the joins
+                for ring in (record_ring, batch_ring):
+                    ring.drain()
 
 
 def summary_scalars():

@@ -6,9 +6,9 @@ order and parameter tree as the JAX package, so its parameters load with
 :func:`bigdl_tpu_torch.utils.convert.params_from_jax`.  ``tp=True`` tags
 the MLP pair for the Megatron split, ``moe_experts`` makes every block's
 feed-forward a :class:`~bigdl_tpu_torch.nn.MixtureOfExperts`, ``remat``
-wraps every block in :class:`~bigdl_tpu_torch.nn.Remat`.  The pipeline
-builder (``transformer_lm_pipeline``) is not ported and raises
-:class:`NotImplementedError`.
+wraps every block in :class:`~bigdl_tpu_torch.nn.Remat`.
+``transformer_lm_pipeline`` splits the same model into ``(embed, blocks,
+head)`` for the GPipe trainer.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 import bigdl_tpu_torch.nn as bnn
-from bigdl_tpu_torch.engine import DeviceLike, default_device
+from bigdl_tpu_torch.engine import DeviceLike, bound_axis, default_device
 from bigdl_tpu_torch.nn.module import Container, Module
 
 
@@ -46,7 +46,15 @@ class PositionalEncoding(Module):
     ``0 .. T``, and :meth:`rows` reads the rows of explicit positions (the
     decode step's, one per slot).  A position past the table raises
     :class:`PositionOutOfRange`; a tensor of positions is left to the
-    caller's admission checks, as the JAX package leaves a traced one."""
+    caller's admission checks, as the JAX package leaves a traced one.
+
+    Under sequence parallelism (:meth:`set_sequence_parallel`, wired by the
+    trainer) each time shard offsets into the table by its chunk's start,
+    ``coord * T``, while the ``seq`` axis is bound; a shard past the table
+    raises rather than clamp."""
+
+    #: the mesh axis of sequence parallelism (None: off)
+    sequence_parallel: Optional[str] = None
 
     def __init__(self, d_model: int, max_len: int = 4096,
                  device: Optional[torch.device] = None):
@@ -61,7 +69,14 @@ class PositionalEncoding(Module):
 
     @property
     def max_seq_len(self) -> int:
+        """The table's capacity: a sequence-parallel trainer checks the
+        global T against it."""
         return int(self.pe.shape[0])
+
+    def set_sequence_parallel(self, axis_name: Optional[str]
+                              ) -> "PositionalEncoding":
+        self.sequence_parallel = axis_name
+        return self
 
     def rows(self, positions) -> torch.Tensor:
         """Table rows for explicit positions.  Host positions (ints,
@@ -77,6 +92,9 @@ class PositionalEncoding(Module):
 
     def forward(self, input: torch.Tensor, offset: int = 0) -> torch.Tensor:
         t = input.shape[1]
+        sp = bound_axis(self.sequence_parallel)
+        if sp is not None:
+            offset = sp[2] * t + offset
         if offset + t > self.max_seq_len:
             raise PositionOutOfRange(offset + t - 1, self.max_seq_len)
         return input + self.pe[offset:offset + t][None].to(input.dtype)
@@ -216,10 +234,40 @@ def transformer_lm(vocab_size: int, d_model: int = 128, n_head: int = 4,
     return m
 
 
-def transformer_lm_pipeline(*args, **kwargs):
-    """The GPipe builder (``(embed, blocks, head)`` for the JAX package's
-    ``PipelineOptimizer``) is not ported: raises
-    :class:`NotImplementedError`."""
-    raise NotImplementedError(
-        "transformer_lm_pipeline: GPipe (PipelineOptimizer) is not ported "
-        "yet")
+def transformer_lm_pipeline(vocab_size: int, d_model: int = 128,
+                            n_head: int = 4, n_layers: int = 2,
+                            max_len: int = 4096, moe_experts: int = 0,
+                            moe_top_k: int = 1, remat=False,
+                            tp: bool = False, device: DeviceLike = "cuda",
+                            seed: int = 0):
+    """``(embed, blocks, head)`` for
+    :class:`~bigdl_tpu_torch.parallel.pipeline.PipelineOptimizer`: the
+    embedding and the LM head run replicated, the ``n_layers`` homogeneous
+    decoder blocks pipeline over a ``stage`` mesh axis, one block a stage
+    rank (the driver's ``--pipeline``).  ``moe_experts=E`` gives every
+    block an MoE feed-forward, whose ``aux_loss`` the trainer folds into
+    its objective; ``tp=True`` Megatron-tags each block for the ``("data",
+    "stage", "model")`` composition; ``remat`` wraps each block in
+    :class:`~bigdl_tpu_torch.nn.Remat`.  The parameters are
+    :func:`transformer_lm`'s (same ``seed``, same draws in the same order):
+    ``embed`` holds its first two layers, ``blocks`` its decoder blocks,
+    ``head`` its last three."""
+    remat = _default_remat(remat)
+    dev = default_device(device)
+    g = torch.Generator().manual_seed(seed)
+    embed = (bnn.Sequential()
+             .add(bnn.LookupTable(vocab_size, d_model, device=dev,
+                                  generator=g))
+             .add(PositionalEncoding(d_model, max_len, device=dev)))
+    blocks = [transformer_block(d_model, n_head, tp=tp,
+                                moe_experts=moe_experts,
+                                moe_top_k=moe_top_k, device=dev, generator=g)
+              for _ in range(n_layers)]
+    if remat:
+        policy = None if remat is True else remat
+        blocks = [bnn.Remat(b, policy=policy) for b in blocks]
+    head = (bnn.Sequential()
+            .add(LayerNorm(d_model, device=dev))
+            .add(bnn.Linear(d_model, vocab_size, device=dev, generator=g))
+            .add(bnn.LogSoftMax()))
+    return embed, blocks, head

@@ -13,21 +13,29 @@ Run::
 ``--partitions N`` trains with the ``DistriOptimizer`` over N data ranks
 (launch with ``torchrun``).  ``--tensor-parallel M`` Megatron-splits the
 MLPs and heads over a ``("data", "model")`` mesh of N x M ranks,
-``--moe-experts E`` gives every block an MoE feed-forward of E experts
-(``--moe-top-k``: 1 Switch, 2 GShard) and ``--expert-parallel M`` splits
-them over a ``("data", "expert")`` mesh of N x M ranks, as the JAX driver
-does; ``--remat`` wraps every block in ``Remat`` (``full``, ``dots``,
-``save_attn``).  A mesh needs exactly its rank count in the process group
-(the JAX driver's ``_partial_mesh`` takes the first devices of a larger
-machine; here the launch sets the ranks).  ``--seq-parallel`` and
-``--pipeline`` are not ported and raise :class:`NotImplementedError`.  The
-model is built without ``flash=True``, as the JAX driver builds it.
-``main`` returns the optimizer (``model``, ``history``)::
+``--seq-parallel M`` shards time over a ``("data", "seq")`` mesh (ring
+attention), ``--moe-experts E`` gives every block an MoE feed-forward of E
+experts (``--moe-top-k``: 1 Switch, 2 GShard) and ``--expert-parallel M``
+splits them over a ``("data", "expert")`` mesh of N x M ranks, as the JAX
+driver does.  ``--pipeline S`` runs S decoder blocks as GPipe over a
+``stage`` mesh (``PipelineOptimizer``, ``--n-micro`` microbatches a
+replica; ``("data", "stage")`` with ``--partitions``, ``("data", "stage",
+"model")`` with ``--tensor-parallel`` too, the one composition of modes the
+JAX driver allows).  ``--remat`` wraps every block in ``Remat`` (``full``,
+``dots``, ``save_attn``).  A mesh needs exactly its rank count in the
+process group (the JAX driver's ``_partial_mesh`` takes the first devices
+of a larger machine; here the launch sets the ranks).  The model is built
+without ``flash=True``, as the JAX driver builds it.  ``main`` returns the
+optimizer (``model``, ``history``)::
 
     torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.transformer.train \\
         --synthetic 256 --partitions 2 --tensor-parallel 2
     torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.transformer.train \\
         --synthetic 256 --moe-experts 8 --partitions 2 --expert-parallel 2
+    torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.transformer.train \\
+        --synthetic 256 --partitions 2 --seq-parallel 2
+    torchrun --nproc_per_node 4 -m bigdl_tpu_torch.models.transformer.train \\
+        --synthetic 256 --pipeline 4
 """
 
 import numpy as np
@@ -37,7 +45,8 @@ from bigdl_tpu_torch import nn, optim
 from bigdl_tpu_torch.dataset import Sample
 from bigdl_tpu_torch.dataset.text import Dictionary, SentenceTokenizer
 from bigdl_tpu_torch.models import driver_utils
-from bigdl_tpu_torch.models.transformer import transformer_lm
+from bigdl_tpu_torch.models.transformer import (transformer_lm,
+                                                transformer_lm_pipeline)
 
 VOCAB = 64
 
@@ -90,7 +99,7 @@ def main(argv=None):
     p.add_argument("--heads", type=int, default=4)
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--seq-parallel", type=int, default=0,
-                   help="not ported (sequence parallelism)")
+                   help="N>1: shard time over a ('data','seq') mesh")
     p.add_argument("--tensor-parallel", type=int, default=0,
                    help="N>1: Megatron-split over a ('data','model') mesh")
     p.add_argument("--moe-experts", type=int, default=0,
@@ -102,7 +111,8 @@ def main(argv=None):
                    help="experts per token: 1 = Switch (default), "
                         "2 = the GShard configuration (needs --moe-experts)")
     p.add_argument("--pipeline", type=int, default=0,
-                   help="not ported (GPipe)")
+                   help="S>1: GPipe the S decoder blocks over a 'stage' "
+                        "mesh axis (sets --layers S)")
     p.add_argument("--n-micro", type=int, default=4,
                    help="GPipe microbatches per replica (with --pipeline)")
     p.add_argument("--remat", choices=["full", "dots", "save_attn"],
@@ -112,18 +122,14 @@ def main(argv=None):
                         "outputs, 'save_attn' keeps only the attention "
                         "context")
     args = driver_utils.parse(p, argv)
-    asked = [flag for flag, on in (
-        ("--seq-parallel", args.seq_parallel > 1),
-        ("--pipeline", args.pipeline > 1)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: sequence and pipeline parallelism are not "
-            "ported yet")
-    modes = [m for m, on in (("--tensor-parallel", args.tensor_parallel > 1),
-                             ("--expert-parallel", args.expert_parallel > 1))
-             if on]
-    if len(modes) > 1:
-        raise SystemExit(f"pick one parallelism mode, got {modes}")
+    modes = [m for m, on in (("--seq-parallel", args.seq_parallel > 1),
+                             ("--tensor-parallel", args.tensor_parallel > 1),
+                             ("--expert-parallel", args.expert_parallel > 1),
+                             ("--pipeline", args.pipeline > 1)) if on]
+    if len(modes) > 1 and set(modes) != {"--pipeline", "--tensor-parallel"}:
+        raise SystemExit(f"pick one parallelism mode, got {modes} "
+                         "(--pipeline composes with --tensor-parallel "
+                         "only)")
     if args.expert_parallel > 1 and not args.moe_experts:
         raise SystemExit("--expert-parallel needs --moe-experts")
     if args.moe_top_k != 1 and not args.moe_experts:
@@ -140,34 +146,11 @@ def main(argv=None):
     crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
                                        size_average=True)
     lr = args.learning_rate or 1e-3
-    model, method = driver_utils.load_snapshots(
-        args, lambda: transformer_lm(VOCAB, args.d_model, args.heads,
-                                     args.layers,
-                                     max_len=max(4096, args.seq_len),
-                                     tp=args.tensor_parallel > 1,
-                                     moe_experts=args.moe_experts,
-                                     moe_top_k=args.moe_top_k, remat=remat,
-                                     device=args.device),
-        lambda: optim.Adam(learning_rate=lr))
     dp = max(1, args.partitions or 1)
-    if args.tensor_parallel > 1:
-        mesh = _partial_mesh((dp, args.tensor_parallel), ("data", "model"),
-                             args.device)
-    elif args.expert_parallel > 1:
-        mesh = _partial_mesh((dp, args.expert_parallel),
-                             ("data", "expert"), args.device)
+    if args.pipeline > 1:
+        opt = _pipeline(args, records, crit, lr, batch, dp, remat)
     else:
-        mesh = None
-    if mesh is not None:
-        from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
-        from bigdl_tpu_torch.parallel import DistriOptimizer
-        ds = ShardedDataSet(records, dp).transform(
-            SampleToMiniBatch(batch, dp))
-        opt = DistriOptimizer(model, ds, crit, mesh=mesh, device=args.device)
-    else:
-        ds = driver_utils.make_dataset(records, args, batch)
-        opt = optim.Optimizer.create(model, ds, crit, device=args.device)
-    opt.set_optim_method(method)
+        opt = _flat(args, records, crit, lr, batch, dp, remat)
     driver_utils.configure(opt, args, default_epochs=10,
                            app_name="transformer")
     trained = opt.optimize()
@@ -185,6 +168,70 @@ def main(argv=None):
     trained.train()
     print(f"Final next-token accuracy: {hits / y.size:.4f}")
     return opt
+
+
+def _pipeline(args, records, crit, lr, batch, dp, remat):
+    """GPipe: S decoder blocks over a ``stage`` mesh (x dp, x tp)."""
+    from bigdl_tpu_torch.parallel import PipelineOptimizer
+    if args.model or args.state:
+        raise SystemExit("--pipeline does not support --model/--state "
+                         "snapshot resume yet")
+    tp_n = args.tensor_parallel if args.tensor_parallel > 1 else 0
+    if tp_n and args.moe_experts:
+        raise SystemExit("pick one of --tensor-parallel / --moe-experts per "
+                         "block")
+    embed, blocks, head = transformer_lm_pipeline(
+        VOCAB, args.d_model, args.heads, n_layers=args.pipeline,
+        max_len=max(4096, args.seq_len), moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k, remat=remat, tp=bool(tp_n),
+        device=args.device)
+    shape = (dp, args.pipeline) if dp > 1 else (args.pipeline,)
+    names = ("data", "stage") if dp > 1 else ("stage",)
+    if tp_n:
+        shape, names = shape + (tp_n,), names + ("model",)
+    mesh = _partial_mesh(shape, names, args.device)
+    from bigdl_tpu_torch.dataset import (LocalDataSet, SampleToMiniBatch,
+                                         ShardedDataSet)
+    ds = (ShardedDataSet(records, dp) if dp > 1 else
+          LocalDataSet(records)).transform(SampleToMiniBatch(batch, dp))
+    opt = PipelineOptimizer(blocks, ds, crit, mesh=mesh,
+                            n_micro=args.n_micro, embed=embed, head=head,
+                            device=args.device)
+    return opt.set_optim_method(optim.Adam(learning_rate=lr))
+
+
+def _flat(args, records, crit, lr, batch, dp, remat):
+    """One model: the local trainer, or the DistriOptimizer on a mesh."""
+    model, method = driver_utils.load_snapshots(
+        args, lambda: transformer_lm(VOCAB, args.d_model, args.heads,
+                                     args.layers,
+                                     max_len=max(4096, args.seq_len),
+                                     tp=args.tensor_parallel > 1,
+                                     moe_experts=args.moe_experts,
+                                     moe_top_k=args.moe_top_k, remat=remat,
+                                     device=args.device),
+        lambda: optim.Adam(learning_rate=lr))
+    if args.seq_parallel > 1:
+        mesh = _partial_mesh((dp, args.seq_parallel), ("data", "seq"),
+                             args.device)
+    elif args.tensor_parallel > 1:
+        mesh = _partial_mesh((dp, args.tensor_parallel), ("data", "model"),
+                             args.device)
+    elif args.expert_parallel > 1:
+        mesh = _partial_mesh((dp, args.expert_parallel),
+                             ("data", "expert"), args.device)
+    else:
+        mesh = None
+    if mesh is not None:
+        from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+        from bigdl_tpu_torch.parallel import DistriOptimizer
+        ds = ShardedDataSet(records, dp).transform(
+            SampleToMiniBatch(batch, dp))
+        opt = DistriOptimizer(model, ds, crit, mesh=mesh, device=args.device)
+    else:
+        ds = driver_utils.make_dataset(records, args, batch)
+        opt = optim.Optimizer.create(model, ds, crit, device=args.device)
+    return opt.set_optim_method(method)
 
 
 if __name__ == "__main__":

@@ -40,12 +40,14 @@ from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent,
                                           ConvLSTMPeephole3D, LSTMPeephole,
                                           Recurrent, RnnCell, TimeDistributed,
                                           TreeLSTM)
-from bigdl_tpu_torch.nn.structural import (ChannelNormalize, DeviceAugment,
-                                          Identity, MulConstant, Remat,
-                                          Reshape, Select, Transpose, View)
+from bigdl_tpu_torch.nn.structural import (Bottle, ChannelNormalize,
+                                          DeviceAugment, Identity,
+                                          MulConstant, Remat, Reshape, Select,
+                                          Transpose, View)
 from bigdl_tpu_torch.nn.table import CAddTable, Concat, ConcatTable
 
-__all__ = ["BatchNormalization", "BiRecurrent", "BinaryTreeLSTM", "CAddTable",
+__all__ = ["BatchNormalization", "BiRecurrent", "BinaryTreeLSTM", "Bottle",
+           "CAddTable",
            "Cell", "ChannelNormalize", "ClassNLLCriterion", "Concat",
            "ConcatTable", "Container", "ConvLSTMPeephole",
            "ConvLSTMPeephole3D", "Criterion", "CrossEntropyCriterion",

@@ -154,11 +154,20 @@ class MultiHeadAttention(Module):
     While that axis is bound (:func:`bigdl_tpu_torch.engine.bind_axes`) the
     module holds its rank's heads: wq/wk/wv and their biases the columns of
     ``n_head / n`` heads, wo the matching rows; its input passes the
-    backward's all-reduce, its output the forward's, then ``bo``.  Ring
-    sequence parallelism is not ported."""
+    backward's all-reduce, its output the forward's, then ``bo``.
+
+    ``sequence_parallel`` names the mesh axis of ring attention
+    (:meth:`set_sequence_parallel`; the trainer of a ``seq`` mesh sets it).
+    While that axis is bound the input is this rank's slice of the
+    sequence and the attention runs as the ring
+    (:mod:`bigdl_tpu_torch.parallel.ring_attention`); a plain forward is
+    unaffected.  The ring is self-attention only, and excludes ``flash``
+    and the head split, as in the JAX package."""
 
     #: the mesh axis of the Megatron head split (None: no split)
     model_parallel: Optional[str] = None
+    #: the mesh axis of ring sequence parallelism (None: off)
+    sequence_parallel: Optional[str] = None
 
     def __init__(self, hidden_size: int, n_head: int, causal: bool = False,
                  with_bias: bool = True, flash: bool = False,
@@ -199,7 +208,24 @@ class MultiHeadAttention(Module):
             raise ValueError("flash kernel is incompatible with the "
                              "Megatron head split (pallas kernels do not "
                              "partition)")
+        if axis_name and self.sequence_parallel:
+            raise ValueError("pick one of model_parallel / "
+                             "sequence_parallel per attention layer")
         self.model_parallel = axis_name
+        return self
+
+    def set_sequence_parallel(self, axis_name: Optional[str]
+                              ) -> "MultiHeadAttention":
+        """Ring attention over the mesh axis ``axis_name`` (None: off),
+        engaged only while the axis is bound.  Raises :class:`ValueError`
+        with ``flash=True`` or a head split, as the JAX package does."""
+        if axis_name and self.flash:
+            raise ValueError("flash kernel and ring sequence parallelism "
+                             "are mutually exclusive")
+        if axis_name and self.model_parallel:
+            raise ValueError("pick one of model_parallel / "
+                             "sequence_parallel per attention layer")
+        self.sequence_parallel = axis_name
         return self
 
     def _flash_check(self, q: torch.Tensor, k: torch.Tensor) -> None:
@@ -264,7 +290,15 @@ class MultiHeadAttention(Module):
         q = self._project(q_src, "wq", "bq")
         k = self._project(kv_src, "wk", "bk")
         v = self._project(kv_src, "wv", "bv")
-        if self.chunk:
+        sp = bound_axis(self.sequence_parallel)
+        if sp is not None:
+            if q_src is not kv_src:
+                raise ValueError("sequence-parallel MHA is self-attention "
+                                 "only (q and kv must be the same source)")
+            from bigdl_tpu_torch.parallel.ring_attention import \
+                _ring_attention_shard
+            out = _ring_attention_shard(q, k, v, sp[0], self.causal)
+        elif self.chunk:
             out = chunked_attention(q, k, v, causal=self.causal,
                                     chunk=self.chunk)
         elif self.flash:

@@ -1,7 +1,7 @@
 """Structural layers (``bigdl_tpu/nn/structural.py``: ``Identity`` :37,
 ``Reshape`` :66, ``View`` :88, ``Transpose`` :167, ``Select`` :202,
-``Remat`` :449, ``MulConstant`` :582, ``ChannelNormalize`` :595,
-``DeviceAugment`` :635).
+``Bottle`` :419, ``Remat`` :449, ``MulConstant`` :582,
+``ChannelNormalize`` :595, ``DeviceAugment`` :635).
 
 Dimension arguments are 1-based (Torch convention), as in the reference;
 :func:`_axis` maps them to 0-based axes.
@@ -127,6 +127,31 @@ class Select(Module):
         i = self.index - 1 if self.index > 0 else \
             input.shape[ax] + self.index
         return input.select(ax, i)
+
+
+class Bottle(Container):
+    """Flatten the leading dims, apply the inner module, restore them
+    (reference ``nn/Bottle.scala``): the input's last ``n_input_dim - 1``
+    dims are one sample's, every dim before them a batch dim.  A container
+    of one child, so its parameter tree is ``[inner]`` and the
+    tensor-parallel spec walk sees through it, as in the JAX package."""
+
+    def __init__(self, module: torch.nn.Module, n_input_dim: int = 2,
+                 n_output_dim: int = 2):
+        super().__init__()
+        self.add(module)
+        self.n_input_dim = n_input_dim
+        self.n_output_dim = n_output_dim
+
+    @property
+    def module(self) -> torch.nn.Module:
+        return self.layers[0]
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        split = input.dim() - self.n_input_dim + 1
+        lead, rest = tuple(input.shape[:split]), tuple(input.shape[split:])
+        out = self.layers[0](input.reshape((-1,) + rest))
+        return out.reshape(lead + tuple(out.shape[1:]))
 
 
 class Remat(Container):

@@ -551,11 +551,15 @@ class Optimizer:
         self.moe_aux_weight = float(weight)
         return self
 
-    def _loss(self, out, targets) -> torch.Tensor:
+    def _loss(self, out, targets, penalty=False) -> torch.Tensor:
         """The step's objective: the criterion, the layers' regularizer
-        penalties and MoE's balance term, in the JAX step's order."""
+        penalties and MoE's balance term, in the JAX step's order.
+        ``penalty``, where given, stands in for the model's own
+        :func:`regularization_penalty` (a sharded step's)."""
         loss = self.criterion.apply(out, targets)
-        for term in (regularization_penalty(self.model),
+        if penalty is False:
+            penalty = regularization_penalty(self.model)
+        for term in (penalty,
                      moe_aux_penalty(self.model, self.moe_aux_weight)):
             if term is not None:
                 loss = loss + term

@@ -226,3 +226,44 @@ def pmean_floats(tensors: Sequence[torch.Tensor], group=None) -> None:
         for t in same:
             t.copy_(buf[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+def _peer(group, index: int) -> int:
+    """The global rank of member ``index`` of ``group``."""
+    return index if group is None else dist.get_global_rank(group, index)
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Send ``x`` to member ``(i + step) % n`` and receive from ``(i -
+    step) % n``, the send and the receive issued in one batch."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, _peer(group, (i + step) % n), group),
+           dist.P2POp(dist.irecv, out, _peer(group, (i - step) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -1), None
+
+
+def ring_permute(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ring shift over ``group`` (the JAX package's ``ppermute`` with
+    ``perm = [(i, (i + 1) % n)]``): member i sends ``x`` to member ``(i +
+    1) % n`` and returns what member ``(i - 1) % n`` sent.  Differentiable:
+    the backward shifts the gradient the other way.  Every member calls it
+    with a tensor of the same shape and dtype; with one member (or no
+    process group) it is the identity, with no communication."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return x
+    return _RingPermute.apply(x, group)

@@ -83,10 +83,19 @@ and trains them under the bound axis; the gradients are averaged over the
 subgroup along the dim ``zero1_slot_specs`` gives each slot.  Validation,
 ``predict``, snapshots and the end of ``optimize()`` see the whole model
 and canonical, unsharded slots (the blocks are gathered at each publish),
-so a restore onto another mesh re-slices them.
+so a restore onto another mesh re-slices them.  A ``("data", "seq")`` mesh
+is the dp x sp step (JAX :239-242, :263-337, :1160-1190): every
+``MultiHeadAttention`` and ``PositionalEncoding`` is wired to the ``seq``
+axis (:meth:`_wire_sequence_parallel`; a time-mixing module raises), rank
+(d, s) feeds partition d and takes time block s of its rows, and the step
+runs with the axis bound, so the attention runs as the ring
+(:mod:`bigdl_tpu_torch.parallel.ring_attention`) and each shard reads its
+rows of the position table.  As for ``expert``, the flat step runs over all
+``data x seq`` ranks: its one reduce-scatter holds the JAX package's sum
+over ``seq`` and its ZeRO-1 reduce-scatter over ``data``, divided by the
+rank count (slots 1/(data x seq)).
 
-Not ported, each raising :class:`NotImplementedError` where asked for: the
-``seq`` mesh axis (ring attention), a regularizer under the dp x tp step,
+Not ported, each raising :class:`NotImplementedError` where asked for:
 integrity
 fingerprints and desync healing (``bigdl.integrity.everyN > 0``), the audit
 fault injections (``bigdl.chaos.extraAllGather``,
@@ -120,7 +129,7 @@ from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
                                              select_tree)
 from bigdl_tpu_torch.parallel.all_reduce import (AllReduceParameter,
                                                  axis_mean, axis_min,
-                                                 pmean_floats)
+                                                 axis_sum, pmean_floats)
 from bigdl_tpu_torch.utils import config, elastic
 
 #: a rank's offset of its dropout seed (the 64-bit golden ratio)
@@ -195,6 +204,9 @@ class DistriOptimizer(Optimizer):
         self._mesh: Optional[Mesh] = None
         #: a dp x tp run's blocks on this rank (:meth:`_optimize_tp`)
         self.tp_shards: Optional[Dict[str, dict]] = None
+        #: the smallest position capacity of a seq-mesh model
+        #: (:meth:`_wire_sequence_parallel`)
+        self._max_seq_len: Optional[int] = None
         if mesh is not None:
             self.set_mesh(mesh)
 
@@ -224,26 +236,22 @@ class DistriOptimizer(Optimizer):
 
     def set_mesh(self, mesh: Mesh) -> "DistriOptimizer":
         """Train over ``mesh``: ``("data",)``, ``("data", "expert")`` (dp x
-        ep) or ``("data", "model")`` (dp x tp).  A ``seq`` axis (ring
-        attention) raises :class:`NotImplementedError`; a mesh without a
-        ``data`` axis or with an unknown one :class:`ValueError`."""
-        if "seq" in mesh.shape:
-            raise NotImplementedError(
-                "a mesh with a 'seq' axis (sequence parallelism, ring "
-                "attention) is not ported yet")
+        ep), ``("data", "seq")`` (dp x sp, ring attention) or ``("data",
+        "model")`` (dp x tp).  A mesh without a ``data`` axis or with an
+        unknown one raises :class:`ValueError`."""
         unknown = [a for a in mesh.axis_names
-                   if a not in ("data", "model", "expert")]
+                   if a not in ("data", "model", "expert", "seq")]
         if unknown or "data" not in mesh.shape:
             raise ValueError(f"mesh axes {mesh.axis_names}: expected 'data' "
-                             "with 'model' or 'expert'")
+                             "with 'model', 'expert' or 'seq'")
         self._mesh = mesh
         return self
 
     @property
     def seq_axis(self) -> Optional[str]:
-        """The sequence-parallel axis: never set, since :meth:`set_mesh`
-        refuses a ``seq`` axis."""
-        return None
+        """``"seq"`` when the mesh has that axis (dp x sp)."""
+        mesh = self._mesh
+        return "seq" if mesh is not None and "seq" in mesh.shape else None
 
     @property
     def expert_axis(self) -> Optional[str]:
@@ -273,6 +281,53 @@ class DistriOptimizer(Optimizer):
                 "MixtureOfExperts layer — use a ('data',) mesh")
         for m in moes:
             m.set_expert_parallel("expert", n)
+
+    def _wire_sequence_parallel(self, module: torch.nn.Module) -> None:
+        """Point every module with ``set_sequence_parallel``
+        (``MultiHeadAttention``'s ring, ``PositionalEncoding``'s chunk
+        offset) at the ``seq`` axis and keep the smallest ``max_seq_len``
+        (JAX :1160-1190).  The ring engages only while the axis is bound,
+        inside the step, so validation and ``predict`` see the whole
+        sequence.  A recurrent module would restart its state at every
+        chunk edge: it raises :class:`ValueError`."""
+        from bigdl_tpu_torch.nn.recurrent import BiRecurrent, Recurrent
+        offenders = sorted({type(m).__name__ for m in module.modules()
+                            if isinstance(m, (Recurrent, BiRecurrent))})
+        if offenders:
+            raise ValueError(
+                "sequence-parallel training (mesh with a 'seq' axis) shards "
+                "the time dimension, but these modules mix information "
+                f"across time with no ring path: {offenders}; train them on "
+                "a ('data',)-only mesh")
+        self._max_seq_len = None
+        for m in module.modules():
+            if hasattr(m, "set_sequence_parallel"):
+                m.set_sequence_parallel(self.seq_axis)
+            cap = getattr(m, "max_seq_len", None)
+            if cap is not None:
+                self._max_seq_len = (cap if self._max_seq_len is None
+                                     else min(self._max_seq_len, cap))
+
+    def _check_seq_batch(self, x) -> None:
+        """A batch leaf of a ``seq`` mesh: (N, T, ...) with T split evenly
+        over the axis and within every module's position capacity."""
+        if isinstance(x, (list, tuple)):
+            for t in x:
+                self._check_seq_batch(t)
+            return
+        x = np.asarray(x)
+        n_s = self._mesh.shape["seq"]
+        if x.ndim < 2 or x.shape[1] % n_s != 0:
+            raise ValueError(
+                "sequence-parallel training needs (N, T, ...) inputs and "
+                "(N, T, ...) per-timestep targets with T divisible by the "
+                f"seq axis size {n_s} (got shape {x.shape})")
+        cap = self._max_seq_len
+        if cap is not None and x.shape[1] > cap:
+            raise ValueError(
+                f"sequence length {x.shape[1]} exceeds a module's position "
+                f"capacity {cap} — sharded offsets would silently clamp; "
+                "raise max_len")
 
     # ---- the step ----------------------------------------------------------
 
@@ -415,10 +470,11 @@ class DistriOptimizer(Optimizer):
     def _optimize(self) -> torch.nn.Module:
         if self.model_axis:
             # the JAX package's refusals (distri_optimizer.py:626-645)
-            if self.expert_axis:
+            if self.expert_axis or self.seq_axis:
                 raise ValueError(
                     "the tensor-parallel step composes with 'data' only — "
-                    "a mesh mixing 'model' with 'expert' is not supported")
+                    "a mesh mixing 'model' with 'seq'/'expert' is not "
+                    "supported")
             if self.compression:
                 raise ValueError(
                     "compression='bf16' is the wire of the data-parallel "
@@ -432,11 +488,15 @@ class DistriOptimizer(Optimizer):
         local = self._check_run()
         rank = dist.get_rank(group)
         model = self.model
+        if self.seq_axis:
+            self._wire_sequence_parallel(model)
         if self.expert_axis:
             self._wire_expert_parallel(model)
-        axes = ["expert"] if self.expert_axis else []
-        n_e = mesh.shape["expert"] if axes else 1
-        e = mesh.coord("expert") if axes else 0
+        axes = [a for a in (self.seq_axis, self.expert_axis) if a]
+        n_e = mesh.shape["expert"] if self.expert_axis else 1
+        e = mesh.coord("expert") if self.expert_axis else 0
+        n_s = mesh.shape["seq"] if self.seq_axis else 1
+        s_ = mesh.coord("seq") if self.seq_axis else 0
         model.train()
         params = list(model.parameters())
         self._arp = arp = AllReduceParameter(params, n, self.compression,
@@ -471,6 +531,12 @@ class DistriOptimizer(Optimizer):
             if n_e > 1:
                 # tokens co-shard over the expert axis: block e of the rows
                 inputs, targets = (_block(x, e, n_e)
+                                   for x in (inputs, targets))
+            if self.seq_axis:
+                # time (dim 1) over the seq axis: block s of every row
+                for x in (inputs, targets):
+                    self._check_seq_batch(x)
+                inputs, targets = (_block(x, s_, n_s, dim=1)
                                    for x in (inputs, targets))
             return inputs, targets, count
 
@@ -526,12 +592,6 @@ class DistriOptimizer(Optimizer):
         mesh, group, model = self._mesh, self.group, self.model
         local = self._check_run()
         specs = named_specs(model, "model", mesh)
-        if any(getattr(m, "w_regularizer", None) is not None or
-               getattr(m, "b_regularizer", None) is not None
-               for m in model.modules()):
-            raise NotImplementedError(
-                "regularizers under the tensor-parallel step are not "
-                "ported yet")
         for m in model.modules():
             if isinstance(m, MultiHeadAttention):
                 m.set_model_parallel("model")
@@ -543,6 +603,7 @@ class DistriOptimizer(Optimizer):
         names = [k for k, _ in model.named_parameters()]
         full = [p for _, p in model.named_parameters()]
         split = [split_dim(specs[k], "model") for k in names]
+        split_names = {k for k, d in zip(names, split) if d is not None}
         slot_specs = zero1_slot_specs(
             {k: tuple(p.shape) for k, p in zip(names, full)}, specs, n_d)
         sdims = [split_dim(slot_specs[k], "data") for k in names]
@@ -588,9 +649,11 @@ class DistriOptimizer(Optimizer):
         def step(inputs, targets, hyper):
             saved = [b.clone() for b in mstate] if guard else []
             with bind_axes(mesh, ["model"]):
+                by_name = dict(zip(names, live))
                 out = mixed_precision_forward(model, inputs, self.precision,
-                                              params=dict(zip(names, live)))
-                loss = self._loss(out, targets)
+                                              params=by_name)
+                loss = self._loss(out, targets, penalty=_split_penalty(
+                    model, by_name, split_names, mesh.group("model")))
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
             with torch.no_grad():
                 loss = loss.detach()
@@ -697,6 +760,37 @@ class DistriOptimizer(Optimizer):
         self.optim_method.set_slots(canon)
 
 
+def _split_penalty(model: torch.nn.Module, params: Dict[str, torch.Tensor],
+                   split: set, group) -> Optional[torch.Tensor]:
+    """The layers' regularizer penalties over ``params`` (by parameter
+    name), some of them this rank's blocks of weights split over
+    ``group`` (the names in ``split``): the whole model's penalty in value
+    (the blocks' terms summed over the group), and in gradient each
+    block's own term (the JAX GSPMD step's ``regularization_penalty`` over
+    its sharded parameters).  None when no layer has a regularizer."""
+    whole, blocks = [], []
+    for mname, m in model.named_modules():
+        regs = {"weight": getattr(m, "w_regularizer", None),
+                "bias": getattr(m, "b_regularizer", None)}
+        if regs["weight"] is None and regs["bias"] is None:
+            continue
+        for k in sorted(dict(m.named_parameters(recurse=False))):
+            reg = regs["bias" if k == "bias" else "weight"]
+            if reg is None:
+                continue
+            full = f"{mname}.{k}" if mname else k
+            (blocks if full in split else whole).append(
+                reg.penalty([params[full]]))
+    terms = whole + blocks
+    if not terms:
+        return None
+    total = sum(terms[1:], terms[0])
+    if blocks and dist.get_world_size(group) > 1:
+        local = sum(blocks[1:], blocks[0]).detach()
+        total = total + (axis_sum(local.clone(), group) - local)
+    return total
+
+
 def _block_dim(t: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
     """Block ``i`` of ``n`` of ``t`` along ``dim`` (a view)."""
     size = t.shape[dim] // n
@@ -731,17 +825,19 @@ def _gather_dim(block: torch.Tensor, dim: int, group, n: int
     return out.movedim(0, dim)
 
 
-def _block(x, i: int, n: int):
-    """Block ``i`` of ``n`` along the batch rows of a host batch (nested
-    lists of arrays)."""
+def _block(x, i: int, n: int, dim: int = 0):
+    """Block ``i`` of ``n`` along dim ``dim`` (the batch rows, or time) of a
+    host batch (nested lists of arrays)."""
     if isinstance(x, (list, tuple)):
-        return [_block(t, i, n) for t in x]
+        return [_block(t, i, n, dim) for t in x]
     x = np.asarray(x)
-    if x.shape[0] % n:
-        raise ValueError(f"a batch of {x.shape[0]} rows does not split "
-                         f"over an axis of {n} ranks")
-    rows = x.shape[0] // n
-    return x[i * rows:(i + 1) * rows]
+    if x.shape[dim] % n:
+        raise ValueError(f"a batch of {x.shape[dim]} along dim {dim} does "
+                         f"not split over an axis of {n} ranks")
+    size = x.shape[dim] // n
+    cut = [slice(None)] * x.ndim
+    cut[dim] = slice(i * size, (i + 1) * size)
+    return x[tuple(cut)]
 
 
 def _global_batch(shard_iters, partition_num: int):

@@ -21,7 +21,8 @@ Specs are written in the port's parameter layout: ``Linear`` keeps
 PyTorch's (out, in) weight, so its column split is ``P(axis, None)`` where
 the JAX package's (in, out) weight has ``P(None, axis)``;
 ``MultiHeadAttention`` keeps the JAX package's (in, out) weights and
-specs.  The JAX package's ``Bottle`` is not ported.
+specs.  ``Bottle`` is a container of one child here, so the walk reaches
+through it as the JAX package's ``_specs`` does (its ``[inner]`` entry).
 """
 
 from __future__ import annotations

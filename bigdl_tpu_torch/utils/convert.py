@@ -22,7 +22,9 @@ modules hold nothing (:mod:`bigdl_tpu_torch.nn.layout`).  A
 expert template's tree with a leading expert dim on every leaf (the
 layouts above apply behind it), and its state ``{"expert": tree,
 "aux_loss": scalar}``.  ``Remat`` is a container of one child in both
-packages.
+packages.  A pipeline's stacked stage tree (the JAX package's
+``stack_stage_params``: every leaf with a leading stage dim) goes to and
+from a list of the port's per-stage blocks.
 """
 
 from __future__ import annotations
@@ -185,17 +187,44 @@ def _params(module: nn.Module) -> Dict[str, torch.Tensor]:
     return dict(module.named_parameters(recurse=False))
 
 
-def params_from_jax(jax_params: Any, torch_model: nn.Module) -> nn.Module:
+def _row(tree: Any, i: int) -> Any:
+    """Row ``i`` of every leaf of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _row(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_row(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Stack same-structured trees leaf-wise along a new leading dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([t[j] for t in trees]) for j in range(len(first))]
+    return np.stack(trees)
+
+
+def params_from_jax(jax_params: Any, torch_model) -> Any:
     """Copy a JAX parameter tree, as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, model.params)``), into the port's
-    model of the same structure, in place; returns the model.  Raises
-    :class:`ValueError` where the trees differ."""
+    model of the same structure, in place; returns the model.  A list of
+    per-stage blocks takes a stacked stage tree, row i into block i.
+    Raises :class:`ValueError` where the trees differ."""
+    if isinstance(torch_model, (list, tuple)):
+        for i, block in enumerate(torch_model):
+            _load(_row(jax_params, i), block, "parameter", _params)
+        return torch_model
     return _load(jax_params, torch_model, "parameter", _params)
 
 
-def params_to_jax(torch_model: nn.Module) -> Any:
+def params_to_jax(torch_model) -> Any:
     """The inverse of :func:`params_from_jax`: the port's parameters as a
-    numpy tree in the JAX package's layout, of fresh host arrays."""
+    numpy tree in the JAX package's layout, of fresh host arrays (a list
+    of per-stage blocks gives the stacked stage tree)."""
+    if isinstance(torch_model, (list, tuple)):
+        return _stack([_dump(b, _params) for b in torch_model])
     return _dump(torch_model, _params)
 
 

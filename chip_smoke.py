@@ -8,6 +8,10 @@
                                           # over 4 cards
     python3 chip_smoke.py --ep 4 nccl     # phase 15: the 604M MoE LM's
                                           # experts split over 4 cards
+    python3 chip_smoke.py --pp 4 nccl     # phase 16: the LM's width as
+                                          # GPipe stages on 4 cards
+    python3 chip_smoke.py --sp 4 nccl     # phase 16: the LM at T8192,
+                                          # ring attention over 4 cards
 
 Phases, each fatal on any fault:
 
@@ -300,13 +304,41 @@ Phases, each fatal on any fault:
    top-2 MoE LM with flash, each over a (1, 4) mesh, 6 bf16 Adam steps at
    B8/T2048: finite losses, every rank's weights the same; rank 0 logs
    the step, tokens/s and peak memory a card.
+16. GPipe and ring-attention sequence parallelism.  (a) At the 134M LM's
+   width on one card, over an NCCL group of one rank, each run beside
+   ``LocalOptimizer`` from the same weights and rows in the same call,
+   SGD(0.05, momentum 0.9), 2 warm-up and 20 timed steps at B8/T2048:
+   ``DistriOptimizer`` on a ``("data", "seq")`` (1, 1) mesh trains phase
+   4's 8-layer LM in bf16 through the ring path (one block; no flash: the
+   ring refuses it, as in the JAX package), losses within 2e-2 relative
+   and the weights within 0.1 of the update of the dense run's;
+   ``PipelineOptimizer`` on a ``("stage",)`` (1,) mesh trains
+   ``transformer_lm_pipeline(n_layers=1)`` in fp32 (the JAX package's
+   trainer is fp32-only) with 4 microbatches, losses and weights within
+   rtol 2e-4 / atol 2e-5.  Logged: each run's step ms with its median's
+   95% interval, tokens/s and peak memory; the flash launches of the phase
+   (none).  (b) On CPU tensors in four gloo children of this script
+   (``--pl-rank``; MP_TIMEOUT for all, every one killed when one fails):
+   a tiny LM trained on ``stage`` 4, ``("data", "stage")`` 2 x 2,
+   ``("stage", "model")`` 2 x 2, ``("data", "seq")`` 1 x 4 and 2 x 2,
+   each within rtol 2e-4 / atol 2e-5 of ``LocalOptimizer`` over the same
+   rows with every replica's weights the same; ``pipeline_apply`` on four
+   stages against the stages run in turn and ``ring_self_attention`` on
+   four ranks against the full sequence, outputs and gradients within the
+   JAX package's test tolerances.  By hand on four cards (not in the
+   default run): ``--pp 4 nccl`` trains the LM's width as four fp32
+   pipeline stages of one block (4 microbatches) over a (4,) ``stage``
+   mesh, ``--sp 4 nccl`` the 8-layer LM at T8192 (T2048 a card) in bf16
+   over a (1, 4) ``("data", "seq")`` mesh, 6 Adam steps at B8 each, with
+   what ``--tp 4`` checks and logs.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
 run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
 phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
-in phase 15 (a); phases 8, 9, 11, 12 and 14 run none of them), then the
+in phase 15 (a) and as ``pipeline_launches`` in phase 16 (a); phases 8,
+9, 11, 12, 14 and 16 run none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -4572,10 +4604,11 @@ def mp_rank(rank: int, world: int, store: str, outdir: str) -> int:
     return 0
 
 
-def mp_spawn(world: int) -> list:
-    """MP_WORLD ranks of :func:`mp_rank` as children of this script
-    (``--mp-rank``) on a file:// store, MP_TIMEOUT seconds for all, every
-    one killed when one fails.  Returns each rank's results."""
+def mp_spawn(world: int, flag: str = "--mp-rank") -> list:
+    """``world`` ranks of :func:`mp_rank` (``flag`` "--mp-rank") or
+    :func:`pl_rank` ("--pl-rank") as children of this script on a file://
+    store, MP_TIMEOUT seconds for all, every one killed when one fails.
+    Returns each rank's results."""
     import shutil
     import tempfile
     import numpy as np
@@ -4585,7 +4618,7 @@ def mp_spawn(world: int) -> list:
         for rank in range(world):
             logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mp-rank",
+                [sys.executable, os.path.abspath(__file__), flag,
                  str(rank), str(world), os.path.join(tmp, "store"), tmp],
                 cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
         try:
@@ -4717,7 +4750,12 @@ def mesh_rank(rank: int, world: int, mode: str, store: str,
     """One NCCL rank of ``--tp N`` (the 134M LM, tp-tagged, no flash: the
     head split refuses it) or ``--ep N`` (the 604M MoE LM, top-2, flash)
     over a (1, N) mesh, MESH_STEPS bf16 Adam steps at B8/T2048 on card
-    ``rank``; rank 0 logs; results to ``outdir/rank<rank>.npz``."""
+    ``rank``; ``--pp N``: the LM's width as N pipeline stages of one block
+    (``transformer_lm_pipeline``, PP_MICRO microbatches, fp32, the JAX
+    package's PipelineOptimizer being fp32-only) over a (N,) ``stage``
+    mesh at B8/T2048; ``--sp N``: the 8-layer LM at T SP_LONG (each card
+    T SP_LONG / N, ring attention) over a (1, N) ``("data", "seq")`` mesh
+    in bf16 at B8.  Rank 0 logs; results to ``outdir/rank<rank>.npz``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4730,18 +4768,37 @@ def mesh_rank(rank: int, world: int, mode: str, store: str,
     DEVICE = f"cuda:{rank}"
     Engine.init_distributed(backend="nccl", init_method=f"file://{store}",
                             rank=rank, world_size=world, device=DEVICE)
-    axis = "model" if mode == "tp" else "expert"
-    mesh = Engine.create_mesh((1, world), ("data", axis))
-    if mode == "tp":
-        model = transformer_lm(VOCAB, D_MODEL, N_HEAD, N_LAYERS, max_len=SEQ,
-                               tp=True, device=DEVICE, seed=SEED)
-    else:
-        model = moe_lm(2)
-    ds = ShardedDataSet(lm_samples(), 1).transform(
+    seq = SP_LONG if mode == "sp" else SEQ
+    samples = (pl_rows(VOCAB, SP_LONG, TRAIN_SAMPLES) if mode == "sp"
+               else lm_samples())
+    ds = ShardedDataSet(samples, 1).transform(
         SampleToMiniBatch(TRAIN_BATCH, 1))
-    opt = DistriOptimizer(model, ds, lm_criterion(), mesh=mesh,
-                          device=DEVICE)
-    opt.set_optim_method(Adam(MOE_LR)).set_precision("bf16")
+    if mode == "pp":
+        from bigdl_tpu_torch.models.transformer import \
+            transformer_lm_pipeline
+        from bigdl_tpu_torch.parallel import PipelineOptimizer
+        embed, blocks, head = transformer_lm_pipeline(
+            VOCAB, D_MODEL, N_HEAD, n_layers=world, max_len=SEQ,
+            device=DEVICE, seed=SEED)
+        opt = PipelineOptimizer(blocks, ds, lm_criterion(),
+                                mesh=Engine.create_mesh((world,),
+                                                        ("stage",)),
+                                n_micro=PP_MICRO, embed=embed, head=head,
+                                device=DEVICE)
+        model = opt.model
+    else:
+        axis = {"tp": "model", "ep": "expert", "sp": "seq"}[mode]
+        mesh = Engine.create_mesh((1, world), ("data", axis))
+        if mode == "ep":
+            model = moe_lm(2)
+        else:
+            model = transformer_lm(VOCAB, D_MODEL, N_HEAD, N_LAYERS,
+                                   max_len=seq, tp=mode == "tp",
+                                   device=DEVICE, seed=SEED)
+        opt = DistriOptimizer(model, ds, lm_criterion(), mesh=mesh,
+                              device=DEVICE)
+        opt.set_precision("bf16")
+    opt.set_optim_method(Adam(MOE_LR))
     opt.set_end_when(max_iteration(MESH_STEPS))
     torch.cuda.reset_peak_memory_stats()
     opt.optimize()
@@ -4751,7 +4808,8 @@ def mesh_rank(rank: int, world: int, mode: str, store: str,
     if rank == 0:
         log(f"[mesh] --{mode} {world}: losses {[round(x, 4) for x in losses]}"
             f"; step {step * 1e3:.2f} ms (median of steps 3-{MESH_STEPS}), "
-            f"{TRAIN_BATCH * SEQ / step:,.0f} tokens/s, peak "
+            f"{TRAIN_BATCH * seq / step:,.0f} tokens/s at B{TRAIN_BATCH}/"
+            f"T{seq}, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB a card on "
             f"{gpu_line()}")
     flat = torch.cat([p.detach().float().reshape(-1)
@@ -4830,10 +4888,339 @@ def phase_sharded(card: str) -> dict:
     return launches
 
 
+# ---- phase 16: GPipe and ring-attention sequence parallelism ---------------
+
+SP_WARMUP, SP_TIMED = 2, 20   # phase 16 (a): steps of each run; the timed
+                              # medians resolve a 5% change (MOE_SPREAD)
+SP_LR = 0.05                  # SGD with momentum 0.9: Adam would blow the key
+                              # biases' rounding-level gradients (exactly 0)
+                              # up to steps of its learning rate
+SP_LOSS_RTOL = 2e-2           # bf16 losses, the ring (online softmax in bf16
+                              # accumulators) against the standard attention
+SP_UPDATE_RTOL = 0.1          # bf16: |w_sp - w_local| / |w_local - w_0|
+PP_LAYERS, PP_MICRO = 1, 4    # the fp32 pipeline: one stage of one block
+PP_RTOL, PP_ATOL = 2e-4, 2e-5  # fp32 losses and weights (MP_RTOL / MP_ATOL)
+PL_WORLD = 4                  # (b): the gloo legs, four children
+PL_LM = dict(vocab_size=64, d_model=32, n_head=4, max_len=16)
+PL_LEGS = (("stage4", (4,), ("stage",)),
+           ("data2_stage2", (2, 2), ("data", "stage")),
+           ("stage2_model2", (2, 2), ("stage", "model")),
+           ("seq4", (1, 4), ("data", "seq")),
+           ("data2_seq2", (2, 2), ("data", "seq")))
+SP_LONG = 8192                # --sp N by hand: T a card of SP_LONG / N
+#: (b): (rtol, atol) of pipeline_apply against the stages in turn and of
+#: the ring against the full sequence, forward and gradients (the JAX
+#: package's tests/test_pipeline.py and tests/test_attention.py)
+PL_TOL = {"pipe/out": (1e-5, 1e-6), "pipe/grad": (1e-4, 1e-6),
+          "ring/out": (2e-5, 2e-6), "ring/grad": (5e-4, 5e-5)}
+
+
+def pl_rows(vocab: int, seq: int, n: int, seed: int = SEED + 16) -> list:
+    import numpy as np
+    from bigdl_tpu_torch.dataset import Sample
+    ids = np.random.default_rng(seed).integers(
+        1, vocab + 1, (n, seq + 1)).astype(np.float32)
+    return [Sample(r[:-1], r[1:]) for r in ids]
+
+
+def pl_train(kind: str, samples, batch: int, steps: int, device: str,
+             widths: dict, mesh=None, dp: int = 1, precision=None,
+             n_micro: int = PP_MICRO):
+    """SGD(SP_LR, momentum 0.9) of the LM at ``widths`` (no flash: the ring
+    refuses it and the pipeline blocks build none) over ``samples`` in the
+    rows' order: ``kind`` "local" (LocalOptimizer), "seq" (DistriOptimizer
+    over ``mesh``) or "pipe" (PipelineOptimizer over ``mesh``, one block a
+    stage).  Returns (optimizer, initial weights on the host)."""
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.models.transformer import (transformer_lm,
+                                                    transformer_lm_pipeline)
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.parallel import DistriOptimizer, PipelineOptimizer
+    ds = ShardedDataSet(samples, dp).transform(SampleToMiniBatch(batch, dp))
+    if kind == "pipe":
+        embed, blocks, head = transformer_lm_pipeline(
+            device=device, seed=SEED, tp="model" in mesh.shape, **widths)
+        opt = PipelineOptimizer(blocks, ds, lm_criterion(), mesh=mesh,
+                                n_micro=n_micro, embed=embed, head=head,
+                                device=device)
+    else:
+        model = transformer_lm(device=device, seed=SEED, **widths)
+        opt = (LocalOptimizer(model, ds, lm_criterion(), device=device)
+               if kind == "local" else
+               DistriOptimizer(model, ds, lm_criterion(), mesh=mesh,
+                               device=device))
+    init = [p.detach().float().cpu().clone() for p in opt.model.parameters()]
+    opt.set_optim_method(SGD(SP_LR, momentum=0.9)).set_precision(precision)
+    opt.set_end_when(max_iteration(steps)).optimize()
+    return opt, init
+
+
+def pl_rank(rank: int, world: int, store: str, outdir: str) -> int:
+    """One gloo rank of phase 16 (b): every leg of PL_LEGS (GPipe over a
+    ``stage`` axis, with ``data`` and with ``model``; ring attention over
+    a ``seq`` axis, with ``data``) trains the small LM with each rank also
+    training LocalOptimizer over the same rows; a pipeline_apply forward
+    and backward on the stage axis of four against the stages run in turn,
+    and ring_self_attention against the full sequence; the results go to
+    ``outdir/rank<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.models.transformer import transformer_block
+    from bigdl_tpu_torch.nn import MultiHeadAttention, Sequential
+    from bigdl_tpu_torch.parallel import (pipeline_apply,
+                                          pipeline_shard_params,
+                                          ring_self_attention,
+                                          stack_stage_params)
+    torch.set_num_threads(1)
+    Engine.init_distributed(backend="gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world, device="cpu")
+    out = {}
+    samples = pl_rows(PL_LM["vocab_size"], PL_LM["max_len"], MP_SAMPLES)
+    for leg, shape, axes in PL_LEGS:
+        mesh = Engine.create_mesh(shape, axes)
+        dp = shape[0] if axes[0] == "data" else 1
+        layers = mesh.shape.get("stage", 2)
+        widths = dict(PL_LM, n_layers=layers)
+        kind = "pipe" if "stage" in axes else "seq"
+        got, _ = pl_train(kind, samples, MP_BATCH, MP_STEPS, "cpu", widths,
+                          mesh=mesh, dp=dp, n_micro=2)
+        want, _ = pl_train("local", samples, MP_BATCH, MP_STEPS, "cpu",
+                           widths)
+        for name, opt in (("mesh", got), ("local", want)):
+            out[f"{leg}/{name}/loss"] = np.array(
+                [h["loss"] for h in opt.history])
+            for i, p in enumerate(opt.model.parameters()):
+                out[f"{leg}/{name}/{i}"] = p.detach().numpy()
+    # pipeline_apply's output and gradients against the stages in turn
+    mesh = Engine.create_mesh((4,), ("stage",))
+    g = torch.Generator().manual_seed(SEED)
+    blocks = [transformer_block(PL_LM["d_model"], PL_LM["n_head"],
+                                device="cpu", generator=g) for _ in range(4)]
+    x = torch.randn(8, PL_LM["max_len"], PL_LM["d_model"], generator=g)
+    seq = Sequential()
+    for b in blocks:
+        seq.add(b)
+    want = seq(x)
+    w_grads = torch.autograd.grad(want.square().mean(),
+                                  list(blocks[rank].parameters()))
+    mine = pipeline_shard_params(stack_stage_params(
+        [dict(b.named_parameters()) for b in blocks]), mesh)
+    for v in mine.values():
+        v.requires_grad_()
+    got = pipeline_apply(blocks[rank], mine, x, 4, mesh)
+    grads = torch.autograd.grad(got.square().mean(), list(mine.values()))
+
+    def excess(key, pairs):
+        """The worst |a - b| - rtol |b| of ``pairs``: within PL_TOL when at
+        most its atol."""
+        out[key] = np.array(max(
+            ((a - b).abs() - PL_TOL[key][0] * b.abs()).max().item()
+            for a, b in pairs))
+
+    excess("pipe/out", [(got.detach(), want.detach())])
+    excess("pipe/grad", zip(grads, w_grads))
+    # ring_self_attention against the full sequence
+    mesh = Engine.create_mesh((4,), ("seq",))
+    mha = MultiHeadAttention(PL_LM["d_model"], PL_LM["n_head"], causal=True,
+                             device="cpu", generator=g)
+    full = mha(x)
+    ring = ring_self_attention(mha, None, x, mesh)
+    t = PL_LM["max_len"] // 4
+    excess("ring/out", [(ring.detach(),
+                         full[:, rank * t:(rank + 1) * t].detach())])
+    params = list(mha.parameters())
+    g_ring = [t_.clone() for t_ in torch.autograd.grad(
+        ring.square().sum(), params)]
+    for t_ in g_ring:
+        dist.all_reduce(t_)
+    g_full = torch.autograd.grad(full.square().sum(), params)
+    excess("ring/grad", zip(g_ring, g_full))
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharding_gloo(card: str) -> None:
+    """Phase 16 (b): the legs of :func:`pl_rank` in PL_WORLD gloo children
+    (``--pl-rank``, MP_TIMEOUT for all, every one killed when one fails):
+    weights and losses within MP_RTOL / MP_ATOL of LocalOptimizer over the
+    same rows, every rank's weights the same as every other replica's;
+    pipeline_apply and the ring within PL_TOL of the stages in turn and
+    the full sequence, forward and gradients."""
+    import numpy as np
+    t = time.perf_counter()
+    outs = mp_spawn(PL_WORLD, "--pl-rank")
+    worst = {}
+    for leg, _, _ in PL_LEGS:
+        keys = sorted(k for k in outs[0] if k.startswith(f"{leg}/mesh/"))
+        for r, o in enumerate(outs):
+            for k in keys:
+                np.testing.assert_allclose(
+                    o[k], o[k.replace("/mesh/", "/local/")], rtol=MP_RTOL,
+                    atol=MP_ATOL, err_msg=f"{k} of rank {r} against "
+                                          "LocalOptimizer")
+                if not k.endswith("loss") and not np.array_equal(
+                        o[k], outs[0][k]):
+                    raise AssertionError(f"{k}: rank {r} differs from 0")
+        worst[leg] = max(float(np.abs(outs[0][k] - outs[0][k.replace(
+            "/mesh/", "/local/")]).max()) for k in keys)
+    diffs = {k: max(float(o[k]) for o in outs) for k in PL_TOL}
+    log(f"[pipeline] gloo legs on the CPU: worst difference from "
+        f"LocalOptimizer {worst} (rtol {MP_RTOL}, atol {MP_ATOL}); "
+        f"pipeline_apply and the ring against the stages in turn and the "
+        f"full sequence, worst |a - b| - rtol |b| {diffs} (atol "
+        f"{ {k: v[1] for k, v in PL_TOL.items()} }); "
+        f"{time.perf_counter() - t:.1f} s on the machine of {card}")
+    if any(diffs[k] > PL_TOL[k][1] for k in PL_TOL):
+        raise AssertionError(f"pipeline_apply / ring: {diffs}")
+
+
+def pl_timed(card: str, label: str, opt, tokens: int) -> dict:
+    """The run's timed steps (after SP_WARMUP): median, 95% interval,
+    tokens/s and peak memory, logged."""
+    import torch
+    timed = [h["seconds"] for h in opt.history][SP_WARMUP:]
+    med, lo, hi = median_interval(timed)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[pipeline] {label}: step {med * 1e3:.2f} ms (median of "
+        f"{len(timed)}, 95% interval {lo * 1e3:.2f}-{hi * 1e3:.2f} ms: "
+        f"{'resolves' if (hi - lo) / med < MOE_SPREAD else 'does NOT resolve'}"
+        f" a 5% change), {tokens / med:,.0f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB on {card}")
+    return {"step_s": med, "tokens_s": tokens / med, "peak": peak}
+
+
+def pl_pair(card: str, label: str, kind: str, mesh, widths: dict,
+            precision) -> tuple:
+    """``kind`` over ``mesh`` and LocalOptimizer from the same weights and
+    rows (SP_WARMUP + SP_TIMED steps each, B{TRAIN_BATCH}/T{SEQ}); returns
+    (the two optimizers, their timings, the initial weights)."""
+    import gc
+    import torch
+    samples = lm_samples()
+    runs, times = {}, {}
+    for name in (kind, "local"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[name], init = pl_train(
+            name, samples, TRAIN_BATCH, SP_WARMUP + SP_TIMED, DEVICE, widths,
+            mesh=mesh if name == kind else None, precision=precision)
+        torch.cuda.synchronize()
+        times[name] = pl_timed(card, f"{label} {name}", runs[name],
+                               TRAIN_BATCH * SEQ)
+        gc.collect()
+    return runs, times, init
+
+
+def phase_sharding_full(card: str) -> dict:
+    """Phase 16 (a): at the 134M LM's width on one card over an NCCL group
+    of one rank.  DistriOptimizer on a ("data", "seq") (1, 1) mesh trains
+    the 8-layer LM in bf16 through the ring path (one block: the online
+    softmax over the whole sequence); PipelineOptimizer on a ("stage",)
+    (1,) mesh trains transformer_lm_pipeline(n_layers=PP_LAYERS) in fp32
+    with PP_MICRO microbatches.  Each beside LocalOptimizer from the same
+    weights and rows (SGD) in this call: losses within SP_LOSS_RTOL and
+    the weights' difference within SP_UPDATE_RTOL of the update (bf16), or
+    losses and weights within PP_RTOL / PP_ATOL (fp32).  Returns the flash
+    launches of the phase: none (the ring refuses flash, as the JAX
+    package, and the pipeline's blocks build none)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pl_")
+    Engine.init_distributed(backend="nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1, device=DEVICE)
+    fa.reset_launches()
+    try:
+        widths = dict(vocab_size=VOCAB, d_model=D_MODEL, n_head=N_HEAD,
+                      n_layers=N_LAYERS, max_len=SEQ)
+        runs, times, init = pl_pair(
+            card, f"ring LM ({N_LAYERS} layers, bf16)", "seq",
+            Engine.create_mesh((1, 1), ("data", "seq")), widths, "bf16")
+        sp, loc = runs["seq"], runs["local"]
+        sp_loss = [h["loss"] for h in sp.history]
+        loc_loss = [h["loss"] for h in loc.history]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(sp_loss, loc_loss))
+        w_sp, w_loc = ([p.detach().float().cpu() for p in o.model.parameters()]
+                       for o in (sp, loc))
+        upd = math.sqrt(sum(float((a - b).square().sum())
+                            for a, b in zip(w_sp, w_loc))) / math.sqrt(sum(
+                                float((a - b).square().sum())
+                                for a, b in zip(w_loc, init)))
+        del runs, sp, loc, w_sp, w_loc, init
+        torch.cuda.empty_cache()
+        log(f"[pipeline] ring LM against LocalOptimizer: losses "
+            f"{[round(x, 4) for x in sp_loss[:4]]}... against "
+            f"{[round(x, 4) for x in loc_loss[:4]]}..., worst relative "
+            f"{rel:.3g} (gate {SP_LOSS_RTOL}); weights' difference "
+            f"{upd:.3g} of the update (gate {SP_UPDATE_RTOL}); step "
+            f"{times['seq']['step_s'] / times['local']['step_s']:.3f}x the "
+            f"dense step on {card}")
+        if not all(map(math.isfinite, sp_loss)) or rel > SP_LOSS_RTOL or \
+                upd > SP_UPDATE_RTOL:
+            raise AssertionError(f"ring LM: losses {sp_loss} against "
+                                 f"{loc_loss}, weights {upd}")
+        widths = dict(widths, n_layers=PP_LAYERS)
+        runs, times, _ = pl_pair(
+            card, f"pipeline LM ({PP_LAYERS} stage, {PP_MICRO} "
+                  f"microbatches, fp32)", "pipe",
+            Engine.create_mesh((1,), ("stage",)), widths, None)
+        pp, loc = runs["pipe"], runs["local"]
+        pp_loss = [h["loss"] for h in pp.history]
+        loc_loss = [h["loss"] for h in loc.history]
+        worst = 0.0
+        for a, b in zip(pp.model.parameters(), loc.model.parameters()):
+            a, b = a.detach(), b.detach()
+            worst = max(worst, ((a - b).abs() - PP_RTOL * b.abs()).max()
+                        .item())
+        log(f"[pipeline] pipeline LM against LocalOptimizer: losses "
+            f"{[round(x, 5) for x in pp_loss[:4]]}..., worst weight "
+            f"difference beyond rtol {PP_RTOL}: {worst:.3g} (atol "
+            f"{PP_ATOL}); step "
+            f"{times['pipe']['step_s'] / times['local']['step_s']:.3f}x the "
+            f"dense step on {card}")
+        ok = all(map(math.isfinite, pp_loss)) and worst <= PP_ATOL and all(
+            abs(a - b) <= PP_ATOL + PP_RTOL * abs(b)
+            for a, b in zip(pp_loss, loc_loss))
+        if not ok:
+            raise AssertionError(f"pipeline LM: losses {pp_loss} against "
+                                 f"{loc_loss}, weights {worst}")
+        del runs, pp, loc
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    log(f"[pipeline] flash launches in phase 16 (a): {launches} (expected "
+        "none)")
+    if any(launches.values()):
+        raise AssertionError(f"phase 16 launched flash: {launches}")
+    return launches
+
+
+def phase_sharding(card: str) -> dict:
+    """Phase 16: GPipe and ring-attention sequence parallelism.  Returns
+    the flash launches of (a), the phase's main path."""
+    import torch
+    t = time.perf_counter()
+    launches = phase_sharding_full(card)
+    torch.cuda.empty_cache()
+    phase_sharding_gloo(card)
+    log(f"[pipeline] phase 16 took {time.perf_counter() - t:.1f} s on "
+        f"{card}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
-                sharded: dict) -> list:
+                sharded: dict, pipelined: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -4841,7 +5228,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     phase 10's DistriOptimizer run of the LM, ``drivers_launches`` in
     phase 12 (the drivers build no flash model: 0), ``telemetry_launches``
     in phase 13, ``zoo_rnn_launches`` in phase 14 (no flash model: 0),
-    ``sharded_launches`` in phase 15 (a)."""
+    ``sharded_launches`` in phase 15 (a), ``pipeline_launches`` in phase
+    16 (a) (the ring and the pipeline blocks run no flash: 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -4859,7 +5247,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "drivers_launches": drivers[name],
                     "telemetry_launches": traced[name],
                     "zoo_rnn_launches": zoo_rnn[name],
-                    "sharded_launches": sharded[name]})
+                    "sharded_launches": sharded[name],
+                    "pipeline_launches": pipelined[name]})
     return out
 
 
@@ -4915,16 +5304,19 @@ def main(argv=None) -> int:
                        argv[5])
     if argv[:1] == ["--dp"]:
         return main_dp(int(argv[1]), argv[2])
-    if argv[:1] in (["--mp-rank"], ["--mesh-rank"]):  # a child of phase 15
+    if argv[:1] in (["--mp-rank"], ["--mesh-rank"], ["--pl-rank"]):
+        # a child of phase 15 or 16, or of a by-hand mesh run
         if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
             return 1
         sys.path.insert(0, HERE)
         fail_fast()
         if argv[0] == "--mp-rank":
             return mp_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
+        if argv[0] == "--pl-rank":
+            return pl_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
         return mesh_rank(int(argv[1]), int(argv[2]), argv[3], argv[4],
                          argv[5])
-    if argv[:1] in (["--tp"], ["--ep"]):
+    if argv[:1] in (["--tp"], ["--ep"], ["--pp"], ["--sp"]):
         return main_mesh(argv[0][2:], int(argv[1]), argv[2])
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -4972,10 +5364,12 @@ def main(argv=None) -> int:
     zoo_rnn = phase_zoo_rnn(card)
     torch.cuda.empty_cache()
     sharded = phase_sharded(card)
+    torch.cuda.empty_cache()
+    pipelined = phase_sharding(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
-                          sharded)
+                          sharded, pipelined)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -861,19 +861,16 @@ def test_zoo_driver_trains(main, argv, snapshots, printed, tmp_path, capsys,
 ], ids=["seq-parallel", "tensor-parallel", "moe-experts", "expert-parallel",
         "pipeline", "remat"])
 def test_refused_flags_raise(main, flag, driver_logging):
-    """``--seq-parallel`` and ``--pipeline`` are still not ported and
-    raise.  The rest are ported now and act as the JAX driver's:
-    ``--expert-parallel`` without ``--moe-experts`` exits, a mesh asks
-    for as many ranks as it has, and ``--moe-experts``/``--remat`` train
-    (the meshes train in ``tests/test_torch_port_model_parallel.py``)."""
+    """Every flag is ported and acts as the JAX driver's:
+    ``--expert-parallel`` without ``--moe-experts`` exits, a mesh
+    (``--seq-parallel``, ``--tensor-parallel``, ``--pipeline``) asks for
+    as many ranks as it has, and ``--moe-experts``/``--remat`` train (the
+    meshes train in ``tests/test_torch_port_model_parallel.py``)."""
     argv = ["--synthetic", "8", "--device", "cpu"] + flag
-    if flag[0] in ("--seq-parallel", "--pipeline"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(argv)
-    elif flag[0] == "--expert-parallel":
+    if flag[0] == "--expert-parallel":
         with pytest.raises(SystemExit, match="needs --moe-experts"):
             main(argv)
-    elif flag[0] == "--tensor-parallel":
+    elif flag[0] in ("--tensor-parallel", "--seq-parallel", "--pipeline"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
             main(argv)
     else:

@@ -957,10 +957,16 @@ def test_unported_features_raise(group1, ask):
                           pnn.ClassNLLCriterion(), device="cpu")
     opt.set_end_when(max_iteration(1))
     if ask == "set_mesh":
-        # the model and expert axes are ported now; a seq axis (ring
-        # attention) is not
-        with pytest.raises(NotImplementedError, match="'seq' axis"):
-            opt.set_mesh(Engine.create_mesh((1, 1), ("data", "seq")))
+        # every axis of the JAX package is ported now: a seq mesh is taken
+        # (its batches must be (N, T, ...): the MLP's labels are not), an
+        # unknown axis raises
+        with pytest.raises(ValueError, match="expected 'data'"):
+            opt.set_mesh(Engine.create_mesh((1, 1), ("data", "bogus")))
+        assert opt.set_mesh(Engine.create_mesh(
+            (1, 1), ("data", "seq"))).seq_axis == "seq"
+        with pytest.raises(ValueError, match=r"needs \(N, T, ...\)"):
+            opt.optimize()
+        assert opt.history == []
         return
     value = True if ask.endswith(("Gather", "Signals")) else 1
     with properties([pconfig], **{ask.replace(".", "__"): value}):

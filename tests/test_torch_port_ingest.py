@@ -131,6 +131,24 @@ def entries():
     return out
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads_before():
+    """The threads alive when this module's first test starts.  Another
+    test file that ran earlier in the same worker may leave its own
+    threads behind: the JAX package's ``tests/test_ingest_faults.py``
+    wedges a JAX ``ingest-reader`` thread in a one-hour upstream read on
+    purpose.  The thread checks below hold this module's runs, so they
+    leave those out."""
+    return {t.ident for t in threading.enumerate()}
+
+
+def _live(before, *prefixes):
+    """Threads named with one of ``prefixes`` that were not alive before
+    this module's first test."""
+    return [t for t in threading.enumerate()
+            if t.name.startswith(prefixes) and t.ident not in before]
+
+
 def _records(entries, cls):
     return [cls(n, lab, data) for n, lab, data in entries]
 
@@ -310,7 +328,8 @@ def test_mt_and_streaming_ingest_match_jax(entries, jax_batches, mode,
             np.testing.assert_array_equal(xs[0], ref_x[0], err_msg=name)
 
 
-def test_streaming_ingest_under_thread_stress(entries, jax_batches):
+def test_streaming_ingest_under_thread_stress(entries, jax_batches,
+                                              _threads_before):
     """More decode workers than cores and a short switch interval: the
     batches, the generator state and the stage counters stay exact."""
     interval = sys.getswitchinterval()
@@ -332,8 +351,43 @@ def test_streaming_ingest_under_thread_stress(entries, jax_batches):
     stats = eng.stats()
     assert stats["assemble"]["items"] == N_IMAGES
     assert stats["consume"]["items"] == N_IMAGES // BATCH
-    assert not [t for t in threading.enumerate()
-                if t.name.startswith("ingest-")]
+    assert not _live(_threads_before, "ingest-")
+
+
+def test_a_close_never_returns_with_a_thread_alive(entries, monkeypatch,
+                                                   _threads_before):
+    """A decode held past the close (it waits on an event) keeps its
+    ``ingest-decode`` thread alive: the close raises IngestInfraError
+    naming it once ``JOIN_TIMEOUT_S`` has passed, rather than return with
+    the thread running; the held assembler wakes on ``stop`` and ends."""
+    from bigdl_tpu_torch.dataset import ingest
+    started, release = threading.Event(), threading.Event()
+    decode = mt_batch.MTLabeledBGRImgToBatch._decode
+    calls = {"n": 0}
+
+    def held_decode(data):
+        calls["n"] += 1
+        if calls["n"] == 3:          # the first record of the second batch
+            started.set()
+            release.wait(10.0)
+        return decode(data)
+
+    monkeypatch.setattr(ingest, "JOIN_TIMEOUT_S", 0.2, raising=False)
+    monkeypatch.setattr(mt_batch.MTLabeledBGRImgToBatch, "_decode",
+                        staticmethod(held_decode))
+    with seeded(SEED):
+        it = StreamingIngest(2, crop=CROP, decode_workers=1)(
+            iter(_records(entries, image.LabeledImageBytes)))
+        next(it)
+        assert started.wait(5.0)
+        try:
+            with pytest.raises(IngestInfraError, match="ingest-decode-1"):
+                it.close()
+        finally:
+            release.set()
+    for t in _live(_threads_before, "ingest-"):
+        t.join(5.0)
+    assert not _live(_threads_before, "ingest-")
 
 
 def test_streaming_ingest_refuses_what_is_not_ported():
@@ -498,9 +552,9 @@ def test_file_loaders_and_text_match_jax(tmp_path):
 
 # ----------------------------------------------------- the prefetcher
 
-def _prefetch_threads():
-    return [t for t in threading.enumerate()
-            if t.name.startswith("prefetch-")]
+@pytest.fixture
+def _prefetch_threads(_threads_before):
+    return lambda: _live(_threads_before, "prefetch-")
 
 
 def _epoch_fetch(n_records=20, batch=4):
@@ -532,7 +586,8 @@ def _epoch_fetch(n_records=20, batch=4):
 
 @pytest.mark.parametrize("transfer_ahead", [1, 2])
 @pytest.mark.parametrize("depth", [0, 2])
-def test_prefetcher_sequence_errors_threads_and_rng(depth, transfer_ahead):
+def test_prefetcher_sequence_errors_threads_and_rng(depth, transfer_ahead,
+                                                    _prefetch_threads):
     with seeded(11):
         fetch, on_batch = _epoch_fetch()
         want = []
@@ -591,7 +646,8 @@ def test_prefetcher_sequence_errors_threads_and_rng(depth, transfer_ahead):
         assert pf.error is None
 
 
-def test_prefetcher_over_streaming_ingest_keeps_caller_rng(entries):
+def test_prefetcher_over_streaming_ingest_keeps_caller_rng(
+        entries, _prefetch_threads, _threads_before):
     """Two batches taken from a depth-2 prefetcher over the engine, then
     stopped: the caller's generator is where the synchronous path leaves it
     after two batches (the engine's and the prefetcher's read-ahead
@@ -618,8 +674,7 @@ def test_prefetcher_over_streaming_ingest_keeps_caller_rng(entries):
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
     assert not _prefetch_threads()
-    assert not [t for t in threading.enumerate()
-                if t.name.startswith("ingest-")]
+    assert not _live(_threads_before, "ingest-")
 
 
 def test_dispatch_pipeline_drains_in_order():
@@ -690,7 +745,8 @@ def _train_port(entries, init, depth, device_augment):
     return params_to_jax(model), state_to_jax(model)
 
 
-def test_local_optimizer_over_streaming_ingest(entries, conv_bn_jax):
+def test_local_optimizer_over_streaming_ingest(entries, conv_bn_jax,
+                                               _threads_before):
     init, jparams, jstate = conv_bn_jax
     runs = {(depth, aug): _train_port(entries, init, depth, aug)
             for depth, aug in ((2, True), (0, True), (0, False))}
@@ -706,5 +762,4 @@ def test_local_optimizer_over_streaming_ingest(entries, conv_bn_jax):
             d = np.abs(p - np.asarray(j))
             assert np.sqrt(np.mean(d ** 2)) <= 1e-4 and d.max() <= 1e-3, \
                 (p.shape, np.sqrt(np.mean(d ** 2)), d.max())
-    assert not [t for t in threading.enumerate()
-                if t.name.startswith(("ingest-", "prefetch-"))]
+    assert not _live(_threads_before, "ingest-", "prefetch-")

@@ -25,6 +25,8 @@ import torch
 from bigdl_tpu.models.transformer import PositionOutOfRange as JaxPOR
 from bigdl_tpu.models.transformer import _default_remat as jax_default_remat
 from bigdl_tpu.models.transformer import transformer_lm as jax_lm
+from bigdl_tpu.models.transformer import \
+    transformer_lm_pipeline as jax_lm_pipeline
 from bigdl_tpu.optim.optimizer import \
     mixed_precision_forward as jax_mixed_precision_forward
 from bigdl_tpu_torch.models.transformer import (PositionOutOfRange,
@@ -110,10 +112,11 @@ def test_token_ids_are_one_based_and_clipped_like_jax(jax_model):
 @pytest.mark.parametrize("kw", [{"tp": True}, {"moe_experts": 4},
                                 {"remat": True}])
 def test_options_outside_the_slice_raise(kw):
-    """``tp``, ``moe_experts`` and ``remat`` are ported now (held against
-    the JAX package in ``tests/test_torch_port_moe.py``): each builds what
-    the JAX package's builder builds.  The pipeline builder is still
-    outside the port and raises."""
+    """``tp``, ``moe_experts`` and ``remat`` are ported (held against the
+    JAX package in ``tests/test_torch_port_moe.py``): each builds what the
+    JAX package's builder builds, and so does the pipeline builder with
+    each of them (its embed, blocks and head hold ``transformer_lm``'s
+    layers and, from one seed, its weights)."""
     m = transformer_lm(VOCAB, device="cpu", **SHAPE, **kw)
     ref = jax_lm(VOCAB, **SHAPE, **kw)
     assert [type(c).__name__ for c in m.layers] == \
@@ -127,8 +130,18 @@ def test_options_outside_the_slice_raise(kw):
         assert "MixtureOfExperts" in kinds
     if kw.get("remat"):
         assert "Remat" in kinds
-    with pytest.raises(NotImplementedError):
-        transformer_lm_pipeline(VOCAB, **SHAPE, **kw)
+    embed, blocks, head = transformer_lm_pipeline(VOCAB, device="cpu",
+                                                  **SHAPE, **kw)
+    jembed, jblocks, jhead = jax_lm_pipeline(VOCAB, **SHAPE, **kw)
+    for mine, theirs in ((embed, jembed), (head, jhead)):
+        assert [type(c).__name__ for c in mine.layers] == \
+            [type(c).__name__ for c in theirs.children]
+    assert [type(b).__name__ for b in blocks] == \
+        [type(b).__name__ for b in jblocks]
+    whole = [p for mod in [embed] + blocks + [head]
+             for p in mod.parameters()]
+    assert all(torch.equal(a, b) for a, b in
+               zip(whole, m.parameters(), strict=True))
 
 
 def test_builders_default_to_cuda_and_refuse_without_it():

@@ -563,9 +563,10 @@ def test_tp_specs_match_jax():
 def test_jax_refusals_are_kept(refusal):
     """The JAX package's refusals, with its error types: flash with chunk,
     flash under the Megatron head split (``tp_specs`` and
-    ``set_model_parallel``), tp with MoE in one block; the GPipe builders
-    and trainer still raise NotImplementedError.  (The mesh refusals need
-    a process group: ``tests/test_torch_port_model_parallel.py``.)"""
+    ``set_model_parallel``), tp with MoE in one block, also in the GPipe
+    builder; the GPipe trainer without a ``stage`` axis.  (The mesh
+    refusals need a process group:
+    ``tests/test_torch_port_model_parallel.py``.)"""
     if refusal == "flash_chunk":
         with pytest.raises(ValueError, match="pick one"):
             MultiHeadAttention(128, 1, flash=True, chunk=64, device="cpu")
@@ -586,7 +587,10 @@ def test_jax_refusals_are_kept(refusal):
             transformer_lm(VOCAB, device="cpu", tp=True, moe_experts=4,
                            **LM)
     else:
-        with pytest.raises(NotImplementedError):
-            transformer_lm_pipeline(VOCAB, **LM)
-        with pytest.raises(NotImplementedError):
-            PipelineOptimizer()
+        with pytest.raises(ValueError, match="pick one of tp"):
+            transformer_lm_pipeline(VOCAB, device="cpu", tp=True,
+                                    moe_experts=4, **LM)
+        blocks = [transformer_block(16, 2, device="cpu")]
+        with pytest.raises(ValueError, match="'stage' axis"):
+            PipelineOptimizer(blocks, [], pnn.MSECriterion(),
+                              device="cpu")
