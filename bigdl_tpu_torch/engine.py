@@ -407,9 +407,18 @@ class BatchPrefetcher:
     ``on_batch`` and the staging copy), ``block_ns`` (waiting for large
     copies to land), ``wait_ns`` (the consumer's time blocked in the call)
     and ``batches``; ``last_fetch_ns`` and ``last_wait_ns`` are those of
-    the batch the last call returned.  The JAX package also charges the
-    batches held in the queues to its host-memory governor; that
-    accounting comes with the port of ``resources/governor.py``.
+    the batch the last call returned.
+
+    Host memory (JAX :153-156, :253): every batch fetched and not yet taken
+    charges its staged bytes to the governor's ``prefetch_slots`` account
+    (:mod:`~bigdl_tpu_torch.resources.governor`), and a batch larger than
+    the whole ``bigdl.resources.hostMemBudgetMB`` raises
+    :class:`~bigdl_tpu_torch.resources.errors.HostMemoryError` at the
+    call.  The fetch thread starts a fetch only while fewer than ``limit``
+    batches are in flight (at first the queues' capacity) and, while the
+    governor reports pressure, only when none is; a registered shrinker
+    halves ``limit`` (down to 1) at each pressure excursion, for the rest
+    of the run.  Either changes when batches are fetched, never which.
     """
 
     #: batches at or above this size are waited for on the host before
@@ -438,8 +447,18 @@ class BatchPrefetcher:
         self._committed = self._rng.np.get_state()
         #: a producer failure recovered by stop()
         self.error: Optional[BaseException] = None   # guarded-by: _stats_lock
+        from bigdl_tpu_torch.resources.governor import GOVERNOR
+        self._governor = GOVERNOR
+        self._slot_acct = GOVERNOR.account("prefetch_slots")
         if self.depth <= 0:
             return
+        #: batches fetched and not yet taken, and the most allowed: the
+        #: queues' capacity, halved by each pressure excursion
+        self._inflight = 0                           # guarded-by: _room
+        self.limit = self.depth + max(1, self.transfer_ahead)
+        self._room = threading.Condition(self._stats_lock)
+        self._shrink_key = f"prefetch-{id(self)}"
+        GOVERNOR.register_shrinker(self._shrink_key, self._shrink)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             self._stream = torch.cuda.Stream(self.device)
@@ -522,22 +541,42 @@ class BatchPrefetcher:
                 continue
         return False
 
+    def _shrink(self) -> None:
+        """The governor's shrinker: halve the read-ahead limit."""
+        with self._room:
+            self.limit = max(1, self.limit // 2)
+
+    def _wait_for_room(self) -> bool:
+        """Block the fetch thread until it may start a fetch; False when
+        stopped."""
+        with self._room:
+            while not self._stop.is_set():
+                cap = 1 if self._governor.under_pressure() else self.limit
+                if self._inflight < cap:
+                    return True
+                self._room.wait(0.05)
+        return False
+
     def _run(self):
         RandomGenerator.adopt(self._rng)
         staged = self._transfer_thread is not None
         out_q = self._issued_q if staged else self._q
         with (torch.cuda.device(self.device) if self._cuda
               else contextlib.nullcontext()):
-            while not self._stop.is_set():
+            while self._wait_for_room():
                 try:
                     batch, event, meta = self._fetch_once()
+                    self._governor.check_item("prefetch_slots", meta[0])
                     if not staged:
                         self._block_ready(event, meta[0])
                     item = (None, batch, event, meta)
+                    with self._room:
+                        self._inflight += 1
+                    self._slot_acct.add(meta[0])
                 except BaseException as e:  # noqa: BLE001 re-raised at call
                     item = (e, None, None, None)
                 if not self._put(out_q, item):
-                    self._stash_error(item)
+                    self._discard(item)
                     return
                 if item[0] is not None:
                     return
@@ -554,12 +593,20 @@ class BatchPrefetcher:
                     try:
                         self._block_ready(item[2], item[3][0])
                     except BaseException as e:  # noqa: BLE001 re-raised
+                        self._taken(item[3][0])
                         item = (e, None, None, None)
                 if not self._put(self._q, item):
-                    self._stash_error(item)
+                    self._discard(item)
                     return
                 if item[0] is not None:
                     return
+
+    def _discard(self, item) -> None:
+        """An item dropped before the consumer took it: release its
+        accounted bytes, then keep any error it carried."""
+        if item[0] is None:
+            self._taken(item[3][0])
+        self._stash_error(item)
 
     def _stash_error(self, item) -> None:
         """Park the error of an item that could not be handed on; the first
@@ -604,6 +651,7 @@ class BatchPrefetcher:
         self.last_wait_ns = wait
         if err is not None:
             raise err
+        self._taken(meta[0])
         _, self.last_fetch_ns, self._committed = meta
         if event is not None:
             current = torch.cuda.current_stream(self.device)
@@ -612,6 +660,12 @@ class BatchPrefetcher:
                 if isinstance(t, torch.Tensor):
                     t.record_stream(current)
         return batch
+
+    def _taken(self, nbytes: int) -> None:
+        self._slot_acct.sub(nbytes)
+        with self._room:
+            self._inflight -= 1
+            self._room.notify_all()
 
     def producer_alive(self) -> bool:
         """A producer thread is still running (after :meth:`stop`, only if
@@ -627,6 +681,9 @@ class BatchPrefetcher:
         if self.depth <= 0:
             return
         self._stop.set()
+        self._governor.unregister_shrinker(self._shrink_key)
+        with self._room:
+            self._room.notify_all()
         self._thread.join(timeout=10)
         if self._transfer_thread is not None:
             self._transfer_thread.join(timeout=10)
@@ -636,7 +693,7 @@ class BatchPrefetcher:
                     item = q.get(block=False)
                 except queue.Empty:
                     break
-                self._stash_error(item)
+                self._discard(item)
         if not self.producer_alive():
             self._rng.np.set_state(self._committed)
         if self._cuda:

@@ -44,8 +44,8 @@ verified unit (:mod:`bigdl_tpu_torch.utils.checkpoint_manager`).
 :meth:`Optimizer.optimize` retries a failed run from the newest valid
 snapshot (``bigdl.failure.retryTimes``, waits by :func:`_retry_backoff`,
 the attempt count reset when a run gets further than any before;
-``ValueError``, ``TypeError``, ``KeyboardInterrupt`` and
-``torch.cuda.OutOfMemoryError`` go straight to the caller).  A restore
+``ValueError``, ``TypeError``, ``KeyboardInterrupt`` and a CUDA OOM
+raised outside the step go straight to the caller).  A restore
 loads the snapshot into the live model and method in place, the method's
 ``epoch`` and counters included, so a ``ShardedDataSet`` replays the
 epoch's permutation (:meth:`Optimizer._sync_dataset_epoch`).
@@ -79,21 +79,65 @@ metric; "Parameters" histograms on their trigger), rank 0 alone.
 in place of ``jax.profiler``.  The port has no ``analysis`` package, so no
 ``Analysis/*`` gauge is written.
 
-Not ported yet: integrity fingerprints, the microbatch re-plan after a
-device OOM, the compile cache and its warmup spans, the host-sync and
-retrace counters, the hung-step watchdog, the chaos hooks, the host-memory
-governor and preemption.  The keys that ask for two of them
-(``bigdl.integrity.everyN``, ``bigdl.elastic.handleSignals``) raise
+The failure taxonomy of :meth:`Optimizer.optimize` (JAX
+``_optimize_with_retry`` :436-560) sorts each failure and answers it:
+
+- a device OOM (:class:`~bigdl_tpu_torch.resources.errors.
+  DeviceMemoryError`, classified at the step from
+  ``torch.cuda.OutOfMemoryError``, a cuBLAS allocation failure or the chaos
+  injector's ``RESOURCE_EXHAUSTED``): a microbatch re-plan
+  (:meth:`Optimizer._replan_microbatch`, ``resources/microbatch.py``), at
+  no cost to the retry budget.  The failed step's traceback and every
+  reference to its activations are dropped, ``gc.collect()`` and
+  ``torch.cuda.empty_cache()`` run, then the newest snapshot is restored
+  (if any) and the step re-runs as k accumulation chunks;
+- preemption (:class:`~bigdl_tpu_torch.utils.elastic.Preempted`, raised
+  by the loop's drain after a SIGTERM under ``bigdl.elastic.handleSignals``
+  or ``bigdl.chaos.preemptAt``): the grace-period snapshot and the
+  resumable marker are committed and ``Preempted`` re-raised, never
+  retried;
+- a hung step (:class:`~bigdl_tpu_torch.utils.elastic.HungStepError`,
+  injected by the watchdog, ``bigdl.watchdog.stallFactor``), an integrity
+  fault (:class:`~bigdl_tpu_torch.integrity.IntegrityError`) and any other
+  failure: restore the newest valid snapshot and retry;
+- a replica desync already healed in place by the data-parallel trainer
+  (:class:`~bigdl_tpu_torch.integrity.ReplicaDesyncError` with ``healed``):
+  retry without a restore;
+- host memory exhausted (:class:`~bigdl_tpu_torch.resources.errors.
+  HostMemoryError`), an argument error, an unported feature: fatal.
+
+A failure that lands while a step writes its update into the live
+parameters (an OOM or an injected ``HungStepError`` inside
+:func:`select_tree`) leaves them torn: :meth:`Optimizer._params_dead` says
+so, and the retry then restores a snapshot or raises; it never carries on
+from a torn state.
+
+Every iteration the loop (JAX :1198-1240) beats the hung-step watchdog's
+heartbeat, polls the host-memory governor, runs the chaos harness's step
+hooks (``utils/chaos.py``) and drains on a preemption request; validation,
+checkpoints and the drain run with the watchdog paused.  A non-finite step
+names its culprit, the first non-finite leaf (``first non-finite:
+grad:<parameter>``).  ``bigdl.integrity.everyN`` > 0 carries the
+fingerprint continuity of :mod:`bigdl_tpu_torch.integrity` through the
+steps and checks the verdict every N iterations (JAX :1635-1700).  The
+``Resources/*``, ``Integrity/*`` and ``Elastic/*`` gauges and counters and
+the incident records are the JAX package's.
+
+Not ported yet: the compile cache and its warmup spans, and the host-sync
+and retrace counters (the ``analysis`` package); ``LBFGS``.  A
+``bigdl.chaos.*`` key of a part the port lacks raises
 :class:`NotImplementedError` (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import math
 import os
 import random
 import time
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -116,9 +160,15 @@ from bigdl_tpu_torch.optim.optim_method import (SGD, OptimMethod,
                                                 load_payload)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation_method import ValidationMethod
-from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch import integrity, telemetry
+from bigdl_tpu_torch.resources import microbatch
 from bigdl_tpu_torch.resources import storage as resource_storage
-from bigdl_tpu_torch.utils import config, elastic
+from bigdl_tpu_torch.resources.device import classify_dispatch_error
+from bigdl_tpu_torch.resources.errors import (DeviceMemoryError,
+                                              HostMemoryError)
+from bigdl_tpu_torch.resources.governor import GOVERNOR
+from bigdl_tpu_torch.telemetry import incident
+from bigdl_tpu_torch.utils import chaos, config, elastic
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -294,15 +344,18 @@ def close_iterators(prefetcher: Optional[BatchPrefetcher], iterators
 
 def refuse_unported() -> None:
     """Raise :class:`NotImplementedError` where a config key asks a
-    trainer for a feature the port does not have yet."""
-    asked = [k for k in ("bigdl.integrity.everyN",)
-             if config.get_int(k, 0) > 0]
-    if config.get_bool("bigdl.elastic.handleSignals", False):
-        asked.append("bigdl.elastic.handleSignals")
+    trainer for a feature the port does not have yet: a fault injector of
+    a part not ported (``utils/chaos.py`` ``UNPORTED_KEYS``)."""
+    chaos.refuse_unported_keys()
+
+
+def refuse_keys(keys, what: str) -> None:
+    """Raise :class:`NotImplementedError` when any of ``keys`` is set (a
+    trainer without ``what``)."""
+    asked = [k for k in keys
+             if config.get_property(k) not in (None, "", 0, False, "0")]
     if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: integrity fingerprints and elastic "
-            "drain/resume are not ported yet")
+        raise NotImplementedError(f"{', '.join(asked)}: {what}")
 
 
 class Checkpoint:
@@ -462,6 +515,16 @@ class Optimizer:
         self._step_flops: Optional[float] = None
         #: the last run's step-time account
         self._step_account: Optional[telemetry.StepAccount] = None
+        #: the OOM re-plan: accumulation chunks a step (1 = full batch) and
+        #: the global batch the plan splits (set by a trainer that can)
+        self._microbatch_k = 1
+        self._plan_batch_size = 0
+        #: a step is writing its update into the live tensors
+        self._torn = False
+        #: CUDA bytes allocated at the entry of the step that hit a device
+        #: OOM, and after the re-plan released its memory (None: no re-plan)
+        self.oom_replan_memory: Optional[Tuple[int, int]] = None
+        self._step_entry_bytes = 0
 
     # -- fluent setters (reference Optimizer.scala fluent API) ------------
 
@@ -566,24 +629,33 @@ class Optimizer:
         return loss
 
     def optimize(self) -> torch.nn.Module:
-        """Train until the end trigger fires, retrying failures from the
-        newest valid snapshot (reference ``DistriOptimizer.scala:750-816``);
-        returns the model, whose parameters hold the trained weights.
+        """Train until the end trigger fires, answering each failure by its
+        class (the module docstring's taxonomy; reference
+        ``DistriOptimizer.scala:750-816``); returns the model, whose
+        parameters hold the trained weights.
 
         Up to ``bigdl.failure.retryTimes`` attempts, waiting
         :func:`_retry_backoff` (``bigdl.failure.retryTimeInterval``,
         ``bigdl.failure.maxRetryInterval``) between them.  The attempt
         count resets when a run gets past the furthest ``evalCounter`` any
-        attempt reached (a fresh fault), never after a divergence.  The
-        asynchronous writer is drained before this returns or raises.
-        The ``Parallel/*`` gauges of an earlier run are dropped first
-        (a ``DistriOptimizer`` sets them again)."""
+        attempt reached (a fresh fault), never after a divergence or an
+        integrity fault.  A preemption flag or marker left by an earlier
+        run is cleared first; ``bigdl.elastic.handleSignals`` routes
+        SIGTERM/SIGINT into the drain for the run's length (main thread
+        only; the previous handlers are put back).  The asynchronous
+        writer is drained before this returns or raises.  The
+        ``Parallel/*`` gauges of an earlier run are dropped first (a
+        ``DistriOptimizer`` sets them again)."""
         telemetry.REGISTRY.drop_prefix("Parallel/")
         retry_times = config.get_int("bigdl.failure.retryTimes", 5)
         base = config.get_float("bigdl.failure.retryTimeInterval", 120.0)
         cap = config.get_float("bigdl.failure.maxRetryInterval", 900.0)
+        elastic.clear_preemption()
+        if self.checkpoint is not None and is_writer_process():
+            elastic.clear_preemption_marker(self.checkpoint.path)
         try:
-            return self._optimize_with_retry(retry_times, base, cap)
+            with elastic.PreemptionHandler():
+                return self._optimize_with_retry(retry_times, base, cap)
         except BaseException:
             if self.checkpoint is not None:
                 self.checkpoint.join(raise_errors=False)
@@ -594,24 +666,76 @@ class Optimizer:
         attempt = 0
         high_water = None   # the furthest evalCounter of any attempt
         while True:
+            replanned = None
             try:
                 result = self._optimize()
             except (ValueError, TypeError, KeyboardInterrupt,
-                    NotImplementedError, torch.cuda.OutOfMemoryError):
-                # an argument error, an unported feature, or a device OOM
-                # (its re-plan is not ported): no retry
+                    NotImplementedError, HostMemoryError,
+                    torch.cuda.OutOfMemoryError):
+                # an argument error, an unported feature, host memory
+                # exhausted at depth 1 (no ring shrinks below one item), or
+                # a device OOM outside the step: no retry
+                raise
+            except DeviceMemoryError as e:
+                # a resource fault, not divergence: the same step would fail
+                # forever, so the answer is a re-plan, at no cost to the
+                # retry budget; next_k bounds the loop
+                if not self._replan_microbatch(e):
+                    raise
+                # keep the error without its traceback, whose frames hold
+                # the failed step's activations
+                replanned = (time.monotonic(), e.with_traceback(None))
+            except elastic.Preempted:
+                # the loop drained and published before raising: commit the
+                # grace snapshot and leave (an eviction, not a fault)
+                incident.record("optim/preempted",
+                                reason=elastic.preemption_reason())
+                self._commit_preemption_snapshot()
+                incident.maybe_dump("preemption", reason="preemption")
                 raise
             except Exception as e:
                 cur = self.optim_method.state.get("evalCounter", 0)
-                if (not isinstance(e, DivergenceError) and
-                        high_water is not None and cur > high_water):
+                if (not isinstance(e, (DivergenceError,
+                                       integrity.IntegrityError))
+                        and high_water is not None and cur > high_water):
                     attempt = 0    # new ground: a fresh fault
                 high_water = cur if high_water is None else max(high_water,
                                                                 cur)
                 attempt += 1
                 if attempt >= retry_times:
+                    incident.record("optim/retries_exhausted",
+                                    attempt=attempt, error=type(e).__name__)
+                    incident.maybe_dump("optim/retries_exhausted",
+                                        reason=type(e).__name__)
                     raise
+                if (isinstance(e, integrity.ReplicaDesyncError)
+                        and getattr(e, "healed", False)):
+                    # the trainer already broadcast the majority's state and
+                    # rewound the counter: a restore would throw away the
+                    # surviving replicas' newer, valid ground
+                    incident.record("optim/desync_heal", attempt=attempt,
+                                    error=type(e).__name__)
+                    interval = _retry_backoff(attempt, base, cap)
+                    logger.warning(
+                        "Replica desync healed in place (attempt %d/%d); "
+                        "re-entering training in %.1fs: %s", attempt,
+                        retry_times, interval, e)
+                    time.sleep(interval)
+                    continue
+                heal_t0 = time.monotonic()
                 restored = self._restore_latest_checkpoint()
+                if restored and isinstance(e, integrity.IntegrityError):
+                    telemetry.gauge(
+                        "Integrity/heal_ms",
+                        help="detection-to-heal latency of the last "
+                             "integrity fault (restore or re-broadcast)"
+                    ).set((time.monotonic() - heal_t0) * 1000.0)
+                if not restored and self._params_dead():
+                    # the update was cut off halfway: with nothing to
+                    # reload, the live state is torn
+                    raise
+                incident.record("optim/retry_restore", attempt=attempt,
+                                error=type(e).__name__, restored=restored)
                 interval = _retry_backoff(attempt, base, cap)
                 logger.exception(
                     "Training failed (attempt %d/%d); %s and retrying in "
@@ -620,9 +744,116 @@ class Optimizer:
                     else "resuming from the live state", interval)
                 time.sleep(interval)
                 continue
+            if replanned is not None:
+                heal_t0, err = replanned
+                self._release_device_memory()
+                restored = self._restore_latest_checkpoint()
+                if not restored and self._params_dead():
+                    raise err
+                if self.device.type == "cuda":
+                    self.oom_replan_memory = (
+                        self._step_entry_bytes,
+                        torch.cuda.memory_allocated(self.device))
+                heal_ms = (time.monotonic() - heal_t0) * 1000.0
+                telemetry.gauge(
+                    "Resources/oom_replan_ms",
+                    help="device-OOM detection to re-planned-step readiness "
+                         "(re-plan, memory release and restore)").set(heal_ms)
+                incident.record("optim/oom_replan", restored=restored,
+                                heal_ms=round(heal_ms, 2))
+                continue
             if self.checkpoint is not None:
                 self.checkpoint.join()
             return result
+
+    def _release_device_memory(self) -> None:
+        """Give back what a failed step held: its frames are gone with its
+        traceback, so a collection frees any cycle left, and the caching
+        allocator returns its blocks to the card."""
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _replan_microbatch(self, e: DeviceMemoryError) -> bool:
+        """Answer a device OOM with the next microbatch plan: the global
+        batch of B samples re-runs as k equal accumulation chunks
+        (``resources/microbatch.py``: Kahan-compensated mean gradient, one
+        update).  False when no further split exists (already per-sample)
+        or the trainer has no plan (no batch observed; a trainer without
+        the accumulation step)."""
+        bsz = int(self._plan_batch_size or 0)
+        if bsz <= 0:
+            return False
+        k = microbatch.next_k(bsz, self._microbatch_k)
+        if k is None:
+            return False
+        prev = self._microbatch_k
+        self._microbatch_k = k
+        telemetry.counter(
+            "Resources/microbatch_replans",
+            help="device-OOM-driven microbatch re-plans this process").inc()
+        telemetry.gauge(
+            "Resources/microbatch_k",
+            help="gradient-accumulation chunks per step after OOM "
+                 "re-planning (1 = full batch)").set(k)
+        logger.warning(
+            "Device memory exhausted (%s; %s) - re-planning the step: "
+            "global batch %d now runs as %d accumulation chunk(s) of %d "
+            "samples (was k=%d)", e, getattr(e, "detail", ""), bsz, k,
+            bsz // k, prev)
+        return True
+
+    def _commit_preemption_snapshot(self) -> None:
+        """The grace-period exit: the loop published the newest state
+        before raising ``Preempted``; commit it as a final verified
+        snapshot, drain the writer, then write the resumable marker.  A
+        snapshot that fails to commit gets no marker (resume falls back to
+        the newest earlier snapshot), and the failure does not replace the
+        ``Preempted`` unwinding.  Only the writer process touches the
+        store, and no barrier is added: peers may already be gone."""
+        if self.checkpoint is None:
+            logger.warning(
+                "Preempted with no checkpoint configured - the state of "
+                "this run is lost (set_checkpoint enables the grace-period "
+                "snapshot)")
+            return
+        opened = elastic.preemption_requested_at()
+        deadline = ((opened if opened is not None else time.monotonic())
+                    + elastic.grace_period())
+        neval = self.optim_method.state.get("evalCounter", 0)
+        committed = True
+        if is_writer_process():
+            with elastic.timed("preempt_snapshot"):
+                try:
+                    self.checkpoint.save(self.model, self.optim_method,
+                                         neval,
+                                         topology=self._topology_meta())
+                    self.checkpoint.join()
+                except Exception:
+                    committed = False
+                    logger.exception(
+                        "Grace-period snapshot %d failed to commit - NOT "
+                        "writing the preemption marker; resume will fall "
+                        "back to the newest earlier valid snapshot", neval)
+            if committed:
+                elastic.write_preemption_marker(self.checkpoint.path, neval)
+        overshoot = time.monotonic() - deadline
+        status = ("snapshot %d is committed" % neval if committed else
+                  "snapshot %d FAILED to commit" % neval)
+        if overshoot > 0:
+            logger.warning(
+                "Preemption drain exceeded bigdl.elastic.gracePeriod by "
+                "%.1fs - the scheduler may have killed peers already; %s",
+                overshoot, status)
+        else:
+            logger.info("Preemption drain complete: %s with %.1fs of the "
+                        "grace period to spare", status, -overshoot)
+
+    def _params_dead(self) -> bool:
+        """True when a step was cut off while writing its update into the
+        live parameters and slots (the JAX package's donated-and-deleted
+        buffers): the live state is torn."""
+        return self._torn
 
     def _optimize(self) -> torch.nn.Module:
         raise NotImplementedError
@@ -664,14 +895,17 @@ class Optimizer:
         self.checkpoint.join(raise_errors=False)
         self._any_rank(False)    # every rank scans after the writer ends
         t0 = time.perf_counter()
-        loaded = self.checkpoint.manager.load_latest(
-            expected_topology=self._topology_meta())
-        if loaded is None:
-            return False
-        model_payload, optim_payload, n = loaded
-        self.model.load_state_dict(model_payload)
-        load_payload(self.optim_method, optim_payload, device=self.device,
-                     hyper=False)
+        with elastic.timed("restore") as timer:
+            loaded = self.checkpoint.manager.load_latest(
+                expected_topology=self._topology_meta())
+            if loaded is None:
+                timer.cancel()   # an empty scan is not a restore
+                return False
+            model_payload, optim_payload, n = loaded
+            self.model.load_state_dict(model_payload)
+            load_payload(self.optim_method, optim_payload,
+                         device=self.device, hyper=False)
+        self._torn = False
         self.last_restore_seconds = time.perf_counter() - t0
         logger.info("Restored snapshot model.%d / optimMethod.%d (%s) in "
                     "%.3f s", n, n, self.checkpoint.manager.last_restore_mode,
@@ -734,7 +968,8 @@ class Optimizer:
             sync(self.optim_method.state.get("epoch", 1) - 1)
 
     def _drive(self, fetch_batch, run_step, reset_epoch,
-               epoch_size: int, publish=None) -> Dict[str, Any]:
+               epoch_size: int, publish=None,
+               integrity=None) -> Dict[str, Any]:
         """The training loop (reference ``optim/DistriOptimizer.scala:141-344``,
         ``LocalOptimizer.scala:78``): fetch, step, bookkeeping and logging,
         epoch rollover, then the validation and the checkpoint where their
@@ -743,8 +978,16 @@ class Optimizer:
         ``fetch_batch() -> (inputs, targets, batch_size)``
         with host (numpy) arrays; ``run_step(inputs, targets, hyper, seed)
         -> loss`` (a 0-dim tensor; ``seed`` is the step's random-stream
-        counter, ``neval - 1``, the JAX package's ``rng_counter``);
+        counter, ``neval - 1``, the JAX package's ``rng_counter``) or
+        ``-> (loss, aux)`` with the step's device-side diagnostics;
         ``reset_epoch()`` reshuffles and restarts the data iterator.
+        ``integrity`` is the trainer's :class:`~bigdl_tpu_torch.integrity.
+        DriverIntegrity`: it names the first non-finite leaf of a bad step
+        and checks the fingerprint verdicts at its cadence.
+
+        The hung-step watchdog (``bigdl.watchdog.stallFactor``) starts
+        here, on this thread, and stops first in the ``finally``, before
+        the profiler and the prefetcher.
 
         A :class:`~bigdl_tpu_torch.engine.BatchPrefetcher` calls
         ``fetch_batch`` and moves the batch to the device; the rollover
@@ -787,15 +1030,24 @@ class Optimizer:
                                 device=self.device)
         self.prefetcher = fetch
         profiler = _ProfileWindow(self)
+        watchdog = elastic.HungStepWatchdog.from_config()
         wall_start = time.perf_counter()
+        if watchdog is not None:
+            watchdog.start()
         try:
             self._loop(state, fetch, run_step, epoch_size, max_bad_steps,
-                       publish, account, profiler)
+                       publish, account, profiler, watchdog, integrity)
         finally:
+            # the watchdog first: the teardown below may block, and an
+            # armed monitor would read that as a hung step
             try:
-                profiler.stop()
+                if watchdog is not None:
+                    watchdog.stop()
             finally:
-                fetch.stop()
+                try:
+                    profiler.stop()
+                finally:
+                    fetch.stop()
         logger.info("Training finished in %.1f s; batch fetch %.3f s, the "
                     "loop's wait for batches %.3f s, large copies waited "
                     "for %.3f s, over %d batches.",
@@ -865,16 +1117,44 @@ class Optimizer:
                 logger.info("Telemetry snapshot written to %s", snap_path)
 
     def _loop(self, state, fetch, run_step, epoch_size: int,
-              max_bad_steps: int, publish, account, profiler) -> None:
+              max_bad_steps: int, publish, account, profiler,
+              watchdog=None, integrity=None) -> None:
         clock = telemetry.clock_ns
         want_flops = (config.get_bool("bigdl.telemetry.mfu", False) and
                       self._step_flops is None)
         peak_tflops = config.get_float("bigdl.telemetry.peakTflops", 0.0)
         log_every = max(1, config.get_int("bigdl.telemetry.logEveryN", 1))
         slow_dir = config.get_property("bigdl.telemetry.profileOnSlowStep")
+        wd_pause = watchdog.paused if watchdog is not None else nullcontext
         while not self.end_when(state):
             profiler.maybe_start(state["neval"])
             t0 = clock()
+            if watchdog is not None:
+                watchdog.heartbeat()
+            # one governor tick an iteration: the accounted buffers against
+            # bigdl.resources.hostMemBudgetMB, the shrinkers on an edge
+            GOVERNOR.poll()
+            # the chaos step hooks: a step failure raises, a preemption
+            # sets the flag read below, a stall sleeps, a NaN-loss
+            # injection flags this iteration
+            inject_nan = (chaos.on_step(state["neval"]) if chaos.active()
+                          else False)
+            if elastic.preemption_requested():
+                # the drain: publish the live state into the model and
+                # method, and unwind as Preempted; the counter is bumped
+                # here, not in the signal handler
+                telemetry.counter(
+                    "Elastic/preemptions",
+                    help="graceful-shutdown drains observed").inc()
+                with wd_pause():
+                    if publish is not None:
+                        with telemetry.span("driver/publish"):
+                            publish()
+                raise elastic.Preempted(
+                    f"preemption requested "
+                    f"({elastic.preemption_reason()}) - drained and "
+                    f"published at iteration {state['neval']}")
+            t_fetch = clock()
             with telemetry.span("driver/fetch"):
                 inputs, targets, bsz = fetch()
             t_fetched = clock()
@@ -897,10 +1177,14 @@ class Optimizer:
                     loss_t = run_step(inputs, targets, hyper,
                                       state["neval"] - 1)
             t_stepped = clock()
+            loss_t, aux = (loss_t if isinstance(loss_t, tuple)
+                           else (loss_t, None))
             self.optim_method.step_done()
             t_pull = clock()
             with telemetry.span("driver/host_wait"):
                 loss = float(loss_t)     # the one host read of the iteration
+            if inject_nan:
+                loss = math.nan
             t_book = clock()
             dt = (t_book - t0) / 1e9
             neval, recs = state["neval"], state["recordsProcessedThisEpoch"]
@@ -929,24 +1213,40 @@ class Optimizer:
                     bsz, dt, throughput, loss, mfu_note)
             if not math.isfinite(loss):
                 state["consecutiveBadSteps"] += 1
+                # the step kept the index of the first non-finite leaf on
+                # the device; it is read only on this bad-step path
+                culprit = ""
+                if (integrity is not None and aux is not None
+                        and "nf" in aux):
+                    culprit = integrity.describe_nonfinite(int(aux["nf"]))
                 logger.warning(
                     "Non-finite loss/grads (%s) at iteration %d - update "
-                    "skipped (%d consecutive bad step(s); limit %d)", loss,
-                    neval, state["consecutiveBadSteps"], max_bad_steps)
+                    "skipped (%d consecutive bad step(s); limit %d)%s",
+                    loss, neval, state["consecutiveBadSteps"], max_bad_steps,
+                    culprit)
                 if 0 < max_bad_steps <= state["consecutiveBadSteps"]:
-                    telemetry.incident.record(
+                    incident.record(
                         "optim/divergence", iteration=neval,
                         bad_steps=state["consecutiveBadSteps"])
                     raise DivergenceError(
                         f"{state['consecutiveBadSteps']} consecutive "
-                        f"non-finite losses (last at iteration {neval})")
+                        f"non-finite losses (last at iteration {neval})"
+                        f"{culprit}")
             else:
                 state["consecutiveBadSteps"] = 0
+            # training-state integrity at its cadence: a disagreement or a
+            # continuity break raises into the retry loop, healthy verdicts
+            # feed the weight-health gates
+            if (integrity is not None and aux is not None
+                    and "cont" in aux and integrity.due(neval)):
+                with telemetry.span("driver/integrity_check"):
+                    integrity.check(aux, neval)
             t_end = clock()
             # the parts are the timed calls; the signed rest (the
-            # hyper-parameters, the counters) is unaccounted
+            # hyper-parameters, the counters, the governor's poll and the
+            # chaos hooks) is unaccounted
             fired = account.account(
-                t_end - t0, data_wait=t_fetched - t0,
+                t_end - t0, data_wait=t_fetched - t_fetch,
                 compute=t_stepped - t_step, host_pull=t_book - t_pull,
                 bookkeeping=t_end - t_book)
             if fired:
@@ -966,21 +1266,28 @@ class Optimizer:
             p_due = (self.train_summary is not None and
                      self.train_summary.save_parameters_due(state))
             if v_due or c_due or p_due:
-                if publish is not None:
-                    with telemetry.span("driver/publish"):
-                        publish()
-                if v_due:
-                    with telemetry.span("driver/validation"):
-                        self._run_validation(state)
-                if c_due:
-                    with telemetry.span("driver/checkpoint"):
-                        self._run_checkpoint(state)
-                if p_due and is_writer_process():
-                    # weight histograms (DistriOptimizer.scala:426-456);
-                    # every rank publishes, rank 0 writes
-                    with telemetry.span("driver/param_histograms"):
-                        self.train_summary.save_parameters(
-                            self.model, state["neval"] - 1)
+                # a validation or a snapshot may take many steps' time: not
+                # a stall
+                with wd_pause():
+                    self._after_step(state, publish, v_due, c_due, p_due)
+
+    def _after_step(self, state, publish, v_due: bool, c_due: bool,
+                    p_due: bool) -> None:
+        if publish is not None:
+            with telemetry.span("driver/publish"):
+                publish()
+        if v_due:
+            with telemetry.span("driver/validation"):
+                self._run_validation(state)
+        if c_due:
+            with telemetry.span("driver/checkpoint"):
+                self._run_checkpoint(state)
+        if p_due and is_writer_process():
+            # weight histograms (DistriOptimizer.scala:426-456); every rank
+            # publishes, rank 0 writes
+            with telemetry.span("driver/param_histograms"):
+                self.train_summary.save_parameters(self.model,
+                                                   state["neval"] - 1)
 
     def _slow_step(self, account, neval: int, wall_ns: int, slow_dir,
                    profiler) -> None:
@@ -1050,35 +1357,112 @@ class Optimizer:
 
 class LocalOptimizer(Optimizer):
     """Single-process trainer (reference ``optim/LocalOptimizer.scala:41``):
-    one step per iteration on the model's device."""
+    one step per iteration on the model's device.
+
+    After a device OOM the step runs as ``k`` accumulation chunks of the
+    global batch (:meth:`Optimizer._replan_microbatch`); with
+    ``bigdl.integrity.everyN`` > 0 it carries the fingerprint continuity
+    of its parameters and slots from step to step (JAX :1635-1700)."""
 
     def _step(self, params, slots, mstate, inputs, targets, hyper,
-              guard: bool, scales=None) -> torch.Tensor:
+              guard: bool, scales=None, fpc=None, tick: int = 0,
+              k: int = 1):
         """Forward, loss + penalties, gradients (times the layers'
         ``scales``, :func:`grad_scales`), update and divergence guard;
-        returns the loss (NaN when the guard skipped the update).
-        ``mstate`` is :func:`module_state`; under the guard it is
-        snapshotted first, to be put back after a bad step."""
-        saved = [b.clone() for b in mstate] if guard else []
-        out = mixed_precision_forward(self.model, inputs, self.precision)
-        loss = self._loss(out, targets)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
+        returns ``(loss, aux)``, the loss NaN when the guard skipped the
+        update.  ``mstate`` is :func:`module_state`, snapshotted first
+        where a bad step, a frozen step or the chunks need it back.
+
+        ``k`` > 1 splits the batch into k equal chunks: each chunk's
+        forward starts from the pre-step module state, and the loss, the
+        gradients and the new module state are the Kahan-compensated means
+        over the chunks (:func:`~bigdl_tpu_torch.resources.microbatch.
+        scan_mean`), followed by one update.
+
+        ``fpc`` is the integrity carry: the input fingerprints of the
+        parameters and slots are checked against the previous step's
+        output ones; a break latches and freezes the update like a bad
+        step (without poisoning the loss), and ``aux`` carries the
+        verdicts, the output fingerprints, the norms and the next carry.
+        ``aux["nf"]`` is the first non-finite leaf under the guard."""
+        seed = config.get_int("bigdl.integrity.seed", integrity.DEFAULT_SEED)
+        saved = ([b.clone() for b in mstate]
+                 if guard or k > 1 or fpc is not None else [])
+        aux: Dict[str, Any] = {}
+        if fpc is not None:
+            with torch.no_grad():
+                fp_p_in = integrity.fingerprint_tree(params, seed)
+                fp_s_in = integrity.fingerprint_tree(
+                    _leaves(slots), seed + integrity.SLOT_SEED_OFF)
+                _, latch, bad_iter = integrity.continuity_check(
+                    fpc, fp_p_in, fp_s_in, tick)
+
+        def loss_and_grads(x, y):
+            out = mixed_precision_forward(self.model, x, self.precision)
+            loss = self._loss(out, y)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            return loss.detach(), [torch.zeros_like(p) if g is None else g
+                                   for g, p in zip(grads, params)]
+
+        if k == 1:
+            loss, grads = loss_and_grads(inputs, targets)
+        else:
+            def chunk(xs):
+                with torch.no_grad():
+                    for live, kept in zip(mstate, saved):
+                        live.copy_(kept)
+                closs, cgrads = loss_and_grads(*xs)
+                return [closs] + cgrads + [b.detach().clone()
+                                           for b in mstate]
+
+            vals = microbatch.scan_mean(chunk, (inputs, targets), k)
+            loss, grads = vals[0], vals[1:1 + len(params)]
+            with torch.no_grad():
+                for live, v in zip(mstate, vals[1 + len(params):]):
+                    live.copy_(v)
         if scales is not None:
             grads = [g if s == 1.0 else g * s for g, s in zip(grads, scales)]
         with torch.no_grad():
             new_params, new_slots = self.optim_method.pure_update(
                 grads, params, slots, hyper)
-            ok = all_finite(loss, grads) if guard else True
+            ok = True
+            if guard:
+                ok, nf = integrity.first_nonfinite(loss, grads)
+                aux["nf"] = nf
+            if fpc is not None:
+                intact = latch == 0
+                ok = intact if ok is True else ok & intact
+                un = integrity.sq_norm_diff(new_params, params)
+            # a failure from here until the writes end leaves the live
+            # parameters torn (_params_dead)
+            self._torn = True
             select_tree(ok, new_params, params)
             select_tree(ok, new_slots, slots)
-            for live, kept in zip(mstate, saved):
-                torch.where(ok, live, kept, out=live)
-            loss = loss.detach()
             if ok is not True:
-                loss = torch.where(ok, loss, torch.full_like(loss, math.nan))
-        return loss
+                for live, kept in zip(mstate, saved):
+                    torch.where(ok, live, kept, out=live)
+            self._torn = False
+            if guard and ok is not True:
+                # only the finiteness verdict poisons the loss: a frozen
+                # integrity step reports through aux
+                loss = torch.where(
+                    aux["nf"] == integrity.NF_SENTINEL, loss,
+                    torch.full_like(loss, math.nan))
+            if fpc is not None:
+                fp_p_out = integrity.fingerprint_tree(params, seed)
+                fp_s_out = integrity.fingerprint_tree(
+                    _leaves(slots), seed + integrity.SLOT_SEED_OFF)
+                aux.update(
+                    cont=latch, bad_iter=bad_iter, fp_p=fp_p_out,
+                    fp_s=fp_s_out,
+                    fp_g=integrity.fingerprint_tree(
+                        grads, seed + integrity.GRAD_SEED_OFF),
+                    pn=integrity.sq_norm(params),
+                    un=torch.where(ok, un, torch.zeros_like(un)),
+                    gn=integrity.sq_norm(grads),
+                    fpc=integrity.pack_carry(latch, bad_iter, fp_p_out,
+                                             fp_s_out))
+        return loss, aux
 
     def _optimize(self) -> torch.nn.Module:
         refuse_unported()
@@ -1093,6 +1477,24 @@ class LocalOptimizer(Optimizer):
         slots = self.optim_method.slots(params)
         self.optim_method.state.setdefault("epoch", 1)
         guard = config.get_bool("bigdl.divergence.guard", True)
+        every_n = config.get_int("bigdl.integrity.everyN", 0)
+        integ = None
+        if guard or every_n > 0:
+            integ = integrity.DriverIntegrity(
+                "local",
+                integrity.nonfinite_names(
+                    ("loss", 0.0),
+                    ("grad", dict(self.model.named_parameters()))),
+                every_n=every_n,
+                health=integrity.WeightHealthMonitor(
+                    config.get_float("bigdl.integrity.healthFactor", 0.0),
+                    warmup=config.get_int("bigdl.integrity.healthWarmup", 5),
+                    cooldown=config.get_int(
+                        "bigdl.integrity.healthCooldown", 50)))
+        # a fresh carry each attempt: a restored or healed state
+        # legitimately differs from the last carry
+        carry = {"fpc": integrity.init_carry(self.device)
+                 if every_n > 0 else None}
         it = {"data": None}
 
         def reset_epoch():
@@ -1101,22 +1503,55 @@ class LocalOptimizer(Optimizer):
 
         def fetch_batch():
             batch = next(it["data"])
+            # the OOM re-plan picks k against the observed global batch
+            self._plan_batch_size = batch.size()
             return batch.get_input(), batch.get_target(), batch.size()
 
-        def run_step(inputs, targets, hyper, seed):
+        def step(inputs, targets, hyper, seed):
+            args = (params, slots, mstate, inputs, targets, hyper, guard,
+                    scales, carry["fpc"],
+                    self.optim_method.state.get("evalCounter", 0) + 1,
+                    self._microbatch_k)
             if stream is None:
-                return self._step(params, slots, mstate, inputs, targets,
-                                  hyper, guard, scales)
+                return self._step(*args)
             stream.manual_seed(seed)
             with random_stream(self.model, stream):
-                return self._step(params, slots, mstate, inputs, targets,
-                                  hyper, guard, scales)
+                return self._step(*args)
+
+        def run_step(inputs, targets, hyper, seed):
+            if chaos.active():
+                flip = chaos.take_bitflip()
+                if flip is not None:
+                    # injected silent corruption between steps: finite,
+                    # invisible to the guard; the fingerprints must see it
+                    integrity.bitflip_tree(params, flip)
+            k = self._microbatch_k
+            label = "local" if k == 1 else f"local_mb{k}"
+            if self.device.type == "cuda":
+                self._step_entry_bytes = torch.cuda.memory_allocated(
+                    self.device)
+            oom = None
+            try:
+                if chaos.active():
+                    chaos.take_oom_dispatch(label)
+                loss, aux = step(inputs, targets, hyper, seed)
+            except Exception as e:  # noqa: BLE001 re-raised unless an OOM
+                oom = classify_dispatch_error(e, label, self.device)
+                if oom is None:
+                    raise
+            if oom is not None:
+                # raised here, outside the handler: the failed step's
+                # traceback, which holds its activations, is already gone
+                raise oom
+            if "fpc" in aux:
+                carry["fpc"] = aux["fpc"]
+            return loss, aux
 
         self._sync_dataset_epoch()
         reset_epoch()
         try:
             self._drive(fetch_batch, run_step, reset_epoch,
-                        epoch_size=self.dataset.size())
+                        epoch_size=self.dataset.size(), integrity=integ)
         finally:
             close_iterators(self.prefetcher, [it["data"]])
         return self.model

@@ -267,3 +267,12 @@ def ring_permute(x: torch.Tensor, group=None) -> torch.Tensor:
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return x
     return _RingPermute.apply(x, group)
+
+
+def gather_fingerprints(fp: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``(2,)`` fingerprint as one ``(ranks, 2)`` table, the
+    same on every rank (the agreement table of the integrity check)."""
+    n = dist.get_world_size(group)
+    out = fp.new_empty(n * fp.numel())
+    dist.all_gather_into_tensor(out, fp.contiguous(), group=group)
+    return out.view(n, fp.numel())

@@ -95,28 +95,52 @@ rows of the position table.  As for ``expert``, the flat step runs over all
 over ``seq`` and its ZeRO-1 reduce-scatter over ``data``, divided by the
 rank count (slots 1/(data x seq)).
 
-Not ported, each raising :class:`NotImplementedError` where asked for:
-integrity
-fingerprints and desync healing (``bigdl.integrity.everyN > 0``), the audit
-fault injections (``bigdl.chaos.extraAllGather``,
-``bigdl.chaos.dropBucketCollective``), elastic drain and resume
-(``bigdl.elastic.handleSignals``), and what ``LocalOptimizer`` lacks
-(:mod:`bigdl_tpu_torch.optim.optimizer`).  Batches come through the
-trainers' shared loop and its prefetcher (``bigdl.prefetch.depth``), which
-joins the local partitions' minibatches on its producer thread.
+Integrity (JAX :273-541, :679-696, :757, :821-873), with
+``bigdl.integrity.everyN`` > 0: at the top of each step every rank
+fingerprints its own copy of the flat parameter vector and its slot shards,
+the ranks all-gather the parameter fingerprints into the agreement table,
+and each checks continuity against its own carry with the agreement folded
+in; the global minimum of the ranks' verdicts freezes the step on every
+rank, and a frozen step keeps each rank's input copy bit for bit (the
+all-gather's result is discarded), so the evidence survives for the vote.
+The loop reads the verdicts every N steps (:class:`~bigdl_tpu_torch.
+integrity.DriverIntegrity` with its weight-health gates): a disagreement
+raises :class:`~bigdl_tpu_torch.integrity.ReplicaDesyncError` naming the
+minority ranks, and the trainer heals in place (:meth:`_heal_desync`): the
+majority's copy (:func:`~bigdl_tpu_torch.integrity.majority_split`: a tie
+goes to the lowest rank's) is broadcast to every rank, the eval counter is
+rewound to before the first frozen step, and the retry loop re-enters
+without a restore; the ZeRO-1 slot shards, each verified by its own rank's
+continuity, stay.  A continuity break alone raises ``IntegrityError``,
+answered by a restore.  The chaos injectors ``bitflipParamAt`` ("k:r":
+rank r flips a bit of its copy between steps) and ``desyncReplicaAt``
+("k:r": rank r adds 1.0 to its copy after step k's update) act here.
+The dp x tp step has no fingerprints: the integrity and replica
+injectors raise :class:`NotImplementedError` there.
+
+Not ported, each raising :class:`NotImplementedError` where asked for: the
+audit fault injections (``bigdl.chaos.extraAllGather``,
+``bigdl.chaos.dropBucketCollective``) and what ``LocalOptimizer`` lacks
+(:mod:`bigdl_tpu_torch.optim.optimizer`).  A device OOM in the step is
+fatal here (the microbatch re-plan is ``LocalOptimizer``'s, as in the JAX
+package).  Batches come through the trainers' shared loop and its
+prefetcher (``bigdl.prefetch.depth``), which joins the local partitions'
+minibatches on its producer thread.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch import integrity, telemetry
 from bigdl_tpu_torch.dataset.dataset import ShardedDataSet
 from bigdl_tpu_torch.engine import DeviceLike, Mesh, bind_axes
 from bigdl_tpu_torch.nn.module import (Criterion, grad_scales, is_stochastic,
@@ -124,13 +148,18 @@ from bigdl_tpu_torch.nn.module import (Criterion, grad_scales, is_stochastic,
 from bigdl_tpu_torch.optim.optimizer import (Optimizer, close_iterators,
                                              all_finite,
                                              mixed_precision_forward,
-                                             module_state,
+                                             module_state, refuse_keys,
                                              refuse_unported,
                                              select_tree)
 from bigdl_tpu_torch.parallel.all_reduce import (AllReduceParameter,
                                                  axis_mean, axis_min,
-                                                 axis_sum, pmean_floats)
-from bigdl_tpu_torch.utils import config, elastic
+                                                 axis_sum,
+                                                 gather_fingerprints,
+                                                 pmean_floats)
+from bigdl_tpu_torch.resources.device import classify_dispatch_error
+from bigdl_tpu_torch.utils import chaos, config, elastic
+
+logger = logging.getLogger("bigdl_tpu_torch")
 
 #: a rank's offset of its dropout seed (the 64-bit golden ratio)
 _RANK_STRIDE = 0x9E3779B97F4A7C15
@@ -332,15 +361,38 @@ class DistriOptimizer(Optimizer):
     # ---- the step ----------------------------------------------------------
 
     def _step(self, params, flat, row, slots, mstate, edges, guard,
-              inputs, targets, hyper, scales=None) -> torch.Tensor:
-        """One data-parallel step; returns the loss averaged over the
-        ranks (NaN when the guard skipped the update).  ``row`` is this
-        rank's slice of ``flat``, ``slots`` its slot shards, ``edges``
-        the column buckets (None: the one-block schedule), ``scales`` the
-        layers' gradient scales (:func:`grad_scales`)."""
+              inputs, targets, hyper, scales=None, fpc=None, tick: int = 0,
+              desync=(0, 0)):
+        """One data-parallel step; returns ``(loss, aux)``, the loss
+        averaged over the ranks (NaN when the guard skipped the update).
+        ``row`` is this rank's slice of ``flat``, ``slots`` its slot
+        shards, ``edges`` the column buckets (None: the one-block
+        schedule), ``scales`` the layers' gradient scales
+        (:func:`grad_scales`), ``fpc`` this rank's integrity carry (None:
+        off), ``desync`` the chaos injector's ``(iteration, rank)``."""
         arp, group = self._arp, self.group
         n = arp.n_shards
-        saved = [b.clone() for b in mstate] if guard else []
+        aux: Dict[str, torch.Tensor] = {}
+        saved = ([b.clone() for b in mstate]
+                 if guard or fpc is not None else [])
+        if fpc is not None:
+            seed = config.get_int("bigdl.integrity.seed",
+                                  integrity.DEFAULT_SEED)
+            with torch.no_grad():
+                # each rank hashes its own copy of the replicated vector
+                # and its own slot shards
+                fp_p_in = integrity.fingerprint_flat(flat, seed)
+                fp_s_in = integrity.fingerprint_tree(
+                    slots, seed + integrity.SLOT_SEED_OFF)
+                fps_table = gather_fingerprints(fp_p_in, group)
+                agree_ok = (fps_table == fps_table[0]).all()
+                _, latch, bad_iter = integrity.continuity_check(
+                    fpc, fp_p_in, fp_s_in, tick, extra_ok=agree_ok)
+                # the freeze is global: one latched rank freezing alone
+                # would fork the model
+                intact = axis_min((latch == 0).to(torch.int32),
+                                  group).bool()
+                old_row = row.clone()
         out = mixed_precision_forward(self.model, inputs, self.precision)
         loss = self._loss(out, targets)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -371,13 +423,20 @@ class DistriOptimizer(Optimizer):
                     updates.append(self.optim_method.pure_update(
                         [g_k], [row[a:b]],
                         {k: [v[a:b]] for k, v in slots.items()}, hyper))
-            ok = True
+            ok = okf = True
             if guard:
                 # the verdict is global: each rank sees 1/N of the
                 # gradient, and ranks applying different verdicts would
-                # fork the model
-                ok = axis_min(all_finite(loss, grad_b).to(torch.int32),
-                              group).bool()
+                # fork the model; the first non-finite bucket rides along
+                _, nf = integrity.first_nonfinite(loss, grad_b)
+                okf = all_finite(loss, grad_b)
+                verdict = axis_min(torch.stack([okf.to(torch.int64), nf]),
+                                   group)
+                ok = okf = verdict[0].bool()
+                aux["nf"] = verdict[1]
+            if fpc is not None:
+                ok = intact if ok is True else ok & intact
+            self._torn = True
             gathers = []
             for (a, b, _), (p_k, s_k) in zip(issued, updates):
                 select_tree(ok, p_k, [row[a:b]])
@@ -385,20 +444,71 @@ class DistriOptimizer(Optimizer):
                 if edges is not None:
                     gathers.append((a, b, arp.all_gather_bucket(
                         row[a:b], async_op=True)))
-            if guard:
+            if ok is not True:
                 for live, kept in zip(mstate, saved):
                     torch.where(ok, live, kept, out=live)
-                loss = torch.where(ok, loss, torch.full_like(loss, math.nan))
+            if okf is not True:
+                # only the finiteness verdict poisons the loss
+                loss = torch.where(okf, loss,
+                                   torch.full_like(loss, math.nan))
             with telemetry.span("parallel/all_gather"):
+                # under integrity a frozen step keeps each rank's input
+                # copy bit for bit: the gather would wash a diverged copy
+                # back into agreement and destroy the vote's evidence
                 if edges is None:
-                    arp.all_gather_weights(row, flat)    # in place
+                    if fpc is None:
+                        arp.all_gather_weights(row, flat)    # in place
+                    else:
+                        gathered = arp.all_gather_weights(
+                            row, torch.empty_like(flat))
+                        torch.where(ok, gathered, flat, out=flat)
                 else:
                     fmat = flat.view(n, arp.shard_size)
                     for a, b, pending in gathers:
-                        fmat[:, a:b].copy_(pending.wait())
+                        block = pending.wait()
+                        if fpc is not None:
+                            block = torch.where(ok, block, fmat[:, a:b])
+                        fmat[:, a:b].copy_(block)
+            self._torn = False
+            if fpc is not None:
+                if desync[0] and tick == desync[0] and \
+                        dist.get_rank(group) == desync[1] % n:
+                    # chaos: this rank's copy drifts after the update; its
+                    # own output fingerprint hashes the drifted copy, so
+                    # only the next step's agreement table sees it
+                    flat[0] += 1.0
+                aux.update(self._integrity_aux(
+                    flat, row, old_row, slots, grad_b, edges, seed, latch,
+                    bad_iter, intact, fps_table))
             loss = axis_mean(loss, group)
             pmean_floats(mstate, group)
-        return loss
+        return loss, aux
+
+    def _integrity_aux(self, flat, row, old_row, slots, grad_b, edges,
+                       seed, latch, bad_iter, intact, fps_table) -> dict:
+        """The step's integrity verdicts, output fingerprints, carry and
+        norms; one all-reduce carries every norm (the shards partition
+        the vector, so their sums are the global squares)."""
+        group = self.group
+        fp_p_out = integrity.fingerprint_flat(flat, seed)
+        fp_s_out = integrity.fingerprint_tree(
+            slots, seed + integrity.SLOT_SEED_OFF)
+        edges = edges or [(0, self._arp.shard_size)]
+        new64, old64 = row.to(torch.float64), old_row.to(torch.float64)
+        pb = torch.stack([(new64[a:b] ** 2).sum() for a, b in edges])
+        ub = torch.stack([((new64[a:b] - old64[a:b]) ** 2).sum()
+                          for a, b in edges])
+        nb = len(edges)
+        stats = axis_sum(torch.cat([pb, ub,
+                                    integrity.sq_norm(grad_b)[None]]),
+                         group)
+        return dict(
+            cont=(~intact).to(torch.int32),
+            bad_iter=-axis_min(-bad_iter.clone(), group),
+            fps_all=fps_table, pn=stats[:nb].sum(),
+            un=stats[nb:2 * nb].sum(), gn=stats[2 * nb], pb=stats[:nb],
+            ub=stats[nb:2 * nb],
+            fpc=integrity.pack_carry(latch, bad_iter, fp_p_out, fp_s_out))
 
     # ---- the training loop -------------------------------------------------
 
@@ -449,12 +559,6 @@ class DistriOptimizer(Optimizer):
                 f"has {n_data} ranks: they must match "
                 "(reference DistriOptimizer.scala:492)")
         refuse_unported()
-        if (config.get_bool("bigdl.chaos.extraAllGather", False) or
-                config.get_property("bigdl.chaos.dropBucketCollective")
-                not in (None, "")):
-            raise NotImplementedError(
-                "bigdl.chaos.extraAllGather/dropBucketCollective: the "
-                "audit's fault injection is not ported yet")
         local = (local_data_partitions(group) if mesh is None
                  else [mesh.coord("data")])
         missing = [p for p in local
@@ -518,6 +622,21 @@ class DistriOptimizer(Optimizer):
         ).set(float(len(edges) if edges else 1))
         stream = (torch.Generator(device=self.device)
                   if is_stochastic(model) else None)
+        every_n = config.get_int("bigdl.integrity.everyN", 0)
+        integ = None
+        if guard or every_n > 0:
+            integ = integrity.DriverIntegrity(
+                "distri", ["loss"] + [f"grad:bucket{i}" for i in
+                                      range(len(edges) if edges else 1)],
+                every_n=every_n,
+                health=integrity.WeightHealthMonitor(
+                    config.get_float("bigdl.integrity.healthFactor", 0.0),
+                    warmup=config.get_int("bigdl.integrity.healthWarmup", 5),
+                    cooldown=config.get_int(
+                        "bigdl.integrity.healthCooldown", 50)))
+        carry = {"fpc": integrity.init_carry(self.device)
+                 if every_n > 0 else None}
+        desync = chaos.desync_replica()
         it = {"shards": None}
 
         def reset_epoch():
@@ -540,9 +659,11 @@ class DistriOptimizer(Optimizer):
                                    for x in (inputs, targets))
             return inputs, targets, count
 
-        def run_step(inputs, targets, hyper, seed):
+        def step(inputs, targets, hyper, seed):
             args = (params, flat, row, slots, mstate, edges, guard, inputs,
-                    targets, hyper, scales)
+                    targets, hyper, scales, carry["fpc"],
+                    self.optim_method.state.get("evalCounter", 0) + 1,
+                    desync)
             with bind_axes(mesh, axes) if axes else \
                     contextlib.nullcontext():
                 if stream is None:
@@ -551,23 +672,82 @@ class DistriOptimizer(Optimizer):
                 with random_stream(model, stream):
                     return self._step(*args)
 
+        def run_step(inputs, targets, hyper, seed):
+            if chaos.active():
+                flip = chaos.take_bitflip()
+                if flip is not None:
+                    # injected corruption of one rank's copy between steps
+                    integrity.bitflip_one_replica(flat, flip, rank, n)
+            oom = None
+            try:
+                if chaos.active():
+                    chaos.take_oom_dispatch("distri")
+                loss, aux = step(inputs, targets, hyper, seed)
+            except Exception as e:  # noqa: BLE001 re-raised unless an OOM
+                oom = classify_dispatch_error(e, "distri", self.device)
+                if oom is None:
+                    raise
+            if oom is not None:
+                raise oom
+            if "fpc" in aux:
+                carry["fpc"] = aux["fpc"]
+            return loss, aux
+
         self._sync_dataset_epoch()
         reset_epoch()
         try:
             self._drive(fetch_batch, run_step, reset_epoch,
                         epoch_size=self.dataset.size(),
-                        publish=self._publish_slots)
-        except BaseException:
+                        publish=self._publish_slots, integrity=integ)
+        except BaseException as e:
             # the weights and statistics stay live in the model; keep the
             # slot shards beside them, so that a retry with nothing to
             # restore goes on from one consistent step
             self._kept_shards = (self.optim_method,
                                  self.optim_method._slots, slots)
+            if isinstance(e, integrity.ReplicaDesyncError):
+                self._heal_desync(e, flat)
             raise
         finally:
             close_iterators(self.prefetcher, it["shards"].values())
         self._publish_slots()
         return model
+
+    def _heal_desync(self, err, flat: torch.Tensor) -> None:
+        """Heal a replica desync in place (JAX :829-873): the ranks vote on
+        their copies' fingerprints (:func:`~bigdl_tpu_torch.integrity.
+        majority_split`), the first rank of the majority broadcasts its
+        copy to all, the eval counter is rewound to just before the first
+        frozen step (the verdict froze every rank the moment the copies
+        diverged, so the majority's copy is the last healthy state), and
+        the error is marked ``healed`` for the retry loop.  The slot shards
+        are each rank's own, verified by its continuity: they stay."""
+        t0 = time.monotonic()
+        group = self.group
+        seed = config.get_int("bigdl.integrity.seed", integrity.DEFAULT_SEED)
+        with torch.no_grad():
+            table = gather_fingerprints(
+                integrity.fingerprint_flat(flat, seed), group)
+            minority, _ = integrity.replicated_shard_disagreement(
+                list(table))
+            major = next(i for i in range(table.shape[0])
+                         if i not in minority)
+            src = major if group is None else \
+                dist.get_global_rank(group, major)
+            dist.broadcast(flat, src=src, group=group)
+        self.optim_method.state["evalCounter"] = max(
+            (err.iteration or 1) - 1, 0)
+        telemetry.gauge(
+            "Integrity/heal_ms",
+            help="detection-to-heal latency of the last integrity fault "
+                 "(restore or re-broadcast)").set(
+            (time.monotonic() - t0) * 1000.0)
+        logger.warning(
+            "Healed replica desync at iteration %s: broadcast rank %d's "
+            "copy over minority replica(s) %s and rewound to iteration %d",
+            err.iteration, major, list(err.replicas),
+            self.optim_method.state["evalCounter"])
+        err.healed = True
 
     # ---- dp x tp: the Megatron step (JAX _optimize_gspmd :892-1050) ---------
 
@@ -591,6 +771,10 @@ class DistriOptimizer(Optimizer):
             named_specs, split_dim, tp_shard_params, zero1_slot_specs)
         mesh, group, model = self._mesh, self.group, self.model
         local = self._check_run()
+        refuse_keys(("bigdl.integrity.everyN", "bigdl.chaos.bitflipParamAt",
+                     "bigdl.chaos.desyncReplicaAt", "bigdl.chaos.oomStepAt"),
+                    "the dp x tp step has no integrity fingerprints, replica "
+                    "injectors or OOM classification yet")
         specs = named_specs(model, "model", mesh)
         for m in model.modules():
             if isinstance(m, MultiHeadAttention):
@@ -672,12 +856,14 @@ class DistriOptimizer(Optimizer):
                 if guard:
                     ok = axis_min(all_finite(loss, g_b).to(torch.int32),
                                   group).bool()
+                self._torn = True
                 select_tree(ok, new_p, p_b)
                 select_tree(ok, new_s, slots)
                 with telemetry.span("parallel/all_gather"):
                     for p, b, k in zip(live, p_b, sdims):
                         if k is not None and n_d > 1:
                             p.detach().copy_(_gather_dim(b, k, g_d, n_d))
+                self._torn = False
                 if guard:
                     for live_b, kept_b in zip(mstate, saved):
                         torch.where(ok, live_b, kept_b, out=live_b)

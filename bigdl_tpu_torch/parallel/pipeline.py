@@ -58,6 +58,7 @@ from bigdl_tpu_torch.nn.module import (Sequential, collect_diagnostics,
                                        semantic_state_leaves)
 from bigdl_tpu_torch.optim.optimizer import (Optimizer, all_finite,
                                              close_iterators,
+                                             refuse_keys,
                                              refuse_unported,
                                              regularization_penalty,
                                              select_tree)
@@ -455,7 +456,18 @@ class PipelineOptimizer(Optimizer):
     A snapshot's topology is ``describe_topology(step="pipeline",
     slot_axis="data")`` with the mesh's axes; a restore onto another mesh
     cuts the canonical slots again.  fp32 only, as in the JAX package:
-    :meth:`set_precision` raises at ``optimize()``."""
+    :meth:`set_precision` raises at ``optimize()``.
+
+    The failure taxonomy is the shared loop's and ``optimize()``'s: the
+    hung-step watchdog, the governor's poll, the chaos step hooks
+    (``failStepAt``, ``nanLossAt``, ``preemptAt``, ``stallStepAt``,
+    ``topologyChangeAt``) and the preemption drain act here as in the other
+    trainers.  The JAX package's pipeline step has no integrity
+    fingerprints, no replica or bit-flip injection and no microbatch
+    re-plan of its own (its pipeline already splits the batch into
+    ``n_micro`` microbatches): ``bigdl.integrity.everyN``,
+    ``bigdl.chaos.bitflipParamAt``, ``desyncReplicaAt`` and ``oomStepAt``
+    raise :class:`NotImplementedError` here, and a device OOM is fatal."""
 
     def __init__(self, blocks: Sequence[torch.nn.Module], dataset, criterion,
                  mesh: Optional[Mesh] = None, n_micro: int = 4,
@@ -515,6 +527,11 @@ class PipelineOptimizer(Optimizer):
             raise ValueError(f"mesh of {mesh.size} ranks over a process "
                              f"group of {world}")
         refuse_unported()
+        refuse_keys(("bigdl.integrity.everyN", "bigdl.chaos.bitflipParamAt",
+                     "bigdl.chaos.desyncReplicaAt", "bigdl.chaos.oomStepAt"),
+                    "the pipeline step has no integrity fingerprints, "
+                    "replica injectors or microbatch re-plan, as in the JAX "
+                    "package")
         if self.precision is not None:
             raise ValueError("PipelineOptimizer is fp32-only for now; "
                              "unset set_precision")
@@ -670,11 +687,13 @@ class PipelineOptimizer(Optimizer):
                     ok = all_finite(loss, g_row)
                     if dist.is_initialized() and dist.get_world_size() > 1:
                         ok = axis_min(ok.to(torch.int32)).bool()
+                self._torn = True
                 select_tree(ok, new_p, [row])
                 select_tree(ok, new_s, {k: [v] for k, v in slots.items()})
                 with telemetry.span("parallel/all_gather"):
                     if n_d > 1:
                         arp.all_gather_weights(row, flat)
+                self._torn = False
                 if guard:
                     loss = torch.where(ok, loss,
                                        torch.full_like(loss, math.nan))

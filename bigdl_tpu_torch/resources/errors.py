@@ -5,7 +5,8 @@
   found before anything was allocated (``phase="preflight"``,
   :func:`~bigdl_tpu_torch.resources.device.preflight_pool`) or at dispatch.
 * :class:`HostMemoryError` — one buffered item exceeds the host-memory
-  budget (raised by the JAX package's governor, which is not ported yet).
+  budget (:meth:`~bigdl_tpu_torch.resources.governor.HostMemoryGovernor.
+  check_item`); the trainers treat it as fatal.
 * :class:`StorageExhaustedError` — ENOSPC/EDQUOT classified at the
   ``file_io.write_bytes`` choke point.  ``fatal = True`` so the transient
   IO retry refuses to absorb it (re-writing to a full disk yields a full
@@ -78,9 +79,12 @@ class StorageExhaustedError(OSError):
 
 
 #: substrings of an allocation failure's message: XLA's RESOURCE_EXHAUSTED
-#: status and the caching allocator's "CUDA out of memory"
+#: status (which the chaos injector's replica carries), the caching
+#: allocator's "CUDA out of memory", and cuBLAS failing to allocate its
+#: workspace or handle, the same exhaustion surfacing in another library
 _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory",
-                "out of memory", "OOM when allocating")
+                "out of memory", "OOM when allocating",
+                "CUBLAS_STATUS_ALLOC_FAILED")
 
 _STORAGE_ERRNOS = (errno.ENOSPC, errno.EDQUOT)
 

@@ -46,7 +46,14 @@ Telemetry: the spans ``checkpoint/capture`` (the caller's thread, the
 training loop's) and ``checkpoint/write`` (the writer thread, named
 ``bigdl-ckpt-writer``, or the caller's in synchronous mode).
 
-Not ported: the chaos hooks, ``watch_latest`` and remote stores
+Chaos (JAX :155-170): the capture passes each payload, after its semantic
+fingerprint, through ``chaos.corrupt_state_before_save``
+(``bigdl.chaos.corruptStateBeforeSaveAt``), and every payload write goes
+through :func:`~bigdl_tpu_torch.utils.file_io.write_bytes`, where the
+storage injectors act (``failWriteAt``, ``truncateWriteAt``,
+``transientWrites``, ``diskFullAt``; :mod:`~bigdl_tpu_torch.utils.chaos`).
+
+Not ported: ``watch_latest`` and remote stores
 (:mod:`bigdl_tpu_torch.utils.file_io` is local only).
 """
 
@@ -64,7 +71,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.integrity import fingerprint_key, host_fingerprint
 from bigdl_tpu_torch.resources.errors import StorageExhaustedError
-from bigdl_tpu_torch.utils import config, elastic, file_io
+from bigdl_tpu_torch.utils import chaos, config, elastic, file_io
 from bigdl_tpu_torch.visualization.crc32c import crc32c
 
 logger = logging.getLogger("bigdl_tpu_torch")
@@ -127,6 +134,10 @@ def _capture(model, optim, neval: int
                               (f"optimMethod.{neval}",
                                optim_payload(optim))):
             fps[name] = fingerprint_key(host_fingerprint(payload))
+            if chaos.active():
+                # in-RAM rot between the fingerprint and the write: the
+                # checksums are taken over the corrupt bytes and verify
+                payload = chaos.corrupt_state_before_save(payload)
             blobs[name] = file_io.dumps(payload)
         return blobs, fps
 

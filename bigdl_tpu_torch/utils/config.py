@@ -55,6 +55,36 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.checkpoint.asyncWrite": False,    # background checkpoint writer
     "bigdl.elastic.reshardOnRestore": True,  # a snapshot of another world size
     # re-slices its slots; False = TopologyMismatchError
+    "bigdl.elastic.gracePeriod": 30.0,       # seconds for the final drain+snapshot
+    # the hung-step watchdog (utils/elastic.py HungStepWatchdog)
+    "bigdl.watchdog.stallFactor": 0,         # 0 disables the monitor thread
+    "bigdl.watchdog.pollInterval": 0.25,     # monitor wake period, seconds
+    "bigdl.watchdog.warmupSteps": 5,         # EMA warmup (first steps exempt)
+    "bigdl.watchdog.cooldownSteps": 50,      # heartbeats between fires
+    "bigdl.watchdog.timelineDir": None,      # dump the telemetry timeline here on fire
+    # training-state integrity (bigdl_tpu_torch/integrity)
+    "bigdl.integrity.seed": 0x51D0,          # projection-sign seed
+    "bigdl.integrity.healthFactor": 0,       # weight-health gate: > k x EMA; 0 off
+    "bigdl.integrity.healthWarmup": 5,       # EMA warmup observations
+    "bigdl.integrity.healthCooldown": 50,    # observations between fires
+    # host memory (resources/governor.py)
+    "bigdl.resources.hostMemBudgetMB": 0,    # soft host budget over the
+    # accounted buffers; 0 = accounting only
+    # the training and checkpoint fault injectors (utils/chaos.py)
+    "bigdl.chaos.failWriteAt": 0,
+    "bigdl.chaos.truncateWriteAt": 0,
+    "bigdl.chaos.transientWrites": 0,
+    "bigdl.chaos.diskFullAt": None,
+    "bigdl.chaos.corruptStateBeforeSaveAt": 0,
+    "bigdl.chaos.failStepAt": 0,
+    "bigdl.chaos.topologyChangeAt": 0,
+    "bigdl.chaos.nanLossAt": None,
+    "bigdl.chaos.preemptAt": 0,
+    "bigdl.chaos.stallStepAt": None,
+    "bigdl.chaos.oomStepAt": 0,
+    "bigdl.chaos.hostMemPressureAt": 0,
+    "bigdl.chaos.bitflipParamAt": None,
+    "bigdl.chaos.desyncReplicaAt": None,
     # the trainers' batch prefetcher (bigdl_tpu_torch/engine.py)
     "bigdl.prefetch.depth": 2,               # batches fetched ahead; 0 = synchronous
     "bigdl.pipeline.depth": 8,               # DispatchPipeline's results in flight
@@ -79,7 +109,8 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.ingest.fallbackOnFailure": False,  # sync path after a failure (not ported)
     "bigdl.ingest.stallTimeoutSec": 0,       # wedged-ring detection (not ported: > 0 raises)
     "bigdl.ingest.epochCache": False,        # decoded-frame cache (not ported)
-    # the ingest stages' fault injection (not ported: any of them set raises)
+    # the ingest stages' fault injection (not ported: any of them set raises,
+    # as does every other key of utils/chaos.py UNPORTED_KEYS)
     "bigdl.chaos.corruptRecordAt": None,
     "bigdl.chaos.corruptRecordEvery": 0,
     "bigdl.chaos.failDecodeAt": None,
@@ -91,8 +122,8 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.parallel.overlapBuckets": 4,      # column buckets of the flat vector per step
     "bigdl.elastic.globalShuffle": True,     # one global epoch permutation
     # (ShardedDataSet); False = partition-local blocks shuffled apart
-    "bigdl.elastic.handleSignals": False,    # graceful drain + resume (not ported: raises)
-    "bigdl.integrity.everyN": 0,             # fingerprints (not ported: > 0 raises)
+    "bigdl.elastic.handleSignals": False,    # SIGTERM/SIGINT -> graceful drain
+    "bigdl.integrity.everyN": 0,             # fingerprint verdicts read every N steps
     "bigdl.chaos.extraAllGather": False,     # audit fault injection (not ported: raises)
     "bigdl.chaos.dropBucketCollective": None,  # audit fault injection (not ported: raises)
     # runtime telemetry (bigdl_tpu_torch/telemetry): span tracer, step-time

@@ -31,7 +31,7 @@ from typing import Any, List, Optional
 
 import torch
 
-from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.utils import chaos, config
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -124,7 +124,11 @@ def write_bytes(path: str, data: bytes, overwrite: bool = True) -> None:
     """Write ``data`` to ``path`` atomically: a temporary file in the same
     directory (``.tmp_bigdl_`` prefix), then a rename.  A full disk
     (ENOSPC/EDQUOT) raises :class:`~bigdl_tpu_torch.resources.errors.
-    StorageExhaustedError`, which the transient retry does not absorb."""
+    StorageExhaustedError`, which the transient retry does not absorb.
+    The chaos harness's storage hooks (``failWriteAt``,
+    ``truncateWriteAt``, ``transientWrites``, ``diskFullAt``) act here, as
+    in the JAX package (:187, :197); a torn write leaves its temporary
+    behind."""
     path = _local(path)
     if os.path.exists(path) and not overwrite:
         raise FileExistsError(
@@ -134,18 +138,41 @@ def write_bytes(path: str, data: bytes, overwrite: bool = True) -> None:
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp_bigdl_")
     try:
+        payload = chaos.on_write(path, data)
+    except BaseException as e:
+        partial = getattr(e, "partial", None)
+        if partial is not None:
+            # a writer that died mid-write leaves its torn temporary
+            with os.fdopen(fd, "wb") as f:
+                f.write(partial)
+        else:
+            os.close(fd)
+            os.unlink(tmp)
+        raise
+    try:
+        chaos.take_disk_full(path)
+    except BaseException as e:
+        os.close(fd)            # fdopen below never adopted it
+        os.unlink(tmp)
+        _reraise_classified(e, path)
+    try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            f.write(payload)
         os.replace(tmp, path)
     except BaseException as e:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        from bigdl_tpu_torch.resources.errors import (StorageExhaustedError,
-                                                      is_storage_exhausted)
-        if is_storage_exhausted(e) and not isinstance(
-                e, StorageExhaustedError):
-            raise StorageExhaustedError(path, e) from e
-        raise
+        _reraise_classified(e, path)
+
+
+def _reraise_classified(e: BaseException, path: str) -> None:
+    """Re-raise ``e``, a full disk as :class:`~bigdl_tpu_torch.resources.
+    errors.StorageExhaustedError`."""
+    from bigdl_tpu_torch.resources.errors import (StorageExhaustedError,
+                                                  is_storage_exhausted)
+    if is_storage_exhausted(e) and not isinstance(e, StorageExhaustedError):
+        raise StorageExhaustedError(path, e) from e
+    raise e
 
 
 def read_bytes(path: str) -> bytes:

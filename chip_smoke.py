@@ -331,14 +331,47 @@ Phases, each fatal on any fault:
    mesh, ``--sp 4 nccl`` the 8-layer LM at T8192 (T2048 a card) in bf16
    over a (1, 4) ``("data", "seq")`` mesh, 6 Adam steps at B8 each, with
    what ``--tp 4`` checks and logs.
+17. the trainers' failure taxonomy, on the LM at full width (d_model 1024,
+   8 heads of 128, vocab 16384, T 2048) cut to 2 layers, bf16, SGD(0.01,
+   momentum 0.9), over a one-partition ``ShardedDataSet`` (its shuffles
+   replay on a resume), each leg against an uninterrupted run from the
+   same weights in this call.  (a) A real CUDA OOM: from the model's B8
+   peak, the smallest B (a multiple of 8) that cannot fit while B/2 or
+   B/4 can, trained 3 steps with a snapshot every step at prefetch depth
+   0: the first attempt's OOM is re-planned to k chunks, the weights equal
+   bit for bit a run started at k, the allocated bytes after the re-plan
+   within 1% of those at the failed step's entry, and
+   ``Resources/microbatch_replans`` counted; ``Resources/oom_replan_ms``
+   logged.  (b) ``bigdl.elastic.handleSignals``: a thread sends this
+   process SIGTERM half a step into step 4 of 8 (a snapshot every 2
+   steps); the trainer drains, commits the grace snapshot 4 and its
+   marker, raises ``Preempted``, is restored and resumed here to step 8,
+   bit-identical to the uninterrupted run; through ``LocalOptimizer`` and
+   through ``DistriOptimizer`` over an NCCL group of one rank; the drain's
+   time beside ``bigdl.elastic.gracePeriod``.  (c)
+   ``bigdl.watchdog.stallFactor`` 5, ``warmupSteps`` 2 and a stall of at
+   least 10 steps at iteration 6: ``HungStepError``, a restore, the run
+   finishes with the uninterrupted weights (bitwise said); the detection
+   latency beside the threshold.  (d) ``bigdl.integrity.everyN`` 1 and
+   ``bitflipParamAt`` 4: ``IntegrityError`` at iteration 4, healed by a
+   restore, the weights the uninjected run's; the median step with
+   ``everyN`` 1 against 0 over two interleaved 10-step runs each, and the
+   fingerprint's own time.  (e) ``hostMemPressureAt`` 3 at prefetch depth
+   2: ``Resources/host_pressure`` 1, the read-ahead limit halved, the
+   weights bit-identical.  (f) In phase 16's four gloo children:
+   ``DistriOptimizer`` with ``desyncReplicaAt "4:3"``: one
+   ``ReplicaDesyncError`` naming rank 3 at iteration 5 on every rank,
+   healed in place without a restore, the weights the clean run's.  Every
+   bf16 flash kernel launched in the phase.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
 its launches on its main path and, as ``distri_launches``, in phase 10's LM
 run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
 phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
-in phase 15 (a) and as ``pipeline_launches`` in phase 16 (a); phases 8,
-9, 11, 12, 14 and 16 run none of them), then the
+in phase 15 (a), as ``pipeline_launches`` in phase 16 (a) and as
+``resilience_launches`` in phase 17; phases 8, 9, 11, 12, 14 and 16 run
+none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -5037,6 +5070,8 @@ def pl_rank(rank: int, world: int, store: str, outdir: str) -> int:
         dist.all_reduce(t_)
     g_full = torch.autograd.grad(full.square().sum(), params)
     excess("ring/grad", zip(g_ring, g_full))
+    # phase 17 (f), run here to spare a spawn
+    out.update(rz_desync_rank())
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
     return 0
@@ -5052,6 +5087,7 @@ def phase_sharding_gloo(card: str) -> None:
     import numpy as np
     t = time.perf_counter()
     outs = mp_spawn(PL_WORLD, "--pl-rank")
+    _PL_OUTS[:] = outs      # phase 17 (f) reads its legs from them
     worst = {}
     for leg, _, _ in PL_LEGS:
         keys = sorted(k for k in outs[0] if k.startswith(f"{leg}/mesh/"))
@@ -5217,10 +5253,518 @@ def phase_sharding(card: str) -> dict:
     return launches
 
 
+# ---- phase 17: the trainers' failure taxonomy ------------------------------
+
+RZ_LAYERS = 2           # the LM at full width, its depth cut: every leg
+#                         snapshots, and an 8-layer snapshot blocks the step
+#                         for 6.8-8.0 s on the host (PERF.md section 5)
+#: one batch an epoch: a restore replays its epoch from the epoch's first
+#: batch (as in the JAX package), so the restored legs' snapshots must fall
+#: on epoch boundaries to replay the same batches
+RZ_SAMPLES, RZ_BATCH, RZ_STEPS, RZ_SNAP = 8, 8, 8, 2
+RZ_KILL_AFTER = 3       # (b): SIGTERM half a step after snapshot 3 commits
+#                         (several_iteration(2) snapshots after steps 1, 3,
+#                         5 and 7, as in the JAX package)
+RZ_STALL_AT, RZ_STALL_FACTOR, RZ_STALL_WARMUP = 6, 5.0, 2
+RZ_STALL_STEPS = 10     # (c): the stall lasts this many steps at least
+RZ_STALL_SNAP = 5       # (c): snapshot 4, the one restored
+RZ_FLIP_SNAP = 3        # (d): snapshots 2 and 5; 2 is restored
+RZ_FLIP_AT = 4          # (d)
+RZ_TIMED = 10           # (d): steps of each everyN run for the medians
+RZ_PRESSURE_AT = 3      # (e)
+RZ_OOM_STEPS = 3        # (a)
+RZ_OOM_OVER = 1.15      # (a): the batch's estimate over the card's room
+RZ_OOM_UNDER = 0.85     # (a): the re-planned chunk's under it
+RZ_MEM_RTOL = 0.01      # (a): allocated bytes after the re-plan
+RZ_PARITY = dict(rtol=1e-5, atol=1e-7)   # a replay from a restore
+RZ_RETRY = dict(bigdl__failure__retryTimes=3,
+                bigdl__failure__retryTimeInterval=0)
+RZ_DESYNC = ("4:3", 3, 5)   # (f): the injection, the rank named, its onset
+#: (f)'s results, from phase 16's gloo children (pl_rank)
+_PL_OUTS: list = []
+
+
+def rz_model():
+    from bigdl_tpu_torch.models.transformer import transformer_lm
+    return transformer_lm(VOCAB, d_model=D_MODEL, n_head=N_HEAD,
+                          n_layers=RZ_LAYERS, max_len=SEQ, flash=True,
+                          device=DEVICE, seed=SEED + 17)
+
+
+def rz_opt(model, init, samples, batch: int, steps: int, distri=False,
+           ckpt=None, every: int = RZ_SNAP, k: int = 1):
+    """An optimizer of the phase-17 LM from the weights ``init`` over a
+    one-partition ShardedDataSet (its shuffles replay on a resume): bf16,
+    SGD(0.01, momentum 0.9), ``steps`` iterations, a snapshot every
+    ``every`` into ``ckpt``, the step split into ``k`` chunks."""
+    import torch
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch, ShardedDataSet
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, max_iteration,
+                                       several_iteration)
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), init, strict=True):
+            p.copy_(v)
+    RandomGenerator.RNG().set_seed(SEED)
+    ds = ShardedDataSet(samples, 1).transform(SampleToMiniBatch(batch, 1))
+    cls = DistriOptimizer if distri else LocalOptimizer
+    opt = cls(model, ds, lm_criterion(), device=DEVICE)
+    (opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
+     .set_end_when(max_iteration(steps)))
+    opt._microbatch_k = k
+    if ckpt is not None:
+        opt.set_checkpoint(ckpt, several_iteration(every))
+    return opt
+
+
+def rz_release() -> None:
+    """Free what a finished optimizer held: its closures form reference
+    cycles, which only a collection frees; then return the blocks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rz_weights(model) -> list:
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def rz_compare(model, ref: list, what: str, bitwise: bool = True) -> bool:
+    """The model's weights against ``ref``: bit for bit, or (``bitwise``
+    False) within RZ_PARITY; raises when they are not.  Returns whether
+    they are bit for bit."""
+    import torch
+    got = rz_weights(model)
+    if all(torch.equal(a, b) for a, b in zip(got, ref, strict=True)):
+        return True
+    worst = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    if bitwise or not all(torch.allclose(a, b, **RZ_PARITY)
+                          for a, b in zip(got, ref)):
+        raise AssertionError(f"{what}: weights differ from the reference "
+                             f"run by up to {worst:.3e}")
+    return False
+
+
+def rz_median_step(opt) -> float:
+    return statistics.median(h["seconds"] for h in opt.history[1:])
+
+
+def rz_oom(card: str, model, init: list, tmp: str) -> None:
+    """(a) A real device OOM: from this model's B8 peak, the smallest
+    batch B (a multiple of 8) whose step cannot fit on the card while B/2
+    or B/4 can; 3 steps with a snapshot every step.  The first attempt
+    raises a CUDA OOM, the trainer re-plans to k chunks and finishes.
+    Gates: the weights equal, bit for bit, those of a run started at that
+    k; the bytes allocated after the re-plan within RZ_MEM_RTOL of those
+    at the failed step's entry; Resources/microbatch_replans counted.
+    Prefetch depth 0: batches read ahead are in flight at the failed step
+    and are not a leak."""
+    import torch
+    from bigdl_tpu_torch import telemetry
+    rz_release()
+    probe = rz_opt(model, init, lm_samples(RZ_BATCH), RZ_BATCH, 1)
+    torch.cuda.reset_peak_memory_stats()
+    probe.optimize()
+    peak8 = torch.cuda.max_memory_allocated()
+    base = torch.cuda.memory_allocated()    # weights and slots
+    del probe
+    rz_release()
+    free, total = torch.cuda.mem_get_info()
+    room = free + torch.cuda.memory_allocated()
+    per_row = (peak8 - base) / RZ_BATCH
+
+    def est(b):
+        return base + per_row * b
+
+    b = 2 * RZ_BATCH
+    while est(b) < RZ_OOM_OVER * room:
+        b += RZ_BATCH
+    fits = [k for k in (2, 4) if est(b // k) < RZ_OOM_UNDER * room]
+    log(f"[resilience] (a) B{RZ_BATCH} peak {peak8 / 2**30:.2f} GiB "
+        f"(weights and slots {base / 2**30:.2f} GiB), card "
+        f"{total / 2**30:.2f} GiB, room {room / 2**30:.2f} GiB; the OOM "
+        f"batch B{b} needs about {est(b) / 2**30:.2f} GiB, B{b}/2 about "
+        f"{est(b // 2) / 2**30:.2f} GiB, B{b}/4 about "
+        f"{est(b // 4) / 2**30:.2f} GiB, on {card}")
+    if not fits:
+        raise AssertionError(f"(a): neither B{b}/2 nor B{b}/4 fits")
+    samples = lm_samples(b)
+    replans = telemetry.counter("Resources/microbatch_replans").value
+    with properties(bigdl__prefetch__depth=0):
+        opt = rz_opt(model, init, samples, b, RZ_OOM_STEPS,
+                     ckpt=os.path.join(tmp, "oom"), every=1)
+        t = time.perf_counter()
+        opt.optimize()
+        wall = time.perf_counter() - t
+        k, memory = opt._microbatch_k, opt.oom_replan_memory
+        got = rz_weights(model)
+        del opt
+        rz_release()
+        rz_opt(model, init, samples, b, RZ_OOM_STEPS, k=k).optimize()
+    replanned = (telemetry.counter("Resources/microbatch_replans").value -
+                 replans)
+    log(f"[resilience] (a) B{b}: {replanned:.0f} re-plan(s) to k = {k}; "
+        f"Resources/oom_replan_ms "
+        f"{telemetry.gauge('Resources/oom_replan_ms').value:.1f} ms; "
+        f"allocated at the failed step's entry and after the re-plan "
+        f"{memory and [round(m / 2**20, 1) for m in memory]} MiB; the run "
+        f"{wall:.2f} s, on {card}")
+    if replanned < 1 or memory is None:
+        raise AssertionError("(a): no microbatch re-plan")
+    if abs(memory[1] - memory[0]) > RZ_MEM_RTOL * memory[0]:
+        raise AssertionError(f"(a): {memory[1]} B allocated after the "
+                             f"re-plan against {memory[0]} B at the failed "
+                             "step's entry")
+    rz_compare(model, got, "(a) a run started at k against the re-planned")
+    rz_release()
+
+
+def rz_preempt(card: str, model, init: list, samples, ref: list, tmp: str,
+               distri: bool, step_s: float) -> None:
+    """(b) A real SIGTERM half a step into step 4 of 8, a snapshot every 2
+    (after steps 1, 3, 5, 7): the trainer drains, commits the grace
+    snapshot 4 with its marker and raises Preempted; restored and resumed
+    in this process to step 8, its weights bit-identical to the
+    uninterrupted run."""
+    import signal
+    import threading
+    import torch
+    from bigdl_tpu_torch.utils import config, elastic
+    name = "DistriOptimizer" if distri else "LocalOptimizer"
+    ckpt = os.path.join(tmp, f"preempt_{name}")
+    with properties(bigdl__elastic__handleSignals=True):
+        opt = rz_opt(model, init, samples, RZ_BATCH, RZ_STEPS, distri=distri,
+                     ckpt=ckpt)
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def kill():
+            commit = os.path.join(ckpt, f"commit.{RZ_KILL_AFTER}")
+            while not os.path.exists(commit):
+                time.sleep(0.002)
+            time.sleep(step_s / 2)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        killer = threading.Thread(target=kill, daemon=True)
+        killer.start()
+        try:
+            opt.optimize()
+            raise AssertionError(f"(b) {name}: the run was not preempted")
+        except elastic.Preempted:
+            drained = time.monotonic() - elastic.preemption_requested_at()
+        killer.join(timeout=10)
+        if signal.getsignal(signal.SIGTERM) != prev:
+            raise AssertionError("(b): the SIGTERM handler was not put back")
+        marker = elastic.read_preemption_marker(ckpt)
+        steps_before = len(opt.history)
+        if not marker or marker["neval"] != 4 or steps_before != 4:
+            raise AssertionError(f"(b) {name}: marker {marker} after "
+                                 f"{steps_before} steps")
+        if not opt._restore_latest_checkpoint():
+            raise AssertionError("(b): nothing to restore")
+        opt.optimize()
+    if elastic.read_preemption_marker(ckpt) is not None:
+        raise AssertionError("(b): the resumed run left the marker")
+    rz_compare(model, ref, f"(b) {name} preempted and resumed")
+    log(f"[resilience] (b) {name}: SIGTERM at step 4, drained and committed "
+        f"snapshot {marker['neval']} in {drained:.2f} s of "
+        f"bigdl.elastic.gracePeriod "
+        f"{config.get_float('bigdl.elastic.gracePeriod', 30.0):.0f} s, "
+        f"resumed to step {RZ_STEPS}: weights bit-identical to the "
+        f"uninterrupted run, on {card}")
+    torch.cuda.empty_cache()
+
+
+def rz_stall(card: str, model, init: list, samples, ref: list, tmp: str,
+             step_s: float) -> None:
+    """(c) bigdl.watchdog.stallFactor 5, warmupSteps 2, and a stall of
+    RZ_STALL_STEPS steps at least at iteration 6: HungStepError aborts it,
+    the trainer restores snapshot 4 and finishes; its weights against the
+    uninterrupted run (bit for bit, said; else within RZ_PARITY)."""
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.utils import chaos
+    stall = max(RZ_STALL_STEPS * step_s, 0.5)
+    fired = telemetry.counter("Elastic/watchdog_fired").value
+    with properties(bigdl__watchdog__stallFactor=RZ_STALL_FACTOR,
+                    bigdl__watchdog__warmupSteps=RZ_STALL_WARMUP,
+                    bigdl__watchdog__pollInterval=0.05,
+                    bigdl__chaos__stallStepAt=f"{RZ_STALL_AT}:{stall}",
+                    **RZ_RETRY):
+        chaos.install()
+        try:
+            opt = rz_opt(model, init, samples, RZ_BATCH, RZ_STEPS,
+                         ckpt=os.path.join(tmp, "stall"),
+                         every=RZ_STALL_SNAP)
+            opt.optimize()
+        finally:
+            chaos.uninstall()
+    if (telemetry.counter("Elastic/watchdog_fired").value != fired + 1 or
+            opt.optim_method.state["evalCounter"] != RZ_STEPS):
+        raise AssertionError("(c): the watchdog did not abort and finish")
+    bitwise = rz_compare(model, ref, "(c) the stalled run", bitwise=False)
+    log(f"[resilience] (c) a {stall:.2f} s stall at iteration {RZ_STALL_AT} "
+        f"(step {step_s * 1e3:.1f} ms): detected "
+        f"{telemetry.gauge('Elastic/watchdog_detect_ms').value:.1f} ms past "
+        f"the threshold of "
+        f"{telemetry.gauge('Elastic/watchdog_threshold_ms').value:.1f} ms "
+        f"({RZ_STALL_FACTOR:g} x EMA), restored in "
+        f"{opt.last_restore_seconds:.2f} s and finished; weights "
+        f"{'bit-identical to' if bitwise else 'within 1e-5 of'} the "
+        f"uninterrupted run, on {card}")
+
+
+def rz_integrity(card: str, model, init: list, samples, ref: list,
+                 tmp: str) -> None:
+    """(d) bigdl.integrity.everyN 1: the median of RZ_TIMED steps with
+    everyN 1 against 0, and the fingerprint's own time; then
+    bitflipParamAt 4 raises IntegrityError at iteration 4 (the JAX
+    semantics), healed by restoring snapshot 2, the final weights the
+    uninjected run's."""
+    import torch
+    from bigdl_tpu_torch import integrity, telemetry
+    from bigdl_tpu_torch.integrity import DriverIntegrity, IntegrityError
+    from bigdl_tpu_torch.utils import chaos
+    medians = {}
+    for n in (0, 1, 0, 1):
+        with properties(bigdl__integrity__everyN=n):
+            opt = rz_opt(model, init, samples, RZ_BATCH, RZ_TIMED)
+            opt.optimize()
+        medians.setdefault(n, []).append(rz_median_step(opt))
+    params = list(model.parameters())
+    slots = [v for fam in opt.optim_method._slots.values() for v in fam]
+    fp_ms = time_ms(lambda: integrity.fingerprint_tree(params, 1))
+    fs_ms = time_ms(lambda: integrity.fingerprint_tree(slots, 2))
+    seen = []
+    check = DriverIntegrity.check
+
+    def spy(self, aux, neval):
+        try:
+            return check(self, aux, neval)
+        except IntegrityError as e:
+            seen.append(e.iteration)
+            raise
+
+    fails = telemetry.counter("Integrity/continuity_failures").value
+    DriverIntegrity.check = spy
+    try:
+        with properties(bigdl__integrity__everyN=1,
+                        bigdl__chaos__bitflipParamAt=RZ_FLIP_AT, **RZ_RETRY):
+            chaos.install()
+            try:
+                opt = rz_opt(model, init, samples, RZ_BATCH, RZ_STEPS,
+                             ckpt=os.path.join(tmp, "flip"),
+                             every=RZ_FLIP_SNAP)
+                opt.optimize()
+            finally:
+                chaos.uninstall()
+    finally:
+        DriverIntegrity.check = check
+    if seen != [RZ_FLIP_AT] or telemetry.counter(
+            "Integrity/continuity_failures").value != fails + 1:
+        raise AssertionError(f"(d): IntegrityError at {seen}, expected "
+                             f"[{RZ_FLIP_AT}]")
+    rz_compare(model, ref, "(d) the healed run")
+    m0, m1 = (statistics.median(medians[n]) for n in (0, 1))
+    n_leaves = len(params) + len(slots)
+    log(f"[resilience] (d) IntegrityError at iteration {seen[0]}, healed by "
+        f"a restore in {telemetry.gauge('Integrity/heal_ms').value:.1f} ms, "
+        f"weights bit-identical to the uninjected run; step median "
+        f"{m0 * 1e3:.2f} ms at everyN 0 and {m1 * 1e3:.2f} ms at everyN 1 "
+        f"({100 * (m1 / m0 - 1):+.1f}%, two interleaved runs of {RZ_TIMED} "
+        f"steps each: {[round(x * 1e3, 2) for x in medians[0]]} and "
+        f"{[round(x * 1e3, 2) for x in medians[1]]}); one fingerprint of "
+        f"the {len(params)} parameters {fp_ms:.3f} ms and of the "
+        f"{len(slots)} slots {fs_ms:.3f} ms on the card ({n_leaves} leaves, "
+        f"{sum(p.numel() for p in params):,} parameters), four of each and "
+        f"one of the gradients a step, on {card}")
+    torch.cuda.empty_cache()
+
+
+def rz_governor(card: str, model, init: list, samples, ref: list) -> None:
+    """(e) hostMemPressureAt 3 at prefetch depth 2: the shrinker fires once
+    (Resources/host_pressure 1), the read-ahead limit halves, and the
+    weights are bit-identical to the run without pressure."""
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.utils import chaos
+    before = telemetry.counter("Resources/host_pressure").value
+    with properties(bigdl__prefetch__depth=2,
+                    bigdl__chaos__hostMemPressureAt=RZ_PRESSURE_AT):
+        chaos.install()
+        try:
+            opt = rz_opt(model, init, samples, RZ_BATCH, RZ_STEPS)
+            opt.optimize()
+        finally:
+            chaos.uninstall()
+    fired = telemetry.counter("Resources/host_pressure").value - before
+    limit = opt.prefetcher.limit
+    if fired != 1 or limit != (2 + opt.prefetcher.transfer_ahead) // 2:
+        raise AssertionError(f"(e): {fired} pressure event(s), read-ahead "
+                             f"limit {limit}")
+    rz_compare(model, ref, "(e) the run under pressure")
+    log(f"[resilience] (e) injected host pressure at poll {RZ_PRESSURE_AT}: "
+        f"Resources/host_pressure {fired:.0f}, read-ahead limit halved to "
+        f"{limit}; weights bit-identical to "
+        f"the run without pressure, on {card}")
+
+
+def rz_desync_rank() -> dict:
+    """(f), in a gloo child of phase 16: DistriOptimizer on the four ranks
+    trains a small MLP over the full batch with bigdl.integrity.everyN 1,
+    clean and with desyncReplicaAt RZ_DESYNC[0], a snapshot every step.
+    Returns the heals seen (the ranks named, the onset), the incident
+    kinds of the injected run and both runs' weights."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import (Sample, SampleToMiniBatch,
+                                         ShardedDataSet)
+    from bigdl_tpu_torch.optim import SGD, max_iteration, several_iteration
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.telemetry import incident
+    from bigdl_tpu_torch.utils import chaos, config
+    import tempfile
+    rng = np.random.RandomState(SEED + 7)
+    x = rng.normal(size=(64, 4)).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.float32) + 1
+    samples = [Sample(a, b) for a, b in zip(x, y)]
+    out, heals = {}, []
+    heal = DistriOptimizer._heal_desync
+
+    def spy(self, err, flat):
+        heals.append([list(err.replicas), err.iteration])
+        return heal(self, err, flat)
+
+    def train(tag, ckpt=None):
+        g = torch.Generator().manual_seed(SEED)
+        model = (nn.Sequential().add(nn.Linear(4, 16, device="cpu",
+                                               generator=g))
+                 .add(nn.Tanh()).add(nn.Linear(16, 2, device="cpu",
+                                                 generator=g))
+                 .add(nn.LogSoftMax()))
+        ds = ShardedDataSet(samples, 4).transform(SampleToMiniBatch(64, 4))
+        opt = DistriOptimizer(model, ds, nn.ClassNLLCriterion(),
+                              device="cpu")
+        opt.set_optim_method(SGD(0.3, momentum=0.9))
+        opt.set_end_when(max_iteration(8))
+        if ckpt is not None:
+            opt.set_checkpoint(ckpt, several_iteration(1))
+        opt.optimize()
+        for i, p in enumerate(model.parameters()):
+            out[f"rz/{tag}/{i}"] = p.detach().numpy()
+
+    with properties(bigdl__integrity__everyN=1, bigdl__incident__autoDump=False,
+                    **RZ_RETRY):
+        train("clean")
+        since = len(incident.events())
+        with properties(bigdl__chaos__desyncReplicaAt=RZ_DESYNC[0]):
+            chaos.install()
+            DistriOptimizer._heal_desync = spy
+            try:
+                train("desync", tempfile.mkdtemp(prefix="chip_smoke_rz_"))
+            finally:
+                DistriOptimizer._heal_desync = heal
+                chaos.uninstall()
+    out["rz/heals"] = np.array(json.dumps(heals))
+    out["rz/events"] = np.array(json.dumps(
+        [e["kind"] for e in incident.events()[since:]
+         if e["kind"].startswith("optim/")]))
+    return out
+
+
+def rz_desync_check(card: str) -> None:
+    """(f): every rank of phase 16's children saw one ReplicaDesyncError
+    naming rank RZ_DESYNC[1] at iteration RZ_DESYNC[2], healed in place
+    (no restore), its weights bit-identical to the clean run's."""
+    import numpy as np
+    if not _PL_OUTS:
+        raise AssertionError("(f): phase 16's gloo children gave no result")
+    _, rank, onset = RZ_DESYNC
+    for r, out in enumerate(_PL_OUTS):
+        heals = json.loads(str(out["rz/heals"]))
+        events = json.loads(str(out["rz/events"]))
+        if heals != [[[rank], onset]] or "optim/desync_heal" not in events \
+                or "optim/retry_restore" in events:
+            raise AssertionError(f"(f) rank {r}: heals {heals}, events "
+                                 f"{events}")
+        for k in (k for k in out if k.startswith("rz/clean/")):
+            if not np.array_equal(out[k], out[k.replace("clean",
+                                                         "desync")]):
+                raise AssertionError(f"(f) rank {r}: {k} differs after the "
+                                     "heal")
+    log(f"[resilience] (f) desyncReplicaAt {RZ_DESYNC[0]} on four gloo "
+        f"ranks: ReplicaDesyncError naming rank {rank} at iteration "
+        f"{onset}, healed in place without a restore, weights bit-identical "
+        f"to the clean run on every rank (the CPU of the machine of {card}; "
+        f"the four-card NCCL leg is by hand, not run by this script)")
+
+
+def phase_resilience(card: str) -> dict:
+    """Phase 17: the trainers' failure taxonomy on the LM at full width
+    (RZ_LAYERS deep), B8/T2048 bf16: (a) a real CUDA OOM re-planned, (b) a
+    real SIGTERM drained and resumed through LocalOptimizer and through
+    DistriOptimizer over an NCCL group of one rank, (c) the hung-step
+    watchdog, (d) integrity, (e) the host-memory governor, (f) a replica
+    desync healed on four gloo ranks (run in phase 16's children).
+    Returns the flash launches of the phase."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from bigdl_tpu_torch.engine import Engine
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rz_")
+    fa.reset_launches()
+    try:
+        with properties(bigdl__incident__dir=tmp):
+            model = rz_model()
+            init = rz_weights(model)
+            samples = lm_samples(RZ_SAMPLES)
+            ref_opt = rz_opt(model, init, samples, RZ_BATCH, RZ_STEPS)
+            ref_opt.optimize()
+            ref, step_s = rz_weights(model), rz_median_step(ref_opt)
+            del ref_opt
+            rz_release()
+            rz_oom(card, model, init, tmp)
+            t = time.perf_counter()
+            rz_preempt(card, model, init, samples, ref, tmp, False, step_s)
+            Engine.init_distributed(
+                backend="nccl", init_method=f"file://{tmp}/store", rank=0,
+                world_size=1, device=DEVICE)
+            try:
+                d_opt = rz_opt(model, init, samples, RZ_BATCH, RZ_STEPS,
+                               distri=True)
+                d_opt.optimize()
+                d_ref = rz_weights(model)
+                del d_opt
+                rz_preempt(card, model, init, samples, d_ref, tmp, True,
+                           step_s)
+            finally:
+                dist.destroy_process_group()
+            log(f"[resilience] (b) both trainers took "
+                f"{time.perf_counter() - t:.1f} s")
+            rz_stall(card, model, init, samples, ref, tmp, step_s)
+            rz_integrity(card, model, init, samples, ref, tmp)
+            rz_governor(card, model, init, samples, ref)
+            rz_desync_check(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(fa.launches)
+    want = [f"flash_attention_{k}_bf16" for k in ("fwd", "bwd_dkv", "bwd_dq")]
+    log(f"[resilience] phase 17 took {time.perf_counter() - t0:.1f} s on "
+        f"{card}; launches {launches}")
+    if not all(launches.get(k, 0) > 0 for k in want):
+        raise AssertionError(f"phase 17 launched {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
-                sharded: dict, pipelined: dict) -> list:
+                sharded: dict, pipelined: dict, resilient: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -5229,7 +5773,9 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     phase 12 (the drivers build no flash model: 0), ``telemetry_launches``
     in phase 13, ``zoo_rnn_launches`` in phase 14 (no flash model: 0),
     ``sharded_launches`` in phase 15 (a), ``pipeline_launches`` in phase
-    16 (a) (the ring and the pipeline blocks run no flash: 0)."""
+    16 (a) (the ring and the pipeline blocks run no flash: 0),
+    ``resilience_launches`` in phase 17 (the bf16 kernels > 0, the fp32
+    ones 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -5248,7 +5794,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "telemetry_launches": traced[name],
                     "zoo_rnn_launches": zoo_rnn[name],
                     "sharded_launches": sharded[name],
-                    "pipeline_launches": pipelined[name]})
+                    "pipeline_launches": pipelined[name],
+                    "resilience_launches": resilient.get(name, 0)})
     return out
 
 
@@ -5366,10 +5913,12 @@ def main(argv=None) -> int:
     sharded = phase_sharded(card)
     torch.cuda.empty_cache()
     pipelined = phase_sharding(card)
+    torch.cuda.empty_cache()
+    resilient = phase_resilience(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
-                          sharded, pipelined)
+                          sharded, pipelined, resilient)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

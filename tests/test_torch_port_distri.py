@@ -969,6 +969,20 @@ def test_unported_features_raise(group1, ask):
         assert opt.history == []
         return
     value = True if ask.endswith(("Gather", "Signals")) else 1
+    if ask in ("bigdl.integrity.everyN", "bigdl.elastic.handleSignals"):
+        # ported now: the fingerprint verdict is checked every step, and
+        # the SIGTERM handler is installed for the run and put back after
+        import signal
+        from bigdl_tpu_torch import telemetry
+        checks = telemetry.counter("Integrity/checks").value
+        prev = signal.getsignal(signal.SIGTERM)
+        with properties([pconfig], **{ask.replace(".", "__"): value}):
+            opt.optimize()
+        assert len(opt.history) == 1
+        assert signal.getsignal(signal.SIGTERM) == prev
+        assert telemetry.counter("Integrity/checks").value == \
+            checks + (ask == "bigdl.integrity.everyN")
+        return
     with properties([pconfig], **{ask.replace(".", "__"): value}):
         with pytest.raises(NotImplementedError, match="not ported"):
             opt.optimize()

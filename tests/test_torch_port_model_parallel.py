@@ -544,6 +544,46 @@ _WORKER = textwrap.dedent(r'''
     refusal("flash_under_tp", lambda: run(
         "x", "lm_flash", tp, 8, 1, SGD(0.1), crit=lm_crit))
 
+    # ---- integrity on four data ranks: a replica desync and a minority
+    # bitflip, each healed in place by the majority's broadcast ----------
+    from bigdl_tpu_torch.parallel import DistriOptimizer as DO
+    from bigdl_tpu_torch.telemetry import incident
+    from bigdl_tpu_torch.utils import chaos
+    for key, value in (("bigdl.integrity.everyN", 1),
+                       ("bigdl.failure.retryTimes", 3),
+                       ("bigdl.failure.retryTimeInterval", 0),
+                       ("bigdl.incident.autoDump", False)):
+        config.set_property(key, value)
+    mesh4 = Engine.create_mesh((4,), ("data",))
+    run("integ_clean", "integ", None, 64, 8, SGD(0.3, momentum=0.9), dp=4,
+        mesh=mesh4)
+    heal = DO._heal_desync
+    for leg, key, value in (("desync", "bigdl.chaos.desyncReplicaAt", "4:3"),
+                            ("bitflip", "bigdl.chaos.bitflipParamAt",
+                             "4:2")):
+        config.set_property(key, value)
+        chaos.install()
+        seen, since = [], len(incident.events())
+
+        def spy(self, err, flat, seen=seen):
+            seen.append((list(err.replicas), err.iteration))
+            return heal(self, err, flat)
+
+        DO._heal_desync = spy
+        ck = os.path.join(outdir, f"ck_{leg}_{rank}")
+        run(leg, "integ", None, 64, 8, SGD(0.3, momentum=0.9), dp=4,
+            mesh=mesh4,
+            setup=lambda o, ck=ck: o.set_checkpoint(ck,
+                                                    several_iteration(1)))
+        DO._heal_desync = heal
+        chaos.uninstall()
+        config.clear_property(key)
+        out[f"{leg}/heals"] = np.array(json.dumps(seen))
+        out[f"{leg}/events"] = np.array(json.dumps(
+            [e["kind"] for e in incident.events()[since:]
+             if e["kind"].startswith("optim/")]))
+    config.clear_property("bigdl.integrity.everyN")
+
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
     print("WORKER_OK", rank)
@@ -578,6 +618,24 @@ def _jax_run(model, x, y, batch, steps, method, mesh_shape=None, axes=None,
     return {"p": leaves(model.params),
             "slots": {k: leaves(v) for k, v in
                       opt.optim_method._slots.items()}}
+
+
+def _jax_integrity_refs(jmodel, x, y):
+    """The JAX package's shard_map run over four devices with
+    ``bigdl.integrity.everyN`` 1 (``tests/test_integrity.py``'s
+    ``_train_shard_map`` at four replicas), which its injected runs match
+    within ``_PARITY``."""
+    from bigdl_tpu.utils import config as jconfig
+    keys = {"bigdl.integrity.everyN": 1, "bigdl.pipeline.depth": 1}
+    try:
+        for k, v in keys.items():
+            jconfig.set_property(k, v)
+        return {"integ_clean": _jax_run(jmodel, x, y, 64, 8,
+                                        joptim.SGD(0.3, momentum=0.9), (4,),
+                                        ("data",))}
+    finally:
+        for k in keys:
+            jconfig.clear_property(k)
 
 
 def _aux_of(state):
@@ -718,6 +776,7 @@ def ranks(tmp_path_factory):
     plm = params_from_jax(jax.tree_util.tree_map(np.asarray, jlm.params),
                           transformer_lm(VOCAB, tp=True, device="cpu", **LM))
     jreg, preg = _np_twins(_tp_model, 11, tp=True, reg=True)
+    jinteg, pinteg = _np_twins(_tp_model, 11, tp=False)
     jlm_init = copy.deepcopy(jlm)     # the tp_lm reference trains jlm
     x, y = _samples()
     rows = _lm_rows()
@@ -749,12 +808,12 @@ def ranks(tmp_path_factory):
     mha_x = _normal(40, 2, 32, 32)
     torch.save({"seed": SEED, "Sample": Sample, "mlp": pmlp,
                 "moe_drop": pdrop, "moe_free": pfree, "lm": plm,
-                "mlp_reg": preg,
+                "mlp_reg": preg, "integ": pinteg,
                 "lm_flash": transformer_lm(VOCAB, tp=True, flash=True,
                                            device="cpu", **LM),
                 "pp": dict(ppp, xy=xy, qkv=qkv, qkv_dp=qkv_dp, mha=pmha,
                            mha_x=mha_x),
-                "data": {"mlp": (x, y), "moe": (x, y),
+                "data": {"mlp": (x, y), "moe": (x, y), "integ": (x, y),
                          "lm": (rows[:, :-1], rows[:, 1:]),
                          "long": (long_rows[:, :-1], long_rows[:, 1:])}},
                os.path.join(outdir, "inputs.pt"))
@@ -794,6 +853,9 @@ def ranks(tmp_path_factory):
         ref.update(_jax_trainer_refs(jpp, xy, jlm_init, rows, jreg, x, y))
         for job in jobs:
             ref.update(job.result())
+        # the integrity keys are global to the JAX package: its
+        # integrity run goes last, alone
+        ref.update(_jax_integrity_refs(jinteg, x, y))
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
         _reap(procs, logs, t0 + WORKER_TIMEOUT)
@@ -1249,3 +1311,31 @@ def test_pipeline_snapshot_resume_and_reshard(ranks):
                                       out["po_straight/loss"][2:])
         assert len(out["po_moved/loss"]) == 2
         assert np.all(np.isfinite(out["po_moved/loss"]))
+
+
+@pytest.mark.parametrize("leg,replica,onset", [("desync", 3, 5),
+                                               ("bitflip", 2, 4)])
+def test_replica_faults_heal_in_place_as_in_jax(ranks, leg, replica, onset):
+    """Four data ranks with ``bigdl.integrity.everyN`` 1 (the twins of
+    ``tests/test_integrity.py``'s shard_map cases): ``desyncReplicaAt
+    "4:3"`` (rank 3's copy drifts after step 4, seen at step 5) and
+    ``bitflipParamAt "4:2"`` (rank 2's copy flips a bit before step 4)
+    each raise a ``ReplicaDesyncError`` naming that one rank, heal by the
+    majority's broadcast without a restore, and end with the weights of
+    the port's uninjected run, bit for bit, and of the JAX package's
+    shard_map run within ``tests/test_integrity.py``'s ``_PARITY`` (rtol
+    1e-5, atol 1e-7: the JAX test holds its healed runs to that run with
+    it)."""
+    outs, ref = ranks
+    for rank, out in enumerate(outs):
+        assert json.loads(str(out[f"{leg}/heals"])) == [[[replica], onset]]
+        events = json.loads(str(out[f"{leg}/events"]))
+        assert "optim/desync_heal" in events
+        assert "optim/retry_restore" not in events
+        for a, b in zip(_port(out, leg, "p"), _port(out, "integ_clean",
+                                                    "p")):
+            assert np.array_equal(a, b), f"{leg} rank {rank}"
+        for i, (a, b) in enumerate(zip(_port(out, leg, "p"),
+                                       ref["integ_clean"]["p"])):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7,
+                                       err_msg=f"{leg} rank {rank} {i}")
