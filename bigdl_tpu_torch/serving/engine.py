@@ -5,8 +5,9 @@ Request lifecycle (every submitted request ends with EXACTLY one outcome,
 so ``completed + shed + rejected + quarantined == submitted``)::
 
     submit ──► rejected   (Overloaded at the door: queue full, projected
-       │                   wait past the deadline budget, or draining /
-       │                   closed — always fast, always structured)
+       │                   wait past the deadline budget, cooldown after a
+       │                   watchdog fire, or draining / closed — always
+       │                   fast, always structured, always retriable)
        ▼
     admission queue (bounded: bigdl.serving.maxQueueDepth)
        │
@@ -14,7 +15,7 @@ so ``completed + shed + rejected + quarantined == submitted``)::
     ── shed        (deadline expired at dequeue time, before the request
        │            takes a device slot; also requests left queued when
        │            the drain grace period lapses, and the in-flight
-       │            victims of a failed dispatch)
+       │            victims of a failed or hung dispatch)
     ── quarantined (poison payload: undecodable / ill-shaped — a
        │            ServingDataError fails the ONE offending request and
        │            the batch stays alive)
@@ -23,9 +24,37 @@ so ``completed + shed + rejected + quarantined == submitted``)::
        │      pull) ──► completed (per-row numpy results)
 
 The dispatcher pads every batch to ``bigdl.compile.buckets`` (falling back to
-a single ``maxBatch`` bucket), as the JAX package does.  ``stop()`` closes
-admission, drains queued work within ``bigdl.serving.gracePeriod`` seconds,
-sheds what is left retriably and joins the batcher thread.
+a single ``maxBatch`` bucket), as the JAX package does; with
+``bigdl.serving.lingerMs`` > 0 the batcher waits that long for a partial
+batch to fill.  ``stop()`` closes admission, drains queued work within
+``bigdl.serving.gracePeriod`` seconds, sheds what is left retriably and joins
+the batcher thread.  A preemption request (``utils.elastic``: the flag a
+SIGTERM sets under ``PreemptionHandler``) starts the same drain from the
+batcher, its grace clock started when the preemption was requested.
+
+The failure taxonomy (JAX :120-135, :189-231, :605-682, :866): with
+``bigdl.serving.stallFactor`` > 0 a :class:`HungDispatchWatchdog` (the
+trainers' ``HungStepWatchdog`` pointed at the batcher thread, seeded from
+the minimum of ``bigdl.serving.warmupBatches`` dispatches) aborts a dispatch
+open past that factor times the batch-time EMA by raising
+:class:`HungDispatchError` in the batcher; the batch's requests are shed
+with the diagnosis and admission answers ``cooldown`` for
+``bigdl.serving.cooldownSteps`` clean batches, or until the backlog clears.
+The abort is ``PyThreadState_SetAsyncExc``: it lands when the batcher next
+runs Python bytecode.  A batcher inside one C call (a CUDA synchronize, a
+device-to-host copy waiting on a kernel that never ends) is not interrupted
+until that call returns, so a kernel that truly hangs the card is detected
+and logged but its batch is shed only if the call ever comes back; the
+injected ``bigdl.chaos.hangDispatchAt`` wedge is a Python sleep and is
+aborted within one 20 ms slice.  The host-memory governor's
+``serving_admission`` account holds each queued or in-flight payload's
+bytes, charged at admission and released at the terminal outcome; a payload
+larger than ``bigdl.resources.hostMemBudgetMB`` raises ``HostMemoryError``
+before it counts as submitted.  The chaos hooks ``slowRequestAt``,
+``poisonRequestAt`` and ``hangDispatchAt`` (:mod:`~bigdl_tpu_torch.utils.
+chaos`) act on the batcher.  :meth:`RequestHandle.abandon` lets a
+supervisor shed a request the engine can no longer account (a crashed
+batcher, :meth:`ServingEngine.crashed`).
 
 Telemetry (JAX :228-229, :323-326, :473-600, :697-882): the
 ``Serving/latency_ms`` (completed requests, with their trace ids as
@@ -37,14 +66,12 @@ exemplars) and ``Serving/batch_occupancy`` histograms; the
 every submission gets a trace id at the door and the chain
 ``request/admit`` → ``request/queue_wait`` → ``request/coalesce`` →
 ``request/dispatch``, ending in exactly one verdict (the ``rejected``
-ones at the door).  The incident recorder takes the drain, a quarantine
-and an aborted dispatch, and writes one bundle per quarantine or abort
-kind (``bigdl.incident.autoDump``).
-
-Not in this slice (ROADMAP lists them): the host-memory governor, the
-chaos hooks, the hung-dispatch watchdog with its cooldown, SIGTERM
-preemption, the batcher's linger (``bigdl.serving.lingerMs``) and the fleet
-supervisor's ``abandon``.
+ones at the door, ``aborted`` for a supervisor's :meth:`RequestHandle.
+abandon`).  The incident recorder takes the drain, a quarantine and an
+aborted dispatch, and writes one bundle per quarantine or abort kind
+(``bigdl.incident.autoDump``).  A watchdog fire counts
+``Serving/watchdog_fired`` and sets ``Serving/watchdog_detect_ms`` and
+``Serving/watchdog_threshold_ms``.
 """
 
 from __future__ import annotations
@@ -54,6 +81,7 @@ import math
 import queue
 import threading
 import time
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -63,8 +91,10 @@ from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.engine import DeviceLike, default_device, to_device
 from bigdl_tpu_torch.optim.evaluator import _eval_forward
 from bigdl_tpu_torch.optim.predictor import Predictor
+from bigdl_tpu_torch.resources import GOVERNOR as _resource_governor
+from bigdl_tpu_torch.resources import item_nbytes as _item_nbytes
 from bigdl_tpu_torch.telemetry import incident, request_trace
-from bigdl_tpu_torch.utils import compile_cache, config
+from bigdl_tpu_torch.utils import chaos, compile_cache, config, elastic
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -128,6 +158,24 @@ class ServingInfraError(ServingError):
     retriable = True
 
 
+class HungDispatchError(ServingInfraError):
+    """Injected into the batcher (or the LM scheduler) by the hung-dispatch
+    watchdog: a dispatch stayed open past ``stallFactor`` x the batch-time
+    EMA.  The in-flight requests fail with this diagnosis; the engine cools
+    down before re-admitting."""
+
+
+class HungDispatchWatchdog(elastic.HungStepWatchdog):
+    """The trainers' hung-step watchdog pointed at a serving thread: the
+    same monitor, warmup-minimum EMA seeding and asynchronous abort, but it
+    injects :class:`HungDispatchError` and counts under
+    ``Serving/watchdog_*``."""
+
+    EXC = HungDispatchError
+    METRIC_PREFIX = "Serving"
+    INSTANT_NAME = "serving/hung_dispatch"
+
+
 #: terminal request outcomes — the accounting identity is
 #: completed + shed + rejected + quarantined == submitted
 OUTCOMES = ("completed", "shed", "rejected", "quarantined")
@@ -135,11 +183,13 @@ OUTCOMES = ("completed", "shed", "rejected", "quarantined")
 
 class RequestHandle:
     """One admitted request: a one-shot future whose terminal state is
-    exactly one of :data:`OUTCOMES` (``_finish`` is first-wins)."""
+    exactly one of :data:`OUTCOMES` (``_finish`` is first-wins, so a
+    request is never both shed by the drain and completed by a racing
+    dispatch, or by a supervisor's :meth:`abandon`)."""
 
     __slots__ = ("raw", "index", "submit_ns", "deadline_ns", "finish_ns",
                  "outcome", "_result", "_error", "_done", "_lock",
-                 "trace_id")
+                 "trace_id", "payload_nbytes")
 
     def __init__(self, raw, index: int, submit_ns: int, deadline_ns: int,
                  trace_id: Optional[str] = None):
@@ -149,6 +199,7 @@ class RequestHandle:
         self.deadline_ns = deadline_ns
         self.trace_id = trace_id      # None when request tracing is disarmed
         self._lock = threading.Lock()
+        self.payload_nbytes = 0       # guarded-by: _lock — governor bytes
         self.finish_ns: Optional[int] = None            # guarded-by: _lock
         self.outcome: Optional[str] = None              # guarded-by: _lock
         self._result = None                             # guarded-by: _lock
@@ -173,6 +224,9 @@ class RequestHandle:
             return None
         return (self.finish_ns - self.submit_ns) / 1e6
 
+    def done(self) -> bool:
+        return self._done.is_set()
+
     def result(self, timeout: Optional[float] = None):
         """The per-request model output, or raises the terminal error."""
         if not self._done.wait(timeout):
@@ -181,6 +235,36 @@ class RequestHandle:
         if self._error is not None:
             raise self._error
         return self._result
+
+    def error(self) -> Optional[BaseException]:
+        return self._error if self._done.is_set() else None
+
+    def _release_bytes(self) -> None:
+        """Give the admission bytes back to the governor, once."""
+        with self._lock:
+            nbytes, self.payload_nbytes = self.payload_nbytes, 0
+        if nbytes:
+            _resource_governor.account("serving_admission").sub(nbytes)
+
+    def abandon(self, error: Optional[BaseException] = None,
+                reason: str = "abandoned") -> bool:
+        """Shed this request from OUTSIDE the engine: a supervisor sweeping
+        the in-flight requests of a crashed batcher, which can never account
+        them.  First-wins like every terminal transition; releases the
+        admission bytes (the engine that charged them may be dead) and
+        records the ``aborted`` verdict in the request's trace.  The
+        engine's own counts do not see it: the supervisor counts it as
+        shed.  True when THIS call finished the request."""
+        err = error if error is not None else ServingInfraError(
+            "request abandoned by its supervisor — retriable")
+        if not self._finish("shed", error=err):
+            return False
+        request_trace.verdict(self.trace_id, "aborted", error=err,
+                              reason=reason)
+        self._release_bytes()
+        telemetry.counter("Serving/shed").inc()
+        telemetry.counter("Serving/shed", labels={"reason": reason}).inc()
+        return True
 
 
 class _ServiceEMA:
@@ -215,7 +299,9 @@ class ServingEngine:
                  max_queue_depth: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  admission_factor: Optional[float] = None,
+                 stall_factor: Optional[float] = None,
                  grace_period: Optional[float] = None,
+                 cooldown_batches: Optional[int] = None,
                  start: bool = True, device: DeviceLike = "cuda"):
         self.device = default_device(device)
         self.model = Predictor(model, fold_bn=fold_bn,
@@ -231,9 +317,16 @@ class ServingEngine:
         self.admission_factor = float(
             admission_factor if admission_factor is not None else
             config.get_float("bigdl.serving.admissionDeadlineFactor", 1.0))
+        self.stall_factor = float(
+            stall_factor if stall_factor is not None else
+            config.get_float("bigdl.serving.stallFactor", 0.0))
         self.grace_period = float(
             grace_period if grace_period is not None else
             config.get_float("bigdl.serving.gracePeriod", 5.0))
+        self.cooldown_batches = int(
+            cooldown_batches if cooldown_batches is not None else
+            config.get_int("bigdl.serving.cooldownSteps", 8))
+        self.linger_ms = config.get_float("bigdl.serving.lingerMs", 0.0)
         self.poll_interval = config.get_float("bigdl.serving.pollInterval",
                                               0.05)
         self.warmup_batches = config.get_int("bigdl.serving.warmupBatches",
@@ -247,9 +340,12 @@ class ServingEngine:
         self._q: "queue.Queue[RequestHandle]" = queue.Queue(
             maxsize=self.max_queue_depth)
         self._lock = threading.Lock()
+        # queued + in-flight payload bytes, rolled into Resources/host_bytes
+        self._payload_acct = _resource_governor.account("serving_admission")
         self._counts: Dict[str, int] = dict.fromkeys(OUTCOMES, 0)  # guarded-by: _lock
         self._counts["submitted"] = 0
         self._next_index = 0                            # guarded-by: _lock
+        self._cooldown = 0                              # guarded-by: _lock
         self._draining = False                          # guarded-by: _lock
         self._drain_deadline: Optional[float] = None    # guarded-by: _lock
         self._closed = False                            # guarded-by: _lock
@@ -258,6 +354,7 @@ class ServingEngine:
         self._template: Optional[Tuple[Tuple[int, ...], str]] = None  # guarded-by: _lock
         self._ema = _ServiceEMA(self.warmup_batches)
         self.batches = 0
+        self.watchdog: Optional[HungDispatchWatchdog] = None
         self._thread: Optional[threading.Thread] = None
         window = config.get_int("bigdl.telemetry.percentileWindow", 512)
         self._latency = telemetry.histogram(
@@ -331,9 +428,31 @@ class ServingEngine:
         """True once the engine can never serve again."""
         return self._closed
 
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def queue_depth(self) -> int:
+        """The admission queue's depth (a supervisor's load signal)."""
+        return self._q.qsize()
+
     def batcher_alive(self) -> bool:
         t = self._thread
         return bool(t is not None and t.is_alive())
+
+    def batcher_ident(self) -> Optional[int]:
+        """The batcher thread's ident (None before ``start()``)."""
+        t = self._thread
+        return t.ident if t is not None else None
+
+    def crashed(self) -> bool:
+        """True when the batcher thread died WITHOUT an orderly drain or
+        stop (an escaped error or an asynchronous kill): the signal a
+        supervisor restarts a replica on."""
+        t = self._thread
+        return bool(self._started and t is not None and not t.is_alive()
+                    and not self._draining and
+                    not self._stop_event.is_set())
 
     def __enter__(self) -> "ServingEngine":
         return self
@@ -350,6 +469,10 @@ class ServingEngine:
         now = telemetry.clock_ns()
         deadline = float(deadline_ms if deadline_ms is not None
                          else self.deadline_ms)
+        # a payload larger than the whole host budget can never be
+        # admitted: raise BEFORE it counts as submitted
+        payload_nbytes = _item_nbytes(inputs)
+        _resource_governor.check_item("serving_admission", payload_nbytes)
         telemetry.counter("Serving/submitted").inc()
         # minted before the rejection checks: a rejected request still
         # explains itself
@@ -361,6 +484,8 @@ class ServingEngine:
                 raise self._reject_locked("closed", trace_id=tid)
             if self._draining:
                 raise self._reject_locked("draining", trace_id=tid)
+            if self._cooldown > 0:
+                raise self._reject_locked("cooldown", trace_id=tid)
             depth = self._q.qsize()
             if depth >= self.max_queue_depth:
                 raise self._reject_locked("queue full", depth, trace_id=tid)
@@ -377,10 +502,17 @@ class ServingEngine:
             self._next_index += 1
         request_trace.instant(tid, "request/admit", index=req.index,
                               depth=depth)
+        # charged BEFORE the enqueue: once queued the batcher owns the
+        # handle, and a completion racing a later charge would leak it
+        with req._lock:
+            req.payload_nbytes = payload_nbytes
+        self._payload_acct.add(payload_nbytes)
         try:
             self._q.put_nowait(req)
         except queue.Full:
-            # a racing submit filled the last slot after the depth check
+            # a racing submit filled the last slot after the depth check;
+            # refund the never-queued payload
+            req._release_bytes()
             with self._lock:
                 raise self._reject_locked("queue full",
                                           self.max_queue_depth,
@@ -421,6 +553,7 @@ class ServingEngine:
         out["batches"] = self.batches
         out["queue_depth"] = self._q.qsize()
         out["batch_ema_ms"] = self._ema.ema
+        out["cooldown"] = self._cooldown
         out["draining"] = self._draining
         return out
 
@@ -429,6 +562,7 @@ class ServingEngine:
                  result=None, reason: Optional[str] = None) -> bool:
         if not req._finish(outcome, result=result, error=error):
             return False
+        req._release_bytes()
         with self._lock:
             self._counts[outcome] += 1
         # the choke point of every engine-side verdict; a completed
@@ -447,11 +581,27 @@ class ServingEngine:
 
     def _batcher_loop(self) -> None:
         telemetry.name_thread("serving-batcher")
+        wd = None
+        if self.stall_factor > 0:
+            wd = HungDispatchWatchdog(
+                self.stall_factor, warmup=self.warmup_batches,
+                cooldown=self.cooldown_batches,
+                poll_interval=min(self.poll_interval, 0.05))
+            wd.start()                    # the abort's target: this thread
+            self.watchdog = wd
         try:
             while True:
-                if not self._draining and self._stop_event.is_set():
-                    with self._lock:
-                        self._begin_drain_locked("stop", time.monotonic())
+                if not self._draining:
+                    if elastic.preemption_requested():
+                        with self._lock:
+                            self._begin_drain_locked(
+                                "preemption",
+                                elastic.preemption_requested_at() or
+                                time.monotonic())
+                    elif self._stop_event.is_set():
+                        with self._lock:
+                            self._begin_drain_locked("stop",
+                                                     time.monotonic())
                 if self._draining:
                     if self._q.empty():
                         break
@@ -459,19 +609,42 @@ class ServingEngine:
                         self._drain_leftovers()
                         break
                 try:
-                    first = self._q.get(timeout=self.poll_interval)
+                    with (wd.paused() if wd is not None else nullcontext()):
+                        first = self._q.get(timeout=self.poll_interval)
                 except queue.Empty:
+                    with self._lock:
+                        # backlog clear: a cooldown with no traffic would
+                        # never end
+                        self._cooldown = 0
                     continue
                 batch: List[RequestHandle] = []
                 try:
-                    self._assemble(first, batch)
+                    self._assemble(first, batch, wd)
                     if batch:
-                        self._dispatch_batch(batch)
+                        self._dispatch_batch(batch, wd)
+                    elif wd is not None:
+                        # a round that shed or quarantined all it popped
+                        # supervised no dispatch: restart the open interval
+                        wd.reset_interval()
+                except HungDispatchError:
+                    # the injected class carries no message: re-raise it to
+                    # the clients as a diagnosed instance
+                    ema = self._ema.ema
+                    baseline = (f"{ema:.1f} ms EMA" if ema is not None
+                                else "unseeded EMA")
+                    diag = HungDispatchError(
+                        f"dispatch wedged past {self.stall_factor:.1f}x "
+                        f"the batch-time baseline ({baseline}) — the "
+                        "hung-dispatch watchdog aborted it")
+                    self._abort_inflight(batch, diag, "hung_dispatch", wd,
+                                         cool=True)
                 except Exception as e:  # noqa: BLE001 — engine must outlive
                     self._abort_inflight(
                         batch, ServingInfraError(f"dispatch failed: {e!r}"),
-                        "infra")
+                        "infra", wd, cool=False)
         finally:
+            if wd is not None:
+                wd.stop()
             # _closed BEFORE the sweep: a racing submit either observes
             # _closed (and sheds its own request) or enqueued before this
             # sweep (which sheds it)
@@ -489,8 +662,8 @@ class ServingEngine:
         self._draining = True
         incident.record("serving/drain", reason=reason, grace_s=budget,
                         queued=self._q.qsize())
-        logger.info("serving engine draining: grace %.1f s, %d request(s) "
-                    "queued", budget, self._q.qsize())
+        logger.info("serving engine draining (%s): grace %.1f s, %d "
+                    "request(s) queued", reason, budget, self._q.qsize())
 
     def _drain_leftovers(self) -> None:
         """Shed everything still queued, retriably: the payloads were never
@@ -510,41 +683,60 @@ class ServingEngine:
             logger.warning("serving drain shed %d queued request(s)", shed)
         telemetry.gauge("Serving/queue_depth").set(self._q.qsize())
 
-    def _assemble(self, first: RequestHandle,
-                  batch: List[RequestHandle]) -> None:
-        """Coalesce up to ``maxBatch`` VALID requests already queued into
-        ``batch``: expired ones are shed, poison ones quarantined — neither
-        consumes a slot."""
-        req = first
+    def _assemble(self, first: RequestHandle, batch: List[RequestHandle],
+                  wd) -> None:
+        """Coalesce up to ``maxBatch`` VALID requests into ``batch``: expired
+        ones are shed, poison ones quarantined — neither takes a slot.  With
+        ``lingerMs`` > 0 a partial batch waits that long for more."""
+        req: Optional[RequestHandle] = first
+        linger_until = (time.monotonic() + self.linger_ms / 1e3
+                        if self.linger_ms > 0 else None)
         dequeued_ns: Dict[int, int] = {}
         while True:
-            now = telemetry.clock_ns()
-            request_trace.record_span(req.trace_id, "request/queue_wait",
-                                      req.submit_ns, now)
-            dequeued_ns[id(req)] = now
-            if now > req.deadline_ns:
-                waited = (now - req.submit_ns) / 1e6
-                deadline = (req.deadline_ns - req.submit_ns) / 1e6
-                self._account(req, "shed",
-                              error=DeadlineExceeded(waited, deadline),
-                              reason="expired")
-            else:
-                try:
-                    row = self._decode(req)
-                except ServingDataError as e:
-                    incident.record("serving/quarantine", index=req.index,
-                                    error=type(e).__name__)
-                    self._account(req, "quarantined", error=e)
-                    # after the verdict, so the bundle's trace is terminal
-                    incident.maybe_dump("serving/quarantine",
-                                        trace_id=req.trace_id)
+            if req is not None:
+                now = telemetry.clock_ns()
+                request_trace.record_span(req.trace_id, "request/queue_wait",
+                                          req.submit_ns, now)
+                dequeued_ns[id(req)] = now
+                if now > req.deadline_ns:
+                    waited = (now - req.submit_ns) / 1e6
+                    deadline = (req.deadline_ns - req.submit_ns) / 1e6
+                    self._account(req, "shed",
+                                  error=DeadlineExceeded(waited, deadline),
+                                  reason="expired")
                 else:
-                    req.raw = row
-                    batch.append(req)
+                    try:
+                        row = self._decode(req)
+                    except ServingDataError as e:
+                        incident.record("serving/quarantine",
+                                        index=req.index,
+                                        error=type(e).__name__)
+                        self._account(req, "quarantined", error=e)
+                        # after the verdict, so the bundle's trace is
+                        # terminal; the write is legitimate work, not a
+                        # wedged dispatch, so the watchdog is paused
+                        with (wd.paused() if wd is not None
+                              else nullcontext()):
+                            incident.maybe_dump("serving/quarantine",
+                                                trace_id=req.trace_id)
+                    else:
+                        req.raw = row
+                        batch.append(req)
             if len(batch) >= self.max_batch:
                 break
             try:
                 req = self._q.get_nowait()
+                continue
+            except queue.Empty:
+                req = None
+            if linger_until is None or not batch:
+                break
+            remaining = linger_until - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                with (wd.paused() if wd is not None else nullcontext()):
+                    req = self._q.get(timeout=remaining)
             except queue.Empty:
                 break
         if request_trace.enabled() and batch:
@@ -559,6 +751,10 @@ class ServingEngine:
         """Per-request validation: anything wrong with the PAYLOAD raises
         :class:`ServingDataError` here, where it fails one request instead
         of a batch."""
+        chaos.on_serving_request(req.index)
+        if chaos.poison_request(req.index):
+            raise ServingDataError(
+                f"chaos: poison request at admission position {req.index}")
         try:
             row = np.asarray(req.raw)
         except Exception as e:
@@ -586,9 +782,10 @@ class ServingEngine:
         out = self._forward(to_device(inputs, self.device))
         return compile_cache.slice_rows(out.cpu().numpy(), n)
 
-    def _dispatch_batch(self, batch: List[RequestHandle]) -> None:
+    def _dispatch_batch(self, batch: List[RequestHandle], wd) -> None:
         t0 = telemetry.clock_ns()
         self.batches += 1
+        chaos.on_dispatch(f"batch {self.batches}")
         out = self._run_forward(np.stack([r.raw for r in batch]))
         if request_trace.enabled():
             t1 = telemetry.clock_ns()
@@ -602,6 +799,11 @@ class ServingEngine:
             self._account(req, "completed", result=out[i])
         ms = (telemetry.clock_ns() - t0) / 1e6
         self._ema.observe(ms)
+        if wd is not None:
+            wd.heartbeat()
+        with self._lock:
+            if self._cooldown > 0:
+                self._cooldown -= 1
         self._occupancy.observe(len(batch))
         telemetry.counter("Serving/batches").inc()
         g = telemetry.gauge
@@ -610,10 +812,13 @@ class ServingEngine:
             g(f"Serving/p{q}_ms").set(self._latency.percentile(q))
 
     def _abort_inflight(self, batch: List[RequestHandle],
-                        error: ServingError, reason: str) -> None:
-        """A dispatch died under the batch: fail every unfinished
-        in-flight request with the diagnosis, each with its own exception
-        instance, and write the incident bundle of the first."""
+                        error: ServingError, reason: str, wd,
+                        cool: bool) -> None:
+        """A dispatch died under the batch: fail every unfinished in-flight
+        request with the diagnosis, each with its own exception instance,
+        and write the incident bundle of the first; after a hung dispatch,
+        close admission until the engine proves itself again
+        (``cooldownSteps`` clean batches, or the backlog clearing)."""
         failed = sum(
             self._account(r, "shed", error=type(error)(*error.args),
                           reason=reason)
@@ -622,5 +827,14 @@ class ServingEngine:
                         victims=failed, error=type(error).__name__)
         incident.maybe_dump(f"serving/{reason}",
                             trace_id=batch[0].trace_id if batch else None)
+        if cool:
+            with self._lock:
+                self._cooldown = max(self._cooldown, self.cooldown_batches)
         logger.error("serving dispatch aborted (%s): %d in-flight "
-                     "request(s) failed with %s", reason, failed, error)
+                     "request(s) failed with %s%s", reason, failed, error,
+                     f"; cooling down for {self.cooldown_batches} batches"
+                     if cool else "")
+        if wd is not None:
+            # the stall is over from the monitor's view: the next dispatch
+            # is judged on its own clock
+            wd.heartbeat()

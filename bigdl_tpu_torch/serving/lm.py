@@ -18,17 +18,33 @@ steps.  The engine serves them the Orca/vLLM way:
   block.  On a CUDA device it is captured once as a CUDA graph (at
   :meth:`LMServingEngine.warmup`, or at the first decode) over static
   device buffers for the step's inputs and over the live pools; each
-  iteration copies the host inputs into those buffers, replays the graph
-  and pulls the ``(maxBatch, vocab)`` log-probs.  This is the port's twin
-  of the JAX package's one compiled decode program and its zero-retrace
+  iteration copies the host inputs into those buffers (one packed copy,
+  so every buffer is rewritten by every iteration), replays the graph and
+  pulls the ``(maxBatch, vocab)`` log-probs.  This is the port's twin of
+  the JAX package's one compiled decode program and its zero-retrace
   contract: :attr:`LMServingEngine.decode_captures` stays 1 for the
-  engine's life.  A capture or replay failure raises; a CUDA device has no
-  eager decode path.  The decode step runs eagerly only on the CPU, where
+  engine's life (2 with the int8 tier, whose gate captures the fp graph
+  too).  A capture or replay failure raises; a CUDA device has no eager
+  decode path.  The decode step runs eagerly only on the CPU, where
   the caller asked for ``device="cpu"``.  Prefill and the teacher-forced
   full forward run eagerly over a bucket ladder of padded lengths.
 - **Streaming output.**  :meth:`LMServingEngine.submit` returns a
   :class:`TokenStream` whose iterator yields tokens as the scheduler emits
   them.
+- **int8 weight tier** (``quantize="int8"`` or ``bigdl.lm.quantize=int8``;
+  JAX :228-268, :800-856): every decode matmul runs against per-output-
+  channel symmetric int8 weights (``s = max|w| / 127`` over the input
+  axis, ``q = round(w / s)`` half to even), dequantized in the
+  contraction as ``(x @ q.to(x.dtype)) * s``; embeddings, layer norms and
+  prefill stay in floating point.  The decode step over the int8 tree is a
+  second CUDA graph, captured once.  The tier serves only after its gate
+  at construction: the fp and int8 decode steps from identical pools give
+  next-token log-probs within ``bigdl.lm.quantizeRtol`` /
+  ``quantizeAtol`` (:class:`QuantizationGateError` otherwise), reported in
+  :attr:`LMServingEngine.quantization_report`.  The JAX gate's first half,
+  the HLO auditor's precision-drift pass over the quantized program, has
+  no counterpart without HLO: the report's ``audit_ok`` is None and its
+  ``audit`` says so; it is never reported as passed.
 
 The steps are built from the model's weights (:func:`_extract_params`) and
 never call its ``forward``: prefill and the full forward use dense
@@ -38,19 +54,35 @@ package's do, so this path launches no flash kernel.  Greedy tokens are
 chosen on the host with ``np.argmax`` over the pulled log-probs, as the JAX
 package chooses them.
 
-Admission control, deadline shedding, poison quarantine, graceful drain and
-the accounting identity ``completed + shed + rejected + quarantined ==
-submitted`` follow :mod:`bigdl_tpu_torch.serving.engine`; a stream that
-fails after streaming some tokens keeps them and ends with the structured
-error that says why.
+Admission control (queue bound, cooldown, projected wait), deadline
+shedding, poison quarantine, the hung-decode watchdog, the drain on
+preemption and the accounting identity ``completed + shed + rejected +
+quarantined == submitted`` follow :mod:`bigdl_tpu_torch.serving.engine`
+(JAX :1094-1180); a stream that fails after streaming some tokens keeps
+them and ends with the structured error that says why.  With
+``bigdl.lm.stallFactor`` > 0 a ``HungDispatchWatchdog`` supervises the
+scheduler thread (EMA seeded from the minimum of ``bigdl.lm.warmupSteps``
+iterations); a fire sheds every in-flight stream with a diagnosed
+``HungDispatchError`` and admission answers ``cooldown`` for
+``bigdl.lm.cooldownSteps`` decode steps or until the scheduler finds the
+queue empty.  The abort is an asynchronous exception: it lands when the
+scheduler next runs Python bytecode, so it cannot interrupt a thread
+inside ``graph.replay()`` or a device synchronize.  The injected
+``bigdl.chaos.hangDecodeAt`` wedge is a Python sleep before the replay and
+is aborted within one 20 ms slice; a decode kernel that truly hangs the
+card is detected and logged, but its streams are shed only when the C call
+returns, if it ever does.  An abort that lands after the input copy and
+before the replay leaves the graph's input buffer written for streams
+that are then shed; the next iteration rewrites the whole buffer.  A
+preemption request (``utils.elastic``, the flag a SIGTERM sets under
+``PreemptionHandler``) drains the engine.  The host-memory governor's
+``lm_admission`` account holds each waiting or in-flight prompt's bytes.
+The chaos hooks ``poisonPromptAt``, ``hangDecodeAt`` and ``evictBlockAt``
+(:mod:`~bigdl_tpu_torch.utils.chaos`) act on the scheduler.
 
-Not in this slice (each raises :class:`NotImplementedError` where a caller
-asks for it; ROADMAP lists them): the int8 decode tier
-(``quantize="int8"``, ``bigdl.lm.quantize=int8``) and its gate; the
-hung-decode watchdog and its cooldown (``bigdl.lm.stallFactor > 0``); the
-``sentinels`` property, for which :attr:`LMServingEngine.decode_captures`
-stands in.  Also not ported: the chaos hooks, the host-memory governor and
-SIGTERM preemption.
+Not ported: the ``sentinels`` property (it raises
+:class:`NotImplementedError`; :attr:`LMServingEngine.decode_captures`
+counts the decode graphs' captures instead).
 
 Telemetry (JAX :666-672, :934-1062, :1189-1260, :1293-1485): the
 ``LM/ttft_ms``, ``LM/itl_ms`` and ``LM/latency_ms`` histograms (trace ids
@@ -64,7 +96,9 @@ token, ending in exactly one verdict.  The decode graph's replay is one
 host call, so the per-token spans are the host loop's around it
 (``t0`` before the inputs are packed, ``now`` after the log-probs
 arrive), never anything inside the captured graph.  The incident recorder
-takes the drain, a quarantine and an aborted decode.
+takes the drain, a quarantine and an aborted decode.  A watchdog fire
+counts ``Serving/watchdog_fired`` and sets ``Serving/watchdog_detect_ms``
+and ``Serving/watchdog_threshold_ms``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -75,6 +109,7 @@ import queue
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -85,12 +120,16 @@ from bigdl_tpu_torch.engine import (DeviceLike, check_on_device,
                                     default_device, to_device)
 from bigdl_tpu_torch.nn.attention import (paged_attention,
                                           scaled_dot_product_attention)
+from bigdl_tpu_torch.resources import GOVERNOR as _resource_governor
+from bigdl_tpu_torch.resources import item_nbytes as _item_nbytes
 from bigdl_tpu_torch.serving.engine import (OUTCOMES, DeadlineExceeded,
-                                            Overloaded, ServingDataError,
+                                            HungDispatchError,
+                                            HungDispatchWatchdog, Overloaded,
+                                            ServingDataError,
                                             ServingInfraError, _ServiceEMA)
 from bigdl_tpu_torch.serving.kv_cache import DUMP_BLOCK, PagedKVCache
 from bigdl_tpu_torch.telemetry import incident, request_trace
-from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.utils import chaos, config, elastic
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -110,6 +149,20 @@ class UnsupportedModelError(ValueError):
             f"LMServingEngine serves transformer_lm-shaped models "
             f"(LookupTable, PositionalEncoding, n x decoder block, "
             f"LayerNorm, Linear, LogSoftMax); {what}")
+
+
+class QuantizationGateError(ValueError):
+    """The int8 decode tier failed its gate (fp against int8 next-token
+    log-probs past ``bigdl.lm.quantizeRtol``/``quantizeAtol``): the engine
+    refuses to serve quantized rather than drift silently."""
+
+
+#: the quantization report's word on the JAX gate's first half
+_AUDIT_NOT_PORTED = (
+    "not ported: the JAX gate's precision-drift pass audits the quantized "
+    "decode program's HLO (f32 accumulation of the int8 contraction); a "
+    "PyTorch step has no HLO to read, so only the log-prob allclose gates "
+    "the tier")
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +287,36 @@ def _extract_params(graph: _LMGraph) -> Dict[str, Any]:
             "lnf": _norm(graph.lnf), "head": _linear(graph.head)}
 
 
+def _quantize_entry(entry: Dict[str, Any]) -> Dict[str, Any]:
+    """Per-output-channel symmetric int8: ``s = max|w| / 127`` over the
+    input axis (1 where a column is all zero), ``q = round(w / s)`` (half
+    to even, as ``jnp.round``) clipped to [-127, 127]."""
+    w = entry["w"]
+    s = w.abs().amax(dim=0) / 127.0
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.round(w / s).clamp(-127, 127).to(torch.int8)
+    return {"q": q.contiguous(), "s": s, "b": entry["b"]}
+
+
+def _quantize_params(dp: Dict[str, Any]) -> Dict[str, Any]:
+    """The decode tree with every matmul int8-quantized; the embedding (a
+    gather) and the layer norms stay in floating point."""
+    layers = [{"ln1": l["ln1"],
+               "attn": {k: _quantize_entry(e) for k, e in l["attn"].items()},
+               "ln2": l["ln2"],
+               "ffn": {k: _quantize_entry(e) for k, e in l["ffn"].items()}}
+              for l in dp["layers"]]
+    return {"embed": dp["embed"], "layers": layers, "lnf": dp["lnf"],
+            "head": _quantize_entry(dp["head"])}
+
+
 def _apply_linear(x: torch.Tensor, e: Dict[str, Any]) -> torch.Tensor:
-    y = x @ e["w"]
+    """One matmul against an fp (``w``) or an int8 (``q``, ``s``) entry,
+    dequantized in the contraction."""
+    if "q" in e:
+        y = (x @ e["q"].to(x.dtype)) * e["s"]
+    else:
+        y = x @ e["w"]
     if e["b"] is not None:
         y = y + e["b"]
     return y
@@ -389,7 +470,7 @@ class TokenStream:
     __slots__ = ("prompt", "index", "seq_id", "max_new_tokens", "eos_id",
                  "submit_ns", "deadline_ns", "first_token_ns", "finish_ns",
                  "outcome", "_tokens", "_error", "_terminal", "_cv",
-                 "trace_id")
+                 "trace_id", "payload_nbytes")
 
     def __init__(self, prompt, index: int, submit_ns: int, deadline_ns: int,
                  max_new_tokens: int, eos_id: Optional[int],
@@ -408,6 +489,7 @@ class TokenStream:
         self._tokens: List[int] = []                    # guarded-by: _cv
         self._error: Optional[BaseException] = None     # guarded-by: _cv
         self._terminal = False                          # guarded-by: _cv
+        self.payload_nbytes = 0     # guarded-by: _cv — governor bytes
         self._cv = threading.Condition()
 
     # -- scheduler side ---------------------------------------------------
@@ -550,23 +632,19 @@ class LMServingEngine:
             config.get_int("bigdl.lm.maxQueueDepth", 128))
         self.admission_factor = config.get_float(
             "bigdl.lm.admissionDeadlineFactor", 0.0)
+        self.stall_factor = config.get_float("bigdl.lm.stallFactor", 0.0)
         self.warmup_steps = config.get_int("bigdl.lm.warmupSteps", 3)
+        self.cooldown_steps = config.get_int("bigdl.lm.cooldownSteps", 8)
         self.grace_period = config.get_float("bigdl.lm.gracePeriod", 5.0)
         self.poll_interval = config.get_float("bigdl.lm.pollInterval", 0.01)
-        quant = str(quantize if quantize is not None else
-                    config.get_property("bigdl.lm.quantize", "off")
-                    or "off").lower()
-        if quant not in ("off", "int8"):
-            raise ValueError(
-                f"bigdl.lm.quantize must be 'off' or 'int8', got {quant!r}")
-        if quant == "int8":
-            raise NotImplementedError(
-                "the int8 decode tier (bigdl.lm.quantize=int8) and its gate "
-                "are not ported yet")
-        if config.get_float("bigdl.lm.stallFactor", 0.0) > 0:
-            raise NotImplementedError(
-                "the hung-decode watchdog (bigdl.lm.stallFactor > 0) is not "
-                "ported yet")
+        self.quantize = str(quantize if quantize is not None else
+                            config.get_property("bigdl.lm.quantize", "off")
+                            or "off").lower()
+        if self.quantize not in ("off", "int8"):
+            raise ValueError(f"bigdl.lm.quantize must be 'off' or 'int8', "
+                             f"got {self.quantize!r}")
+        self.quantize_rtol = config.get_float("bigdl.lm.quantizeRtol", 0.05)
+        self.quantize_atol = config.get_float("bigdl.lm.quantizeAtol", 0.05)
         if self.max_context > self.graph.max_seq_len:
             raise ValueError(
                 f"bigdl.lm.maxContext {self.max_context} exceeds the "
@@ -589,15 +667,18 @@ class LMServingEngine:
         self._buckets = self._bucket_plan(
             config.get_property("bigdl.lm.prefillBuckets", None))
 
-        # -- steps; the decode graph is captured at warmup or first use ---
+        # -- steps; each decode graph is captured at warmup or first use --
         self._dp = _extract_params(self.graph)
+        with torch.no_grad():
+            self._dp_q = (_quantize_params(self._dp)
+                          if self.quantize == "int8" else None)
         self._decode_fn = _build_decode_fn(self.graph, self.block_size,
                                            self._max_blocks)
         self._prefill_fn = _build_prefill_fn(self.graph, self.block_size)
         self._full_fn = _build_full_fn(self.graph)
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_in: Optional[torch.Tensor] = None
-        self._graph_out: Optional[torch.Tensor] = None
+        #: quantized? -> (graph, static input, static output)
+        self._graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, torch.Tensor,
+                                       torch.Tensor]] = {}
         self.decode_captures = 0
 
         # -- scheduler state ----------------------------------------------
@@ -610,10 +691,12 @@ class LMServingEngine:
         # _shed_active covers it so it never lives only in a local
         self._admitting: Optional[TokenStream] = None
         self._lock = threading.Lock()
+        self._payload_acct = _resource_governor.account("lm_admission")
         self._counts: Dict[str, int] = dict.fromkeys(OUTCOMES, 0)  # guarded-by: _lock
         self._counts["submitted"] = 0
         self._next_index = 0                            # guarded-by: _lock
         self._offline_id = 0
+        self._cooldown = 0                              # guarded-by: _lock
         self._draining = False                          # guarded-by: _lock
         self._drain_deadline: Optional[float] = None    # guarded-by: _lock
         self._closed = False                            # guarded-by: _lock
@@ -623,6 +706,7 @@ class LMServingEngine:
         self.decode_steps = 0
         self.prefills = 0                               # guarded-by: _lock
         self.tokens_out = 0
+        self.watchdog: Optional[HungDispatchWatchdog] = None
         self._thread: Optional[threading.Thread] = None
         window = config.get_int("bigdl.telemetry.percentileWindow", 512)
         self._ttft = telemetry.histogram(
@@ -634,6 +718,9 @@ class LMServingEngine:
         self._latency = telemetry.histogram(
             "LM/latency_ms", window=window,
             help="per-request submit-to-terminal latency")
+        self.quantization_report: Optional[Dict[str, Any]] = None
+        if self._dp_q is not None:
+            self._quantization_gate()
         if start:
             self.start()
 
@@ -677,9 +764,9 @@ class LMServingEngine:
     def warmup(self) -> None:
         """Run every planned step once (prefill and the full forward at
         each bucket, all rows scattering into the dump block, and the
-        decode step at its one shape, all slots inactive), so no request
-        pays a first call against its deadline.  On a CUDA device this
-        captures the decode graph."""
+        decode step of the served tier at its one shape, all slots
+        inactive), so no request pays a first call against its deadline.
+        On a CUDA device this captures the served tier's decode graph."""
         table = torch.full((self._max_blocks,), DUMP_BLOCK,
                            dtype=torch.int64, device=self.device)
         with torch.no_grad():
@@ -702,19 +789,32 @@ class LMServingEngine:
         inputs[:, _TABLE:] = DUMP_BLOCK
         return inputs
 
+    @property
+    def _served_q(self) -> bool:
+        return self._dp_q is not None
+
+    @property
+    def _graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The served tier's decode graph (None before its capture)."""
+        entry = self._graphs.get(self._served_q)
+        return entry[0] if entry is not None else None
+
     def _run_decode(self, pool_k: torch.Tensor, pool_v: torch.Tensor,
-                    inputs: torch.Tensor) -> torch.Tensor:
-        """The decode step, eagerly, on a packed device input."""
-        return self._decode_fn(self._dp, pool_k, pool_v,
+                    inputs: torch.Tensor,
+                    quantized: Optional[bool] = None) -> torch.Tensor:
+        """The decode step, eagerly, on a packed device input, over the
+        served tier's tree (or the one ``quantized`` names)."""
+        q = self._served_q if quantized is None else quantized
+        return self._decode_fn(self._dp_q if q else self._dp, pool_k, pool_v,
                                inputs[:, _TOKEN:_TOKEN + 1],
                                inputs[:, _POSITION], inputs[:, _TABLE:],
                                inputs[:, _ACTIVE])
 
-    def _capture_decode(self) -> None:
-        """Capture the decode step as one CUDA graph over a static input
-        buffer and the live pools.  One eager run on a side stream first,
-        all slots inactive (it writes only the dump block), so the capture
-        records warm kernels; the capture itself runs nothing."""
+    def _capture_decode(self, quantized: bool) -> None:
+        """Capture one tier's decode step as a CUDA graph over a static
+        input buffer and the live pools.  One eager run on a side stream
+        first, all slots inactive (it writes only the dump block), so the
+        capture records warm kernels; the capture itself runs nothing."""
         dev = self.device
         static_in = to_device(self._idle_inputs(), dev)
         graph = torch.cuda.CUDAGraph()
@@ -722,30 +822,69 @@ class LMServingEngine:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._run_decode(self.cache.k, self.cache.v, static_in)
+                self._run_decode(self.cache.k, self.cache.v, static_in,
+                                 quantized)
             torch.cuda.current_stream(dev).wait_stream(side)
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 static_out = self._run_decode(self.cache.k, self.cache.v,
-                                              static_in)
-        self._graph, self._graph_in, self._graph_out = (graph, static_in,
-                                                        static_out)
+                                              static_in, quantized)
+        self._graphs[quantized] = (graph, static_in, static_out)
         self.decode_captures += 1
 
-    def _decode_step(self, inputs: np.ndarray) -> np.ndarray:
-        """One decode step from the packed host ``inputs``; the
-        (maxBatch, vocab) log-probs on the host.  On a CUDA device: copy
-        into the graph's static input, replay, pull (capturing the graph
-        first if warmup did not)."""
+    def _decode_step(self, inputs: np.ndarray,
+                     quantized: Optional[bool] = None) -> np.ndarray:
+        """One decode step of the served tier (or the one ``quantized``
+        names) from the packed host ``inputs``; the (maxBatch, vocab)
+        log-probs on the host.  On a CUDA device: copy into the graph's
+        static input (one copy of every column), replay, pull (capturing
+        the graph first if warmup or the gate did not)."""
+        q = self._served_q if quantized is None else quantized
         if self.device.type == "cuda":
-            if self._graph is None:
-                self._capture_decode()
+            if q not in self._graphs:
+                self._capture_decode(q)
+            graph, static_in, static_out = self._graphs[q]
             with torch.cuda.device(self.device):
-                self._graph_in.copy_(torch.from_numpy(inputs))
-                self._graph.replay()
-                return self._graph_out.cpu().numpy()
+                static_in.copy_(torch.from_numpy(inputs))
+                graph.replay()
+                return static_out.cpu().numpy()
         with torch.no_grad():
             return self._run_decode(self.cache.k, self.cache.v,
-                                    torch.from_numpy(inputs)).numpy()
+                                    torch.from_numpy(inputs), q).numpy()
+
+    # -- the int8 gate ----------------------------------------------------
+
+    def _quantization_gate(self) -> None:
+        """The int8 tier's gate: fp against int8 next-token log-probs from
+        IDENTICAL pools (one prompt prefilled, one decode step of each
+        tier) within ``quantizeRtol``/``quantizeAtol``, else
+        :class:`QuantizationGateError`.  On a CUDA device both decode
+        graphs are captured here."""
+        P = max(1, min(8, self.max_context - 1))
+        prompt = (np.arange(P, dtype=np.int64) % self.graph.vocab) + 1
+        seq_id = self._offline_seq_id()
+        self.cache.allocate(seq_id, P + 1)
+        try:
+            tok, table_row = self._prefill_step_raw(seq_id, prompt)
+            inputs = self._idle_inputs()
+            inputs[0, _TOKEN], inputs[0, _POSITION] = tok, P
+            inputs[0, _ACTIVE], inputs[0, _TABLE:] = 1, table_row
+            a = self._decode_step(inputs, quantized=False)[0]
+            b = self._decode_step(inputs, quantized=True)[0]
+        finally:
+            self.cache.free_seq(seq_id)
+        close = bool(np.allclose(b, a, rtol=self.quantize_rtol,
+                                 atol=self.quantize_atol))
+        diff = float(np.max(np.abs(b - a)))
+        self.quantization_report = {
+            "audit_ok": None, "audit": _AUDIT_NOT_PORTED, "violations": [],
+            "allclose": close, "max_abs_diff": diff,
+            "rtol": self.quantize_rtol, "atol": self.quantize_atol}
+        if not close:
+            raise QuantizationGateError(
+                f"int8 decode logits drifted past the gate: max |diff| "
+                f"{diff:.4g} vs rtol={self.quantize_rtol} "
+                f"atol={self.quantize_atol} — raise the thresholds "
+                "explicitly or serve fp")
 
     # -- lifecycle --------------------------------------------------------
 
@@ -824,6 +963,8 @@ class LMServingEngine:
                          else self.deadline_ms)
         max_new = int(max_new_tokens if max_new_tokens is not None
                       else self.max_new_tokens)
+        payload_nbytes = _item_nbytes(prompt)
+        _resource_governor.check_item("lm_admission", payload_nbytes)
         telemetry.counter("LM/submitted").inc()
         # minted before the rejection checks: a rejected prompt still
         # explains itself
@@ -836,6 +977,8 @@ class LMServingEngine:
                 raise self._reject_locked("closed", trace_id=tid)
             if self._draining:
                 raise self._reject_locked("draining", trace_id=tid)
+            if self._cooldown > 0:
+                raise self._reject_locked("cooldown", trace_id=tid)
             depth = self._q.qsize() + len(self._pending)
             if depth >= self.max_queue_depth:
                 raise self._reject_locked("queue full", depth, trace_id=tid)
@@ -863,9 +1006,15 @@ class LMServingEngine:
             self._next_index += 1
         request_trace.instant(tid, "request/admit", index=stream.index,
                               depth=depth)
+        # charged BEFORE the enqueue: once queued the scheduler owns the
+        # stream, and a completion racing a later charge would leak it
+        with stream._cv:
+            stream.payload_nbytes = payload_nbytes
+        self._payload_acct.add(payload_nbytes)
         try:
             self._q.put_nowait(stream)
         except queue.Full:
+            self._release_bytes(stream)
             with self._lock:
                 raise self._reject_locked("queue full",
                                           self.max_queue_depth,
@@ -894,6 +1043,10 @@ class LMServingEngine:
     def _validate(self, stream: TokenStream) -> np.ndarray:
         """Per-request prompt validation: anything wrong with the PAYLOAD
         raises :class:`ServingDataError` here and quarantines one stream."""
+        if chaos.poison_prompt(stream.index):
+            raise ServingDataError(
+                f"chaos: poison prompt at admission position "
+                f"{stream.index}")
         try:
             row = np.asarray(stream.prompt)
         except Exception as e:
@@ -921,6 +1074,7 @@ class LMServingEngine:
                        reason: Optional[str] = None) -> bool:
         if not stream._finish(outcome, error=error):
             return False
+        self._release_bytes(stream)
         with self._lock:
             self._counts[outcome] += 1
         # the choke point of every terminal verdict; a completed stream's
@@ -936,6 +1090,12 @@ class LMServingEngine:
                                   exemplar=stream.trace_id)
         return True
 
+    def _release_bytes(self, stream: TokenStream) -> None:
+        with stream._cv:
+            nbytes, stream.payload_nbytes = stream.payload_nbytes, 0
+        if nbytes:
+            self._payload_acct.sub(nbytes)
+
     def stats(self) -> Dict[str, Any]:
         """Outcome counters and the accounting identity residual
         (``unaccounted`` includes streams still in flight: quiesce first
@@ -950,6 +1110,7 @@ class LMServingEngine:
         out["decode_captures"] = self.decode_captures
         out["queue_depth"] = self.queue_depth()
         out["decode_ema_ms"] = self._ema.ema
+        out["cooldown"] = self._cooldown
         out["draining"] = self._draining
         out["active_slots"] = sum(s is not None for s in self._slots)
         out["free_blocks"] = self.cache.free_blocks
@@ -963,12 +1124,28 @@ class LMServingEngine:
 
     def _scheduler_loop(self) -> None:
         telemetry.name_thread("lm-scheduler")
+        wd = None
+        if self.stall_factor > 0:
+            wd = HungDispatchWatchdog(
+                self.stall_factor, warmup=self.warmup_steps,
+                cooldown=self.cooldown_steps,
+                poll_interval=min(self.poll_interval, 0.05))
+            wd.start()                    # the abort's target: this thread
+            self.watchdog = wd
         try:
             drained = False
             while not drained:
-                if not self._draining and self._stop_event.is_set():
-                    with self._lock:
-                        self._begin_drain_locked("stop", time.monotonic())
+                if not self._draining:
+                    if elastic.preemption_requested():
+                        with self._lock:
+                            self._begin_drain_locked(
+                                "preemption",
+                                elastic.preemption_requested_at() or
+                                time.monotonic())
+                    elif self._stop_event.is_set():
+                        with self._lock:
+                            self._begin_drain_locked("stop",
+                                                     time.monotonic())
                 if self._draining:
                     if time.monotonic() > self._drain_deadline:
                         self._drain_leftovers()
@@ -984,22 +1161,43 @@ class LMServingEngine:
                         continue
                 active = True
                 try:
-                    self._admit_waiting()
+                    # an abort can land during admission (validation,
+                    # prefill) as during decode: both run on the step
+                    # clock, so both sit under one handler
+                    self._admit_waiting(wd)
                     active = self._any_active()
                     if active:
-                        self._decode_iteration()
+                        self._decode_iteration(wd)
+                except HungDispatchError:
+                    ema = self._ema.ema
+                    baseline = (f"{ema:.1f} ms EMA" if ema is not None
+                                else "unseeded EMA")
+                    diag = HungDispatchError(
+                        f"decode step wedged past {self.stall_factor:.1f}x "
+                        f"the iteration baseline ({baseline}) — the "
+                        "hung-dispatch watchdog aborted it")
+                    self._shed_active(diag, "hung_decode", cool=True)
+                    if wd is not None:
+                        wd.heartbeat()
                 except Exception as e:  # noqa: BLE001 — must outlive
                     logger.exception("LM scheduler iteration failed")
                     self._shed_active(ServingInfraError(
                         f"decode failed: {e!r}"), "infra")
                 if not active:
                     try:
-                        stream = self._q.get(timeout=self.poll_interval)
+                        with (wd.paused() if wd is not None
+                              else nullcontext()):
+                            stream = self._q.get(timeout=self.poll_interval)
                         with self._lock:
                             self._pending.append(stream)
                     except queue.Empty:
-                        pass
+                        with self._lock:
+                            # backlog clear: a cooldown with no traffic
+                            # would never end
+                            self._cooldown = 0
         finally:
+            if wd is not None:
+                wd.stop()
             # _closed BEFORE the sweep: a racing submit either observes
             # _closed (and sheds its own stream) or enqueued before this
             # sweep, which sheds it
@@ -1018,8 +1216,8 @@ class LMServingEngine:
         self._draining = True
         incident.record("lm/drain", reason=reason, grace_s=budget,
                         queued=self.queue_depth())
-        logger.info("LM engine draining: grace %.1f s, %d queued, %d active",
-                    budget, self.queue_depth(),
+        logger.info("LM engine draining (%s): grace %.1f s, %d queued, %d "
+                    "active", reason, budget, self.queue_depth(),
                     sum(s is not None for s in self._slots))
 
     def _drain_leftovers(self) -> None:
@@ -1049,9 +1247,12 @@ class LMServingEngine:
             logger.warning("LM drain shed %d queued stream(s)", shed)
         telemetry.gauge("LM/queue_depth").set(self.queue_depth())
 
-    def _shed_active(self, error: Exception, reason: str) -> None:
+    def _shed_active(self, error: Exception, reason: str,
+                     cool: bool = False) -> None:
         """Fail every in-flight sequence with the diagnosis and free its
-        blocks; each victim gets its own exception instance."""
+        blocks; each victim gets its own exception instance.  With
+        ``cool`` admission answers ``cooldown`` for ``cooldownSteps``
+        decode steps."""
         failed = 0
         victims = [s.stream for s in self._slots if s is not None]
         self._slots = [None] * self.max_batch
@@ -1064,16 +1265,21 @@ class LMServingEngine:
             failed += self._finish_stream(stream, "shed",
                                           error=type(error)(*error.args),
                                           reason=reason)
+        if cool:
+            with self._lock:
+                self._cooldown = max(self._cooldown, self.cooldown_steps)
         if failed:
             incident.record("lm/shed_active", reason=reason,
                             victims=failed, error=type(error).__name__)
             incident.maybe_dump(f"lm/{reason}",
                                 trace_id=victims[0].trace_id)
             logger.error("LM decode aborted (%s): %d in-flight stream(s) "
-                         "failed with %s", reason, failed,
-                         type(error).__name__)
+                         "failed with %s%s", reason, failed,
+                         type(error).__name__,
+                         f"; cooling down for {self.cooldown_steps} steps"
+                         if cool else "")
 
-    def _admit_waiting(self) -> None:
+    def _admit_waiting(self, wd=None) -> None:
         """Fill vacant decode slots from the holdover, then the queue:
         expired prompts are shed and poison ones quarantined (neither takes
         a slot); a block-starved prompt goes back to the FRONT of the
@@ -1111,9 +1317,12 @@ class LMServingEngine:
                 incident.record("lm/quarantine", index=stream.index,
                                 error=type(e).__name__)
                 self._finish_stream(stream, "quarantined", error=e)
-                # after the verdict, so the bundle's trace is terminal
-                incident.maybe_dump("lm/quarantine",
-                                    trace_id=stream.trace_id)
+                # after the verdict, so the bundle's trace is terminal; the
+                # write is legitimate work, not a hung step, so the
+                # watchdog is paused
+                with (wd.paused() if wd is not None else nullcontext()):
+                    incident.maybe_dump("lm/quarantine",
+                                        trace_id=stream.trace_id)
                 self._admitting = None
                 continue
             need = prompt.size + stream.max_new_tokens
@@ -1134,6 +1343,8 @@ class LMServingEngine:
                     f"prefill failed: {e!r}"), reason="infra")
                 self._admitting = None
                 continue
+            if wd is not None:
+                wd.heartbeat()
             request_trace.record_span(stream.trace_id, "request/prefill",
                                       t_pf, telemetry.clock_ns(),
                                       prompt_tokens=int(prompt.size))
@@ -1180,13 +1391,32 @@ class LMServingEngine:
             (telemetry.clock_ns() - t0) / 1e6)
         return int(np.argmax(lp)) + 1, table_row
 
-    def _decode_iteration(self) -> None:
+    def _decode_iteration(self, wd=None) -> None:
         """ONE decode step over every occupied slot: the continuous-batching
         heartbeat.  Finished sequences vacate their slot and free their
         blocks before the next admission pass."""
         self.decode_steps += 1
         step = self.decode_steps
         telemetry.counter("LM/decode_steps").inc()
+        chaos.on_decode_step(step)
+        if chaos.evict_block(step):
+            victim = next((i for i, s in enumerate(self._slots)
+                           if s is not None), None)
+            if victim is not None:
+                # finish FIRST: an abort sweeps the slots and _admitting
+                # only, so a stream finished before its slot clears is a
+                # no-op for the sweep, while a slot cleared before the
+                # finish would strand the stream unaccounted
+                slot = self._slots[victim]
+                self._finish_stream(slot.stream, "shed",
+                                    error=ServingInfraError(
+                                        "chaos: kv blocks evicted under an "
+                                        "active sequence — retriable"),
+                                    reason="evicted")
+                self._slots[victim] = None
+                self.cache.free_seq(slot.stream.seq_id)
+            if not self._any_active():
+                return
         t0 = telemetry.clock_ns()
         inputs = self._idle_inputs()
         for i, slot in enumerate(self._slots):
@@ -1232,6 +1462,11 @@ class LMServingEngine:
                 self.cache.free_seq(stream.seq_id)
         ms = (telemetry.clock_ns() - t0) / 1e6
         self._ema.observe(ms)
+        if wd is not None:
+            wd.heartbeat()
+        with self._lock:
+            if self._cooldown > 0:
+                self._cooldown -= 1
         telemetry.gauge("LM/decode_ms").set(ms)
         telemetry.gauge("LM/slot_occupancy").set(
             sum(s is not None for s in self._slots) / max(1, self.max_batch))
@@ -1322,5 +1557,5 @@ class LMServingEngine:
         return (out_tokens, logps) if return_logps else out_tokens
 
 
-__all__ = ["LMServingEngine", "PagedKVCache", "TokenStream",
-           "UnsupportedModelError"]
+__all__ = ["LMServingEngine", "PagedKVCache", "QuantizationGateError",
+           "TokenStream", "UnsupportedModelError"]

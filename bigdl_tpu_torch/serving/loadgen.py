@@ -6,10 +6,9 @@ own clock (exponential inter-arrival gaps) and never wait for completions,
 so a server that slows down faces a growing queue instead of a client that
 throttles itself.  Every submission lands in exactly one bucket
 (``completed`` / ``shed`` / ``rejected`` / ``quarantined``), and the record
-carries the identity residual (``unaccounted``).
-
-The JAX package's burst-arrival injector (``bigdl.chaos.burstArrivals``)
-waits for the port of its chaos hooks.
+carries the identity residual (``unaccounted``).  The generators consume
+the ``bigdl.chaos.burstArrivals`` injector (JAX :80): a thundering herd is
+an arrival-process fault, so it is injected where arrivals are made.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from bigdl_tpu_torch.serving.engine import OUTCOMES, Overloaded
+from bigdl_tpu_torch.utils import chaos
 
 
 def run_open_loop(engine, payloads: Sequence[Any],
@@ -41,7 +41,9 @@ def run_open_loop(engine, payloads: Sequence[Any],
          errors: {arrival_key: Exception},
          handles: [(arrival_key, RequestHandle | None)]}
 
-    ``arrival_key`` is ``str(i)``.
+    ``arrival_key`` is ``str(i)`` for scheduled arrivals and ``"i+bj"``
+    for the j-th extra arrival of a ``bigdl.chaos.burstArrivals`` herd at
+    position ``i``.
     """
     rng = np.random.default_rng(seed)
     handles: List = []
@@ -72,6 +74,9 @@ def run_open_loop(engine, payloads: Sequence[Any],
         if now < next_due:
             time.sleep(next_due - now)
         _arrive(str(i), payload)
+        for j in range(chaos.burst_arrivals(i)):
+            # a herd arrives back-to-back, on top of the schedule
+            _arrive(f"{i}+b{j}", payload)
         if rate_hz > 0:
             next_due = max(next_due, now) + float(
                 rng.exponential(1.0 / rate_hz))
@@ -143,8 +148,8 @@ def run_lm_open_loop(engine, requests: Sequence[Any], rate_hz: float,
     its :class:`~bigdl_tpu_torch.serving.lm.TokenStream` (recording TTFT and
     inter-token gaps client-side, on ARRIVAL of each token), so the
     record's percentiles measure the streamed experience, not just the
-    terminal state.  Same arrival process and accounting identity as
-    :func:`run_open_loop`.  Returns::
+    terminal state.  Same arrival process, burst injector and accounting
+    identity as :func:`run_open_loop`.  Returns::
 
         {submitted, completed, shed, rejected, quarantined, unaccounted,
          tokens_total, elapsed_s, tokens_per_s,
@@ -197,6 +202,8 @@ def run_lm_open_loop(engine, requests: Sequence[Any], rate_hz: float,
         if now < next_due:
             time.sleep(next_due - now)
         _arrive(str(i), prompt, max_new)
+        for j in range(chaos.burst_arrivals(i)):
+            _arrive(f"{i}+b{j}", prompt, max_new)
         if rate_hz > 0:
             next_due = max(next_due, now) + float(
                 rng.exponential(1.0 / rate_hz))

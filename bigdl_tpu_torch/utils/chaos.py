@@ -1,15 +1,19 @@
 """Chaos harness: configuration-driven fault injection for the training
-loop and the checkpoint write path (``bigdl_tpu/utils/chaos.py``, its
-training and checkpoint subset: ``install``/``uninstall``/``active``
-:1074-1104, ``on_step`` :1105, ``take_bitflip`` :1227, ``desync_replica``
-:1236, ``take_oom_dispatch`` :1256, ``host_mem_pressure`` :1272, the storage
-hooks ``on_write`` :1098 and ``take_disk_full`` :1264, and
-``corrupt_state_before_save`` :1247).
+loop, the checkpoint write path and the serving engines
+(``bigdl_tpu/utils/chaos.py``, its training, checkpoint and serving subset:
+``install``/``uninstall``/``active`` :1074-1104, ``on_step`` :1105,
+``take_bitflip`` :1227, ``desync_replica`` :1236, ``take_oom_dispatch``
+:1256, ``host_mem_pressure`` :1272, the storage hooks ``on_write`` :1098 and
+``take_disk_full`` :1264, ``corrupt_state_before_save`` :1247, and the
+serving hooks :1144-1196 over ``_ChaosState`` :533-657).
 
 The trainers' loop consults the harness once an iteration, the trainers'
 step before each dispatch, ``utils.file_io.write_bytes`` on every payload
-write and the checkpoint manager on every capture.  The keys, each read at
-:func:`install`:
+write and the checkpoint manager on every capture; ``ServingEngine``'s
+batcher on every request it handles and before every dispatch,
+``LMServingEngine``'s scheduler on every prompt it validates and before
+every decode iteration, and the open-loop load generators at every arrival.
+The keys, each read at :func:`install`:
 
 ==================================  =========================================
 ``bigdl.chaos.failWriteAt``         k: the k-th payload write raises
@@ -57,11 +61,41 @@ write and the checkpoint manager on every capture.  The keys, each read at
 ``bigdl.chaos.desyncReplicaAt``     "k" or "k:replica": in step k replica
                                     ``replica`` (default 1) adds 1.0 to its
                                     own copy of the updated parameters.
+``bigdl.chaos.slowRequestAt``       "k" or "k:seconds": the k-th serving
+                                    request the batcher handles stalls it
+                                    for ``seconds`` (default 5), once; the
+                                    requests queued behind it age past
+                                    their deadlines.
+``bigdl.chaos.poisonRequestAt``     "k" or "k:m": serving requests at
+                                    admission positions k..m (0-based) read
+                                    as poison (``ServingDataError``), once
+                                    per position.
+``bigdl.chaos.hangDispatchAt``      "k" or "k:seconds": the k-th serving
+                                    batch dispatch (1-based) wedges for
+                                    ``seconds`` (default 5), sleeping in
+                                    20 ms slices on the batcher thread so
+                                    the hung-dispatch watchdog's injected
+                                    error lands within one slice, once.
+``bigdl.chaos.burstArrivals``       "k" or "k:n": the open-loop load
+                                    generators fire n extra back-to-back
+                                    arrivals (default 8) at arrival
+                                    position k (0-based), once.
+``bigdl.chaos.poisonPromptAt``      "k" or "k:m": LM prompts at admission
+                                    positions k..m (0-based) read as
+                                    poison, once per position.
+``bigdl.chaos.hangDecodeAt``        "k" or "k:seconds": the LM scheduler's
+                                    k-th decode iteration (1-based) wedges
+                                    for ``seconds`` (default 5) in 20 ms
+                                    slices, once.
+``bigdl.chaos.evictBlockAt``        k: at LM decode iteration k (1-based)
+                                    one active sequence's KV blocks
+                                    "evict": the engine sheds that stream
+                                    retriably and frees its blocks, once.
 ==================================  =========================================
 
-Every other ``bigdl.chaos.*`` key of the JAX package (the ingest, serving,
-LM, fleet, compile, lock and audit injectors) belongs to a part the port
-does not have yet: :func:`install` raises :class:`NotImplementedError` when
+Every other ``bigdl.chaos.*`` key of the JAX package (the ingest, fleet,
+compile, lock and audit injectors) belongs to a part the port does not have
+yet: :func:`install` raises :class:`NotImplementedError` when
 one is set (:data:`UNPORTED_KEYS`), as do the trainers
 (:func:`refuse_unported_keys`).
 
@@ -85,10 +119,7 @@ UNPORTED_KEYS = (
     "bigdl.chaos.failDecodeAt", "bigdl.chaos.transientReads",
     "bigdl.chaos.killStageThread", "bigdl.chaos.starveStageAt",
     "bigdl.chaos.corruptCompileCacheAt", "bigdl.chaos.hangCompileAt",
-    "bigdl.chaos.slowRequestAt", "bigdl.chaos.poisonRequestAt",
-    "bigdl.chaos.hangDispatchAt", "bigdl.chaos.burstArrivals",
-    "bigdl.chaos.poisonPromptAt", "bigdl.chaos.hangDecodeAt",
-    "bigdl.chaos.evictBlockAt", "bigdl.chaos.killReplicaAt",
+    "bigdl.chaos.killReplicaAt",
     "bigdl.chaos.corruptCandidateAt", "bigdl.chaos.sigtermFleetAt",
     "bigdl.chaos.lockDelayAt", "bigdl.chaos.extraAllGather",
     "bigdl.chaos.f32Upcast", "bigdl.chaos.dropBucketCollective")
@@ -155,6 +186,27 @@ def _parse_stall(value) -> Tuple[int, float]:
         k, secs = s.split(":", 1)
         return (int(k), float(secs))
     return (int(s), 5.0)
+
+
+def _parse_burst(value) -> Tuple[int, int]:
+    """``"k"`` -> (k, 8); ``"k:n"`` -> (k, n); unset -> (-1, 0): the
+    position sentinel is -1, so arrival position 0 stays armable."""
+    if value is None or value == "":
+        return (-1, 0)
+    s = str(value)
+    if ":" in s:
+        k, n = s.split(":", 1)
+        return (int(k), int(n))
+    return (int(s), 8)
+
+
+def _wedge(seconds: float) -> None:
+    """Sleep ``seconds`` in 20 ms slices: the interruptible stand-in for a
+    wedged device call (an asynchronous exception lands within a slice)."""
+    import time
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        time.sleep(0.02)
 
 
 def _parse_indexed(value, default_index: int) -> Tuple[int, int]:
@@ -242,6 +294,19 @@ class _ChaosState:
             config.get_property("bigdl.chaos.diskFullAt"))
         self.host_pressure_at = config.get_int(
             "bigdl.chaos.hostMemPressureAt", 0)
+        self.slow_request_at, self.slow_request_seconds = _parse_stall(
+            config.get_property("bigdl.chaos.slowRequestAt"))
+        self.poison_request_at = _parse_span(
+            config.get_property("bigdl.chaos.poisonRequestAt"))
+        self.hang_dispatch_at, self.hang_dispatch_seconds = _parse_stall(
+            config.get_property("bigdl.chaos.hangDispatchAt"))
+        self.burst_arrivals_at, self.burst_arrivals_n = _parse_burst(
+            config.get_property("bigdl.chaos.burstArrivals"))
+        self.poison_prompt_at = _parse_span(
+            config.get_property("bigdl.chaos.poisonPromptAt"))
+        self.hang_decode_at, self.hang_decode_seconds = _parse_stall(
+            config.get_property("bigdl.chaos.hangDecodeAt"))
+        self.evict_block_at = config.get_int("bigdl.chaos.evictBlockAt", 0)
         self.writes = 0
         self.steps_failed = 0
         self.steps_seen = 0
@@ -257,6 +322,15 @@ class _ChaosState:
         self.oom_fired = 0
         self.disk_full_fired = 0
         self.pressure_fired = 0
+        self.serving_requests = 0
+        self.request_stalls = 0
+        self.poison_fired: set = set()
+        self.dispatches = 0
+        self.dispatch_hangs = 0
+        self.bursts_fired: set = set()
+        self.prompt_poison_fired: set = set()
+        self.decode_hangs = 0
+        self.block_evictions = 0
         self._lock = threading.Lock()
 
     # ---- the storage layer ---------------------------------------------
@@ -405,6 +479,105 @@ class _ChaosState:
         return fire
 
 
+    # ---- the serving engines -------------------------------------------
+
+    def on_serving_request(self, index: int) -> None:
+        """The serving batcher begins handling a dequeued request (``index``
+        is its admission position): the ``slowRequestAt``-th one handled
+        stalls the batcher, once."""
+        if not self.slow_request_at:
+            return
+        with self._lock:
+            self.serving_requests += 1
+            fire = (self.serving_requests == self.slow_request_at and
+                    self.request_stalls == 0)
+            if fire:
+                self.request_stalls = 1
+        if fire:
+            import time
+            time.sleep(self.slow_request_seconds)
+
+    @staticmethod
+    def _poison(span: Tuple[int, int], fired: set, lock, index: int,
+                kind: str) -> bool:
+        lo, hi = span
+        if not (hi >= 0 and lo <= index <= hi):
+            return False
+        with lock:
+            fire = index not in fired
+            fired.add(index)
+        if fire:
+            _incident_note(kind, index=index)
+        return fire
+
+    def poison_request(self, index: int) -> bool:
+        """True when the serving request at admission position ``index``
+        (0-based) reads as poison, once per position (a retried request is
+        not poisoned again)."""
+        return self._poison(self.poison_request_at, self.poison_fired,
+                            self._lock, index, "poison_request")
+
+    def on_dispatch(self, label: str = "") -> None:
+        """Before each serving batch dispatch: the ``hangDispatchAt``-th
+        wedges interruptibly, once."""
+        if not self.hang_dispatch_at:
+            return
+        with self._lock:
+            self.dispatches += 1
+            fire = (self.dispatches == self.hang_dispatch_at and
+                    self.dispatch_hangs == 0)
+            if fire:
+                self.dispatch_hangs = 1
+        if fire:
+            _incident_note("hang_dispatch", dispatch=self.dispatches,
+                           seconds=self.hang_dispatch_seconds)
+            _wedge(self.hang_dispatch_seconds)
+
+    def poison_prompt(self, index: int) -> bool:
+        """True when the LM prompt at admission position ``index`` (0-based)
+        reads as poison, once per position."""
+        return self._poison(self.poison_prompt_at, self.prompt_poison_fired,
+                            self._lock, index, "poison_prompt")
+
+    def on_decode_step(self, step: int) -> None:
+        """Before each LM decode iteration (``step`` 1-based): the
+        ``hangDecodeAt``-th wedges interruptibly, once."""
+        if not self.hang_decode_at:
+            return
+        with self._lock:
+            fire = step >= self.hang_decode_at and self.decode_hangs == 0
+            if fire:
+                self.decode_hangs = 1
+        if fire:
+            _incident_note("hang_decode", step=step,
+                           seconds=self.hang_decode_seconds)
+            _wedge(self.hang_decode_seconds)
+
+    def evict_block(self, step: int) -> bool:
+        """True when one active sequence's KV blocks evict at LM decode
+        iteration ``step`` (1-based), once."""
+        if not self.evict_block_at:
+            return False
+        with self._lock:
+            fire = step >= self.evict_block_at and self.block_evictions == 0
+            if fire:
+                self.block_evictions = 1
+        if fire:
+            _incident_note("evict_block", step=step)
+        return fire
+
+    def burst_arrivals(self, index: int) -> int:
+        """Extra back-to-back arrivals to fire at arrival position
+        ``index`` (0-based): n at the configured position, else 0; once per
+        position."""
+        if self.burst_arrivals_at < 0 or index != self.burst_arrivals_at:
+            return 0
+        with self._lock:
+            fire = index not in self.bursts_fired
+            self.bursts_fired.add(index)
+        return self.burst_arrivals_n if fire else 0
+
+
 _state: Optional[_ChaosState] = None
 
 
@@ -480,3 +653,53 @@ def host_mem_pressure(poll_index: int) -> bool:
         return False
     return _state.host_mem_pressure(poll_index)
 
+
+
+def on_serving_request(index: int) -> None:
+    """Serving batcher per-request hook (no-op when disarmed)."""
+    if _state is not None:
+        _state.on_serving_request(index)
+
+
+def poison_request(index: int) -> bool:
+    """True when this serving admission position reads as poison now
+    (False when disarmed)."""
+    if _state is None:
+        return False
+    return _state.poison_request(index)
+
+
+def on_dispatch(label: str = "") -> None:
+    """Serving batch-dispatch hook (no-op when disarmed)."""
+    if _state is not None:
+        _state.on_dispatch(label)
+
+
+def poison_prompt(index: int) -> bool:
+    """True when this LM admission position's prompt reads as poison now
+    (False when disarmed)."""
+    if _state is None:
+        return False
+    return _state.poison_prompt(index)
+
+
+def on_decode_step(step: int) -> None:
+    """LM decode-iteration hook (no-op when disarmed)."""
+    if _state is not None:
+        _state.on_decode_step(step)
+
+
+def evict_block(step: int) -> bool:
+    """True when one active sequence's KV blocks evict now (False when
+    disarmed)."""
+    if _state is None:
+        return False
+    return _state.evict_block(step)
+
+
+def burst_arrivals(index: int) -> int:
+    """Extra arrivals for the load generators at this position (0 when
+    disarmed)."""
+    if _state is None:
+        return 0
+    return _state.burst_arrivals(index)

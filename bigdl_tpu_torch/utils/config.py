@@ -23,7 +23,10 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.serving.admissionDeadlineFactor": 1.0,  # reject when projected wait > f x deadline
     "bigdl.serving.pollInterval": 0.05,    # batcher idle wake period, seconds
     "bigdl.serving.warmupBatches": 3,      # dispatch-EMA warmup (first-call exemption)
-    "bigdl.serving.gracePeriod": 5.0,      # drain window for stop, seconds
+    "bigdl.serving.gracePeriod": 5.0,      # drain window for stop/SIGTERM, seconds
+    "bigdl.serving.stallFactor": 0,        # hung-dispatch watchdog: > k x batch EMA; 0 off
+    "bigdl.serving.cooldownSteps": 8,      # clean batches before re-admission after a fire
+    "bigdl.serving.lingerMs": 0,           # batcher waits this long to fill a batch; 0 off
     # LM token serving (bigdl_tpu_torch/serving/lm.py): continuous batching
     # over a paged KV cache, one fixed (maxBatch, 1) decode shape (one CUDA
     # graph), a bucketed prefill plan, streamed tokens
@@ -38,11 +41,14 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.lm.deadlineMs": 5000.0,         # default end-to-end per-request deadline
     "bigdl.lm.maxQueueDepth": 128,         # admission queue bound (reject past it)
     "bigdl.lm.admissionDeadlineFactor": 0,  # reject when projected wait > f x deadline; 0 off
-    "bigdl.lm.stallFactor": 0,             # hung-decode watchdog (not ported: > 0 raises)
+    "bigdl.lm.stallFactor": 0,             # hung-decode watchdog: > k x decode EMA; 0 off
     "bigdl.lm.warmupSteps": 3,             # decode-EMA warmup (first-call exemption)
+    "bigdl.lm.cooldownSteps": 8,           # clean decode steps before re-admission
     "bigdl.lm.gracePeriod": 5.0,           # drain window for stop, seconds
     "bigdl.lm.pollInterval": 0.01,         # scheduler idle wake period, seconds
-    "bigdl.lm.quantize": "off",            # "int8" tier (not ported: raises)
+    "bigdl.lm.quantize": "off",            # "int8": per-channel int8 decode weights, gated
+    "bigdl.lm.quantizeRtol": 0.05,         # int8 gate: fp-vs-int8 log-prob allclose rtol
+    "bigdl.lm.quantizeAtol": 0.05,         # int8 gate: fp-vs-int8 log-prob allclose atol
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
@@ -85,6 +91,14 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.chaos.hostMemPressureAt": 0,
     "bigdl.chaos.bitflipParamAt": None,
     "bigdl.chaos.desyncReplicaAt": None,
+    # the serving engines' fault injectors (utils/chaos.py)
+    "bigdl.chaos.slowRequestAt": None,
+    "bigdl.chaos.poisonRequestAt": None,
+    "bigdl.chaos.hangDispatchAt": None,
+    "bigdl.chaos.burstArrivals": None,
+    "bigdl.chaos.poisonPromptAt": None,
+    "bigdl.chaos.hangDecodeAt": None,
+    "bigdl.chaos.evictBlockAt": 0,
     # the trainers' batch prefetcher (bigdl_tpu_torch/engine.py)
     "bigdl.prefetch.depth": 2,               # batches fetched ahead; 0 = synchronous
     "bigdl.pipeline.depth": 8,               # DispatchPipeline's results in flight

@@ -363,6 +363,30 @@ Phases, each fatal on any fault:
    ``ReplicaDesyncError`` naming rank 3 at iteration 5 on every rank,
    healed in place without a restore, the weights the clean run's.  Every
    bf16 flash kernel launched in the phase.
+18. the serving engines' failure taxonomy and the int8 decode tier, on
+   phase 4's LM (fp32, flash=True), built afresh from the seed.  (a)
+   ``ServingEngine`` (B2) with ``stallFactor`` 5, ``warmupBatches`` 2
+   and ``hangDispatchAt`` 5 (a 4 s wedge): dispatches 1-4 seed the EMA,
+   the 5th is shed with a diagnosed ``HungDispatchError`` before its
+   wedge ends, admission answers ``cooldown`` (retriable) until the
+   batcher's idle poll, then re-admits; the five served rows within 1e-3
+   of ``Predictor``'s; the fp32 forward launched layers x forwards times;
+   the detection latency beside its threshold logged.  (b) A real SIGTERM
+   to this process under ``PreemptionHandler`` with 6 requests queued:
+   all of them complete, a late arrival is rejected ``draining``
+   (retriable), the identity is exact, the handler is put back; the drain
+   time from the signal to the batcher's exit logged.  (c)
+   ``LMServingEngine(quantize="int8")`` at phase 7's pool with
+   ``bigdl.lm.stallFactor`` 20: the gate passes at its defaults (rtol and
+   atol 0.05; its report printed, ``audit_ok`` None), two decode graphs
+   captured once each, their replays timed (fp against int8), 4 streams
+   of 32 tokens finished.  (d) On the same engine ``poisonPromptAt``,
+   ``evictBlockAt`` and a 4 s ``hangDecodeAt`` together over 12 streams:
+   every failure carries its structured error (``ServingDataError`` "poison
+   prompt", ``ServingInfraError`` "evicted", ``HungDispatchError`` "wedged
+   past"), the watchdog fires once before the wedge ends, the identity
+   holds, every block is free after ``close()``; no flash kernel launched
+   in (c) and (d).
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
@@ -370,8 +394,8 @@ its launches on its main path and, as ``distri_launches``, in phase 10's LM
 run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
 phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
 in phase 15 (a), as ``pipeline_launches`` in phase 16 (a) and as
-``resilience_launches`` in phase 17; phases 8, 9, 11, 12, 14 and 16 run
-none of them), then the
+``resilience_launches`` in phase 17 and as ``failure_launches`` in phase
+18 (a); phases 8, 9, 11, 12, 14 and 16 run none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -5760,11 +5784,311 @@ def phase_resilience(card: str) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+FT_BATCH = 2            # phase 18 (a), (b): ServingEngine's max_batch
+FT_STALL = 5.0          # (a): bigdl.serving.stallFactor
+FT_WARMUP = 2           # (a), (c): warmupBatches / warmupSteps of the EMA
+FT_WEDGE = 4.0          # seconds of each injected wedge
+FT_POLL = 0.5           # (a): bigdl.serving.pollInterval: the batcher's idle
+#                         poll, so the cooldown outlives the abort that long
+FT_ATOL = 1e-3          # (a): served rows against Predictor (phase 4's)
+FT_QUEUED = 6           # (b): requests queued before the SIGTERM
+FT_LM_STALL = 20.0      # (c), (d): bigdl.lm.stallFactor
+FT_LM_REQUESTS = 4      # (c): streams through the int8 tier
+FT_CHAOS_REQUESTS = 12  # (d): streams under the combined plan
+FT_OUT = 32             # (c), (d): new tokens a stream
+FT_PROMPTS = (128, 256)  # (c), (d): prompt lengths (sample_lm_workload)
+
+
+def wait_until(cond, what: str, timeout: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} within {timeout} s")
+        time.sleep(0.001)
+
+
+def identity(stats: dict, what: str) -> None:
+    from bigdl_tpu_torch.serving.engine import OUTCOMES
+    if stats["unaccounted"] != 0 or \
+            sum(stats[o] for o in OUTCOMES) != stats["submitted"]:
+        raise AssertionError(f"{what}: the accounting identity is off: "
+                             f"{stats}")
+
+
+def ft_dispatch(card: str, model) -> dict:
+    """(a) ServingEngine over phase 4's LM (fp32, flash) with
+    ``stallFactor`` FT_STALL and ``hangDispatchAt`` 5: dispatches 1-4 seed
+    the EMA, the 5th wedges FT_WEDGE s and must be shed with a diagnosed
+    HungDispatchError before the wedge ends; admission answers
+    ``cooldown`` until the batcher's idle poll, then re-admits.  Every
+    served row against Predictor's within FT_ATOL.  Returns the flash
+    launches of the served run."""
+    import numpy as np
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.optim.predictor import Predictor
+    from bigdl_tpu_torch.serving import (HungDispatchError, Overloaded,
+                                         ServingEngine)
+    from bigdl_tpu_torch.utils import chaos
+    rows = np.random.default_rng(SEED + 18).integers(
+        1, VOCAB + 1, (6, SEQ)).astype(np.float32)
+    fired = telemetry.counter("Serving/watchdog_fired").value
+    out = {}
+    fa.reset_launches()
+    with properties(bigdl__chaos__hangDispatchAt=f"5:{FT_WEDGE}",
+                    bigdl__serving__warmupBatches=FT_WARMUP,
+                    bigdl__serving__pollInterval=FT_POLL):
+        chaos.install()
+        try:
+            with ServingEngine(model, max_batch=FT_BATCH,
+                               stall_factor=FT_STALL, cooldown_batches=2,
+                               deadline_ms=600_000.0, device=DEVICE) as eng:
+                eng.warmup(rows[0])
+                for i in range(4):
+                    out[i] = eng.submit(rows[i]).result(timeout=600)
+                t0 = time.monotonic()
+                victim = eng.submit(rows[4])
+                try:
+                    victim.result(timeout=600)
+                    raise AssertionError("(a) the wedged dispatch completed")
+                except HungDispatchError as e:
+                    abort_s, diag = time.monotonic() - t0, str(e)
+                wait_until(lambda: eng.stats()["cooldown"] > 0,
+                           "(a) no cooldown after the abort")
+                try:
+                    eng.submit(rows[5])
+                    raise AssertionError("(a) admitted during the cooldown")
+                except Overloaded as e:
+                    if e.reason != "cooldown" or not e.retriable:
+                        raise AssertionError(f"(a) rejected with {e}")
+                wait_until(lambda: eng.stats()["cooldown"] == 0,
+                           "(a) the cooldown did not clear")
+                out[5] = eng.submit(rows[5]).result(timeout=600)
+                stats = eng.stats()
+                forwards = len(eng._buckets) + stats["batches"] - 1
+        finally:
+            chaos.uninstall()
+    launches = dict(fa.launches)
+    threshold = telemetry.gauge("Serving/watchdog_threshold_ms").value
+    detect = telemetry.gauge("Serving/watchdog_detect_ms").value
+    log(f"[failures] (a) dispatch wedged {FT_WEDGE:g} s: shed after "
+        f"{abort_s:.3f} s, detected {detect:.1f} ms past the threshold of "
+        f"{threshold:.1f} ms ({FT_STALL:g} x EMA {stats['batch_ema_ms']:.1f}"
+        f" ms); {diag!r}; stats {stats}; launches {launches} on {card}")
+    identity(stats, "(a)")
+    if (abort_s >= FT_WEDGE or
+            telemetry.counter("Serving/watchdog_fired").value != fired + 1 or
+            (stats["completed"], stats["shed"], stats["rejected"]) !=
+            (5, 1, 1)):
+        raise AssertionError(f"(a) the watchdog did not abort and re-admit: "
+                             f"{abort_s:.3f} s, {stats}")
+    if launches["flash_attention_fwd_fp32"] != N_LAYERS * forwards or \
+            launches["flash_attention_fwd_bf16"] != 0:
+        raise AssertionError(f"(a) flash launches {launches}, expected "
+                             f"{N_LAYERS * forwards} fp32 (layers x "
+                             "forwards)")
+    keep = sorted(out)
+    ref = Predictor(model, device=DEVICE).predict(rows[keep],
+                                                  batch_size=FT_BATCH)
+    err = max(float(np.abs(out[i] - r).max()) for i, r in zip(keep, ref))
+    log(f"[failures] (a) {len(keep)} served rows against Predictor: max abs "
+        f"err {err:.3e} (atol {FT_ATOL:g})")
+    if not err <= FT_ATOL:
+        raise AssertionError(f"(a) served rows against Predictor: {err}")
+    return launches
+
+
+def ft_sigterm(card: str, model) -> None:
+    """(b) A real SIGTERM to this process under ``PreemptionHandler``
+    with FT_QUEUED requests queued: the batcher drains them, late arrivals
+    are rejected retriably, the identity is exact; the drain time from the
+    signal to the batcher's exit."""
+    import signal
+    import numpy as np
+    from bigdl_tpu_torch.serving import Overloaded, ServingEngine
+    from bigdl_tpu_torch.utils import elastic
+    rows = np.random.default_rng(SEED + 19).integers(
+        1, VOCAB + 1, (FT_QUEUED, SEQ)).astype(np.float32)
+    prev = signal.getsignal(signal.SIGTERM)
+    elastic.clear_preemption()
+    try:
+        with elastic.PreemptionHandler(enabled=True):
+            eng = ServingEngine(model, max_batch=FT_BATCH,
+                                deadline_ms=600_000.0, device=DEVICE)
+            try:
+                eng.warmup(rows[0])
+                handles = [eng.submit(r) for r in rows]
+                os.kill(os.getpid(), signal.SIGTERM)
+                wait_until(elastic.preemption_requested,
+                           "(b) SIGTERM set no preemption flag")
+                # the batcher starts the drain at its next loop top
+                wait_until(lambda: eng.draining, "(b) no drain began",
+                           timeout=60)
+                try:
+                    handles.append(eng.submit(rows[0]))
+                    raise AssertionError("(b) admitted while draining")
+                except Overloaded as e:
+                    late = e
+                for h in handles:
+                    h.result(timeout=600)
+                wait_until(lambda: not eng.batcher_alive(),
+                           "(b) the batcher did not exit", timeout=60)
+                drained = time.monotonic() - elastic.preemption_requested_at()
+            finally:
+                eng.stop()
+        if signal.getsignal(signal.SIGTERM) != prev:
+            raise AssertionError("(b) the SIGTERM handler was not put back")
+    finally:
+        elastic.clear_preemption()
+    stats = eng.stats()
+    log(f"[failures] (b) SIGTERM with {FT_QUEUED} requests queued: drained "
+        f"in {drained:.3f} s of bigdl.serving.gracePeriod "
+        f"{eng.grace_period:g} s; late arrival rejected ({late.reason}, "
+        f"retriable {late.retriable}); stats {stats} on {card}")
+    identity(stats, "(b)")
+    if (late.reason not in ("draining", "closed") or not late.retriable or
+            stats["completed"] != len(handles) or stats["shed"] or
+            eng.crashed()):
+        raise AssertionError(f"(b) the drain is off: {late!r}, {stats}")
+
+
+def ft_lm(card: str, model) -> None:
+    """(c) LMServingEngine(quantize="int8") at phase 7's pool with
+    ``bigdl.lm.stallFactor`` FT_LM_STALL: the gate at its defaults (its
+    report printed), both decode graphs captured once, each graph's replay
+    timed from the idle input (the gather reads every row of every slot
+    whatever is active), FT_LM_REQUESTS streams finished.  (d) On the same
+    engine ``poisonPromptAt``, ``evictBlockAt`` and ``hangDecodeAt``
+    together over FT_CHAOS_REQUESTS streams: every failure carries its
+    structured error, the identity holds, every block is free after
+    ``close()``."""
+    import torch
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.serving import (LMServingEngine, run_lm_open_loop,
+                                         sample_lm_workload)
+    from bigdl_tpu_torch.serving.engine import OUTCOMES
+    from bigdl_tpu_torch.utils import chaos
+    t = time.perf_counter()
+    with properties(bigdl__lm__stallFactor=FT_LM_STALL,
+                    bigdl__lm__warmupSteps=FT_WARMUP):
+        eng = LMServingEngine(model, quantize="int8", max_batch=MAX_BATCH,
+                              block_size=LM_BLOCK, max_context=SEQ,
+                              deadline_ms=600_000.0, device=DEVICE)
+    try:
+        rep = eng.quantization_report
+        log(f"[failures] (c) int8 gate in {time.perf_counter() - t:.2f} s "
+            f"on {card}: {json.dumps(rep)}")
+        if rep["allclose"] is not True or rep["audit_ok"] is not None:
+            raise AssertionError(f"(c) the int8 gate: {rep}")
+        eng.warmup()
+        idle = torch.from_numpy(eng._idle_inputs())
+        step_ms = {}
+        for q in (False, True):
+            graph, static_in, _ = eng._graphs[q]
+            static_in.copy_(idle)
+            step_ms[q] = time_ms(graph.replay, reps=20)
+        log(f"[failures] (c) decode step B{MAX_BATCH} from the graphs: fp "
+            f"{step_ms[False]:.3f} ms, int8 {step_ms[True]:.3f} ms "
+            f"({step_ms[True] / step_ms[False]:.2f}x) on {card}")
+        if eng.decode_captures != 2:
+            raise AssertionError(f"(c) {eng.decode_captures} decode "
+                                 "captures after warmup, not 2")
+        reqs = sample_lm_workload(FT_LM_REQUESTS, VOCAB, seed=18,
+                                  prompt_lens=FT_PROMPTS,
+                                  output_lens=(FT_OUT,))
+        eng.start()
+        rec = run_lm_open_loop(eng, reqs, rate_hz=0.0, seed=18)
+        identity(rec, "(c)")
+        lens = [s and len(s.tokens()) for _, s in rec["streams"]]
+        if rec["completed"] != len(reqs) or lens != [FT_OUT] * len(reqs):
+            raise AssertionError(f"(c) streams {lens}, "
+                                 f"{ {o: rec[o] for o in OUTCOMES} }")
+        log(f"[failures] (c) {len(reqs)} int8 streams: "
+            f"{rec['tokens_per_s']:,.1f} tokens/s, TTFT p50 "
+            f"{rec['p50_ttft_ms']:.2f} ms, inter-token p50 "
+            f"{rec['p50_itl_ms']:.2f} ms on {card}")
+        fired = telemetry.counter("Serving/watchdog_fired").value
+        # the plan counts from here: the third admission, the fourth decode
+        # step, and a step the first wave of streams is still decoding
+        steps, nxt = eng.decode_steps, eng._next_index
+        hang = steps + FT_OUT * 5 // 8
+        with properties(bigdl__chaos__poisonPromptAt=str(nxt + 2),
+                        bigdl__chaos__evictBlockAt=steps + 4,
+                        bigdl__chaos__hangDecodeAt=f"{hang}:{FT_WEDGE}"):
+            chaos.install()
+            try:
+                reqs = sample_lm_workload(FT_CHAOS_REQUESTS, VOCAB, seed=19,
+                                          prompt_lens=FT_PROMPTS,
+                                          output_lens=(FT_OUT,))
+                rec = run_lm_open_loop(eng, reqs, rate_hz=0.0, seed=19)
+            finally:
+                chaos.uninstall()
+        identity(rec, "(d)")
+        kinds = []
+        for key, s in rec["streams"]:
+            err = rec["errors"].get(key)
+            if s is None or s.outcome == "completed":
+                continue
+            kind = (s.outcome, type(err).__name__)
+            ok = {("quarantined", "ServingDataError"): "poison prompt",
+                  ("shed", "ServingInfraError"): "evicted",
+                  ("shed", "HungDispatchError"): "wedged past"}.get(kind)
+            if ok is None or ok not in str(err):
+                raise AssertionError(f"(d) stream {key}: {kind} {err!r}")
+            kinds.append(kind)
+        threshold = telemetry.gauge("Serving/watchdog_threshold_ms").value
+        detect = telemetry.gauge("Serving/watchdog_detect_ms").value
+        log(f"[failures] (d) {FT_CHAOS_REQUESTS} streams under poison, "
+            f"eviction and a {FT_WEDGE:g} s decode wedge: "
+            f"{ {o: rec[o] for o in OUTCOMES} }; failures {kinds}; the "
+            f"decode wedge detected {detect:.1f} ms "
+            f"past the threshold of {threshold:.1f} ms ({FT_LM_STALL:g} x "
+            f"EMA) on {card}")
+        if (telemetry.counter("Serving/watchdog_fired").value != fired + 1 or
+                detect + threshold >= FT_WEDGE * 1e3 or
+                set(kinds) != {("quarantined", "ServingDataError"),
+                               ("shed", "ServingInfraError"),
+                               ("shed", "HungDispatchError")}):
+            raise AssertionError(f"(d) the combined plan: {kinds}, "
+                                 f"{detect} + {threshold} ms")
+    finally:
+        eng.close()
+    stats = eng.stats()
+    identity(stats, "(c)-(d)")
+    if eng.cache.used_blocks != 0 or eng.decode_captures != 2:
+        raise AssertionError(f"(c)-(d): {eng.cache.used_blocks} blocks "
+                             f"held, {eng.decode_captures} captures")
+
+
+def phase_failures(card: str) -> dict:
+    """Phase 18: the serving engines' failure taxonomy and the int8 decode
+    tier on phase 4's LM (fp32, flash=True): (a) the hung-dispatch
+    watchdog, (b) a real SIGTERM drained, (c) the int8 tier, (d) the LM
+    chaos keys together.  Returns the flash launches of (a), the phase's
+    one flash path; (b)-(d) must launch none but (b)'s forwards."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    model = lm(flash=True)
+    served = ft_dispatch(card, model)
+    ft_sigterm(card, model)
+    fa.reset_launches()
+    ft_lm(card, model)
+    if any(fa.launches.values()):
+        raise AssertionError(f"(c)-(d) launched flash kernels: "
+                             f"{fa.launches}")
+    log(f"[failures] phase 18 took {time.perf_counter() - t0:.1f} s on "
+        f"{card}; (a) launches {served}")
+    del model
+    torch.cuda.empty_cache()
+    return served
+
 
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
-                sharded: dict, pipelined: dict, resilient: dict) -> list:
+                sharded: dict, pipelined: dict, resilient: dict,
+                failures: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -5775,7 +6099,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     ``sharded_launches`` in phase 15 (a), ``pipeline_launches`` in phase
     16 (a) (the ring and the pipeline blocks run no flash: 0),
     ``resilience_launches`` in phase 17 (the bf16 kernels > 0, the fp32
-    ones 0)."""
+    ones 0), ``failure_launches`` in phase 18 (a) (the fp32 forward > 0,
+    the rest 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -5795,7 +6120,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "zoo_rnn_launches": zoo_rnn[name],
                     "sharded_launches": sharded[name],
                     "pipeline_launches": pipelined[name],
-                    "resilience_launches": resilient.get(name, 0)})
+                    "resilience_launches": resilient.get(name, 0),
+                    "failure_launches": failures.get(name, 0)})
     return out
 
 
@@ -5915,10 +6241,12 @@ def main(argv=None) -> int:
     pipelined = phase_sharding(card)
     torch.cuda.empty_cache()
     resilient = phase_resilience(card)
+    torch.cuda.empty_cache()
+    failures = phase_failures(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
-                          sharded, pipelined, resilient)
+                          sharded, pipelined, resilient, failures)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

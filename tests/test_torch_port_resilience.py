@@ -101,7 +101,7 @@ _KEYS = ("bigdl.failure.retryTimeInterval", "bigdl.failure.retryTimes",
          "bigdl.chaos.failWriteAt", "bigdl.chaos.truncateWriteAt",
          "bigdl.chaos.transientWrites", "bigdl.chaos.diskFullAt",
          "bigdl.chaos.corruptStateBeforeSaveAt",
-         "bigdl.chaos.hostMemPressureAt", "bigdl.chaos.poisonRequestAt")
+         "bigdl.chaos.hostMemPressureAt", "bigdl.chaos.killReplicaAt")
 
 
 @pytest.fixture(autouse=True)
@@ -367,14 +367,17 @@ def test_chaos_key_parsing_matches_jax():
             jchaos._parse_indexed(value, 1)
     for value in (None, "6", "6:1.5", "2:0.25"):
         assert chaos._parse_stall(value) == jchaos._parse_stall(value)
+    for value in (None, "", "0", "2", "2:5", 3):
+        assert chaos._parse_burst(value) == jchaos._parse_burst(value)
     for value in (None, "2", "2:checkpoints,1:compile_cache", "1: x , 3"):
         assert chaos._parse_disk_full(value) == \
             jchaos._parse_disk_full(value)
 
 
 def test_unported_chaos_keys_raise():
-    both(bigdl__chaos__poisonRequestAt="2")
-    with pytest.raises(NotImplementedError, match="poisonRequestAt"):
+    # a fleet injector: the serving ones are ported since the engines' slice
+    both(bigdl__chaos__killReplicaAt="2")
+    with pytest.raises(NotImplementedError, match="killReplicaAt"):
         chaos.install()
     model, samples = _port_mlp(), _port_samples(_records(8))
     opt = LocalOptimizer(model, LocalDataSet(samples).transform(
