@@ -1,6 +1,5 @@
 """Parameter initialisation methods (``bigdl_tpu/nn/init.py``; reference
-``nn/InitializationMethod.scala``): the ones the ported layers,
-``model_init`` and the Inception builders draw from.
+``nn/InitializationMethod.scala``): every method of the JAX package.
 
 Each method is a callable ``(shape, fan_in, fan_out, generator) -> tensor``
 that draws a float32 tensor on the CPU from the caller's
@@ -16,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from bigdl_tpu_torch.nn.module import make_generator
@@ -31,6 +31,19 @@ class InitializationMethod:
 class Zeros(InitializationMethod):
     def __call__(self, shape, fan_in=None, fan_out=None, generator=None):
         return torch.zeros(tuple(shape))
+
+
+class Ones(InitializationMethod):
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None):
+        return torch.ones(tuple(shape))
+
+
+class ConstInitMethod(InitializationMethod):
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None):
+        return torch.full(tuple(shape), float(self.value))
 
 
 class RandomUniform(InitializationMethod):
@@ -69,6 +82,38 @@ class Xavier(InitializationMethod):
         bound = math.sqrt(6.0 / (fan_in + fan_out))
         return torch.empty(tuple(shape)).uniform_(-bound, bound,
                                                   generator=generator)
+
+
+class MsraFiller(InitializationMethod):
+    """He (Kaiming) normal: N(0, 2 / fan), the fan the layer passes,
+    fan_in unless ``var_fan_in`` is False (``bigdl_tpu/nn/init.py:83``)."""
+
+    def __init__(self, var_fan_in: bool = True):
+        self.var_fan_in = var_fan_in
+
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None):
+        fan = (fan_in if self.var_fan_in else fan_out) or 1
+        return math.sqrt(2.0 / fan) * torch.randn(tuple(shape),
+                                                  generator=generator)
+
+
+class BilinearFiller(InitializationMethod):
+    """The bilinear upsampling kernel (``bigdl_tpu/nn/init.py:95``) over
+    the last two dims, (kh, kw), broadcast over the leading ones: the
+    port's (out, in, kh, kw) layout of the JAX package's (kh, kw, in,
+    out)."""
+
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None):
+        shape = tuple(shape)
+        kh, kw = shape[-2], shape[-1]
+        f_h, f_w = math.ceil(kh / 2.0), math.ceil(kw / 2.0)
+        c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+        c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        ys = np.arange(kh)[:, None]
+        xs = np.arange(kw)[None, :]
+        kern = (1 - np.abs(ys / f_h - c_h)) * (1 - np.abs(xs / f_w - c_w))
+        kern = torch.from_numpy(kern.astype(np.float32))
+        return kern.expand(shape).clone()
 
 
 def redraw(layer, weight_init: Optional[InitializationMethod],

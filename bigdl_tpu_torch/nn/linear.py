@@ -1,8 +1,13 @@
 """Linear and embedding layers (``bigdl_tpu/nn/linear.py``: ``Linear`` :25,
-``LookupTable`` :160).
+``Bilinear`` :124, ``LookupTable`` :160, ``Add`` :195, ``Mul`` :213,
+``CMul`` :222, ``CAdd`` :242, ``Euclidean`` :262, ``Cosine`` :283).
 
 ``Linear`` keeps PyTorch's (out, in) weight; the JAX package stores (in, out),
 so :func:`bigdl_tpu_torch.utils.convert.params_from_jax` transposes it.
+The other layers keep the JAX package's layouts (``Bilinear``'s (out, in1,
+in2), ``Euclidean``'s and ``Cosine``'s (in, out) centres), which carry
+over as they are.  Their initial values are drawn U(-stdv, stdv) from the
+caller's generator as the JAX package draws them from its key.
 ``w_regularizer``/``b_regularizer`` (:mod:`bigdl_tpu_torch.optim.regularizer`)
 add their penalties to the training loss
 (:func:`bigdl_tpu_torch.optim.optimizer.regularization_penalty`).
@@ -10,7 +15,8 @@ add their penalties to the training loss
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -100,3 +106,148 @@ class LookupTable(Module):
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         idx = (input.to(torch.int64) - 1).clamp(0, self.n_index - 1)
         return F.embedding(idx, self.weight)
+
+
+def _uniform(shape, stdv: float, g: torch.Generator) -> torch.Tensor:
+    return torch.empty(tuple(shape)).uniform_(-stdv, stdv, generator=g)
+
+
+class Bilinear(Module):
+    """y_k = x1 W_k x2 + b_k over a table [x1 (N, in1), x2 (N, in2)]
+    (reference ``nn/Bilinear.scala``), stdv 1/sqrt(in1)."""
+
+    def __init__(self, input_size1: int, input_size2: int, output_size: int,
+                 bias_res: bool = True, w_regularizer=None,
+                 b_regularizer=None, device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size1 = input_size1
+        self.input_size2 = input_size2
+        self.output_size = output_size
+        self.bias_res = bias_res
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
+        g = make_generator(generator)
+        stdv = 1.0 / math.sqrt(input_size1)
+        self.weight = nn.Parameter(_uniform(
+            (output_size, input_size1, input_size2), stdv, g).to(device))
+        if bias_res:
+            self.bias = nn.Parameter(
+                _uniform((output_size,), stdv, g).to(device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, input) -> torch.Tensor:
+        out = torch.einsum("ni,oij,nj->no", input[0], self.weight, input[1])
+        return out + self.bias if self.bias is not None else out
+
+
+class Add(Module):
+    """A learnable bias of ``input_size`` (reference ``nn/Add.scala``)."""
+
+    def __init__(self, input_size: int, init_bias=None,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size = input_size
+        b = (torch.as_tensor(init_bias, dtype=torch.float32).reshape(-1)
+             .clone() if init_bias is not None
+             else _uniform((input_size,), 1.0 / math.sqrt(input_size),
+                           make_generator(generator)))
+        self.bias = nn.Parameter(b.to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return input + self.bias
+
+
+class Mul(Module):
+    """One learnable scalar gain, drawn U(-1, 1) (reference
+    ``nn/Mul.scala``)."""
+
+    def __init__(self, device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            _uniform((), 1.0, make_generator(generator)).to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return input * self.weight
+
+
+class CMul(Module):
+    """A learnable gain of the broadcastable ``size`` (reference
+    ``nn/CMul.scala``), stdv 1/sqrt(its element count)."""
+
+    def __init__(self, size: Sequence[int],
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.size = tuple(size)
+        stdv = 1.0 / math.sqrt(math.prod(self.size))
+        self.weight = nn.Parameter(
+            _uniform(self.size, stdv, make_generator(generator)).to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return input * self.weight
+
+
+class CAdd(Module):
+    """A learnable bias of the broadcastable ``size`` (reference
+    ``nn/CAdd.scala``), stdv 1/sqrt(its element count)."""
+
+    def __init__(self, size: Sequence[int],
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.size = tuple(size)
+        stdv = 1.0 / math.sqrt(math.prod(self.size))
+        self.bias = nn.Parameter(
+            _uniform(self.size, stdv, make_generator(generator)).to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return input + self.bias
+
+
+class Euclidean(Module):
+    """The Euclidean distance from the input to each of ``output_size``
+    learnable centres, the columns of an (in, out) weight (reference
+    ``nn/Euclidean.scala``); 1e-12 under the root."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        self.weight = nn.Parameter(_uniform(
+            (input_size, output_size), 1.0 / math.sqrt(input_size),
+            make_generator(generator)).to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        x = input[:, :, None] if input.dim() == 2 else input[:, None]
+        d = x - self.weight
+        return torch.sqrt((d * d).sum(dim=-2) + 1e-12)
+
+
+class Cosine(Module):
+    """The cosine similarity of the input to each of ``output_size``
+    learnable centres, the columns of an (in, out) weight, each norm
+    floored at 1e-12 (reference ``nn/Cosine.scala``)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size = input_size
+        self.output_size = output_size
+        self.weight = nn.Parameter(_uniform(
+            (input_size, output_size), 1.0 / math.sqrt(input_size),
+            make_generator(generator)).to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        xn = input / torch.clamp(torch.linalg.vector_norm(
+            input, dim=-1, keepdim=True), min=1e-12)
+        wn = w / torch.clamp(torch.linalg.vector_norm(
+            w, dim=0, keepdim=True), min=1e-12)
+        return xn @ wn

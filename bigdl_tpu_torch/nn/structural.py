@@ -1,10 +1,22 @@
 """Structural layers (``bigdl_tpu/nn/structural.py``: ``Identity`` :37,
-``Reshape`` :66, ``View`` :88, ``Transpose`` :167, ``Select`` :202,
-``Bottle`` :419, ``Remat`` :449, ``MulConstant`` :582,
-``ChannelNormalize`` :595, ``DeviceAugment`` :635).
+``Echo`` :46, ``Contiguous`` :57, ``Reshape`` :66, ``View`` :88,
+``InferReshape`` :116, ``Squeeze`` :135, ``Unsqueeze`` :153,
+``Transpose`` :167, ``Narrow`` :181, ``Select`` :202, ``Index`` :217,
+``MaskedSelect`` :231, ``Max`` :248, ``Min`` :263, ``Mean`` :278, ``Sum``
+:294, ``Replicate`` :315, ``Padding`` :334, ``SpatialZeroPadding`` :352,
+``GradientReversal`` :371, ``Scale`` :391, ``Bottle`` :419, ``Remat``
+:449, ``MM`` :526, ``MV`` :542, ``DotProduct`` :556, ``Pack`` :559,
+``Reverse`` :571, ``MulConstant`` :582, ``ChannelNormalize`` :595,
+``DeviceAugment`` :635, ``AddConstant`` :672).
 
 Dimension arguments are 1-based (Torch convention), as in the reference;
-:func:`_axis` maps them to 0-based axes.
+:func:`_axis` maps them to 0-based axes.  Each layer keeps the JAX
+package's convention exactly: some count a negative dim from the end
+through :func:`_axis`, others shift every dim down by one (``Unsqueeze``,
+``Index``, ``Pack``, ``Reverse``, ``Replicate``: -1 is then the
+second-to-last axis), and those with ``n_input_dims`` (or
+``num_input_dims``, ``n_dim``, ``n_input_dim``) move right by one over a
+batch dim in front.
 
 Shapes are logical (NCHW for image maps) whatever the memory format: a
 channels-last tensor (:mod:`bigdl_tpu_torch.nn.layout`) is not contiguous in
@@ -18,6 +30,7 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import Container, Module
 
@@ -43,6 +56,31 @@ class Identity(Module):
 
     def forward(self, input):
         return input
+
+
+class Echo(Module):
+    """The identity that prints its input's shape (debug aid, reference
+    ``nn/Echo.scala``)."""
+
+    layout_role = "agnostic"
+
+    def forward(self, input):
+        print(f"Echo {type(self).__name__}: shape {list(input.shape)}")
+        return input
+
+
+class Contiguous(Module):
+    """The input in contiguous memory (reference ``nn/Contiguous.scala``);
+    a tensor contiguous in either memory format passes as it is, as the
+    JAX package's no-op."""
+
+    layout_role = "agnostic"
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        if input.is_contiguous() or \
+                input.is_contiguous(memory_format=torch.channels_last):
+            return input
+        return input.contiguous()
 
 
 class Reshape(Module):
@@ -94,6 +132,56 @@ class View(Module):
         return input.reshape(sizes)
 
 
+class InferReshape(Module):
+    """Reshape where a 0 copies the input's dim and -1 is inferred; with
+    ``batch_mode`` the first dim is kept in front (reference
+    ``nn/InferReshape.scala``)."""
+
+    def __init__(self, size: Sequence[int], batch_mode: bool = False):
+        super().__init__()
+        self.size = tuple(int(s) for s in size)
+        self.batch_mode = batch_mode
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        in_shape = input.shape[1:] if self.batch_mode else input.shape
+        out = [in_shape[i] if s == 0 else s for i, s in enumerate(self.size)]
+        if self.batch_mode:
+            out = [input.shape[0]] + out
+        return input.reshape(tuple(out))
+
+
+class Squeeze(Module):
+    """Drop size-1 dims: all of them, or the 1-based ``dim`` when it is 1
+    (reference ``nn/Squeeze.scala``)."""
+
+    def __init__(self, dim: Optional[int] = None, num_input_dims: int = -1):
+        super().__init__()
+        self.dim = dim
+        self.num_input_dims = num_input_dims
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        if self.dim is None:
+            return input.squeeze()
+        ax = _axis(self.dim, input.dim(), self.num_input_dims)
+        return input.squeeze(ax) if input.shape[ax] == 1 else input
+
+
+class Unsqueeze(Module):
+    """Insert a size-1 dim at the 1-based ``pos`` (reference
+    ``nn/Unsqueeze.scala``)."""
+
+    def __init__(self, pos: int, num_input_dims: int = -1):
+        super().__init__()
+        self.pos = pos
+        self.num_input_dims = num_input_dims
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = self.pos - 1
+        if self.num_input_dims > 0 and input.dim() == self.num_input_dims + 1:
+            ax += 1
+        return input.unsqueeze(ax)
+
+
 class Transpose(Module):
     """Swap the listed 1-based dim pairs, in order (reference
     ``nn/Transpose.scala``).  Every dim is shifted down by one, as the JAX
@@ -127,6 +215,233 @@ class Select(Module):
         i = self.index - 1 if self.index > 0 else \
             input.shape[ax] + self.index
         return input.select(ax, i)
+
+
+class Narrow(Module):
+    """``length`` entries from the 1-based ``offset`` along the 1-based
+    ``dimension``; a negative length counts back from the end (reference
+    ``nn/Narrow.scala``)."""
+
+    def __init__(self, dimension: int, offset: int, length: int = 1):
+        super().__init__()
+        self.dimension = dimension
+        self.offset = offset
+        self.length = length
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = _axis(self.dimension, input.dim())
+        length = self.length
+        if length < 0:
+            length = input.shape[ax] - self.offset + 1 + length + 1
+        start = self.offset - 1
+        idx = [slice(None)] * input.dim()
+        idx[ax] = slice(start, start + length)
+        return input[tuple(idx)]
+
+
+class Index(Module):
+    """A table [tensor, indices]: the tensor gathered at the 1-based
+    indices along the 1-based ``dimension`` (reference ``nn/Index.scala``);
+    the indices' shape takes that dim's place."""
+
+    def __init__(self, dimension: int):
+        super().__init__()
+        self.dimension = dimension
+
+    def forward(self, input) -> torch.Tensor:
+        x, idx = input[0], input[1]
+        ax = (self.dimension - 1) % x.dim()
+        i = idx.to(torch.int64).to(x.device) - 1
+        out = torch.index_select(x, ax, i.reshape(-1))
+        return out.reshape(tuple(x.shape[:ax]) + tuple(i.shape) +
+                           tuple(x.shape[ax + 1:]))
+
+
+class MaskedSelect(Module):
+    """A table [tensor, mask]: the elements under the mask, packed to the
+    front of a vector as long as the input and zero after them (the JAX
+    package's static-shape output; the reference's ``nn/MaskedSelect.scala``
+    returns only the selected elements)."""
+
+    def forward(self, input) -> torch.Tensor:
+        x, mask = input[0], input[1]
+        flat = x.reshape(-1)
+        m = mask.reshape(-1).to(torch.bool).to(x.device)
+        order = torch.argsort((~m).to(torch.uint8), stable=True)
+        return torch.where(m[order], flat[order], torch.zeros_like(flat))
+
+
+class _Reduce(Module):
+    def __init__(self, dim: int = 1, num_input_dims: int = -1):
+        super().__init__()
+        self.dim = dim
+        self.num_input_dims = num_input_dims
+
+    def _ax(self, input: torch.Tensor) -> int:
+        return _axis(self.dim, input.dim(), self.num_input_dims)
+
+
+class Max(_Reduce):
+    """The maximum over the 1-based ``dim`` (reference ``nn/Max.scala``)."""
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.amax(input, dim=self._ax(input))
+
+
+class Min(_Reduce):
+    """The minimum over the 1-based ``dim`` (reference ``nn/Min.scala``)."""
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.amin(input, dim=self._ax(input))
+
+
+class Mean(Module):
+    """The mean over the 1-based ``dimension``, the dim kept unless
+    ``squeeze`` (reference ``nn/Mean.scala``)."""
+
+    def __init__(self, dimension: int = 1, n_input_dims: int = -1,
+                 squeeze: bool = True):
+        super().__init__()
+        self.dimension = dimension
+        self.n_input_dims = n_input_dims
+        self.squeeze = squeeze
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = _axis(self.dimension, input.dim(), self.n_input_dims)
+        return input.mean(dim=ax, keepdim=not self.squeeze)
+
+
+class Sum(Module):
+    """The sum (the mean with ``size_average``) over the 1-based
+    ``dimension`` (reference ``nn/Sum.scala``)."""
+
+    def __init__(self, dimension: int = 1, n_input_dims: int = -1,
+                 size_average: bool = False, squeeze: bool = True):
+        super().__init__()
+        self.dimension = dimension
+        self.n_input_dims = n_input_dims
+        self.size_average = size_average
+        self.squeeze = squeeze
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = _axis(self.dimension, input.dim(), self.n_input_dims)
+        if self.size_average:
+            return input.mean(dim=ax, keepdim=not self.squeeze)
+        return input.sum(dim=ax, keepdim=not self.squeeze)
+
+
+class Replicate(Module):
+    """``n_features`` copies along a new dim at the 1-based ``dim``
+    (reference ``nn/Replicate.scala``)."""
+
+    def __init__(self, n_features: int, dim: int = 1, n_dim: int = -1):
+        super().__init__()
+        self.n_features = n_features
+        self.dim = dim
+        self.n_dim = n_dim
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = self.dim - 1
+        if self.n_dim > 0 and input.dim() == self.n_dim + 1:
+            ax += 1
+        x = input.unsqueeze(ax)
+        reps = [1] * x.dim()
+        reps[ax] = self.n_features
+        return x.repeat(reps)
+
+
+class Padding(Module):
+    """``|pad|`` entries of ``value`` before (``pad`` < 0) or after the
+    1-based ``dim`` (reference ``nn/Padding.scala``)."""
+
+    def __init__(self, dim: int, pad: int, n_input_dim: int,
+                 value: float = 0.0, n_index: int = 1):
+        super().__init__()
+        self.dim = dim
+        self.pad = pad
+        self.n_input_dim = n_input_dim
+        self.value = value
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        ax = _axis(self.dim, input.dim(), self.n_input_dim)
+        shape = list(input.shape)
+        shape[ax] = abs(self.pad)
+        fill = torch.full(shape, self.value, dtype=input.dtype,
+                          device=input.device)
+        parts = (fill, input) if self.pad < 0 else (input, fill)
+        return torch.cat(parts, dim=ax)
+
+
+class SpatialZeroPadding(Module):
+    """Zero-pad the last two dims of an NCHW map, or crop where a pad is
+    negative (reference ``nn/SpatialZeroPadding.scala``); the pads default
+    to ``pad_left``."""
+
+    def __init__(self, pad_left: int, pad_right: Optional[int] = None,
+                 pad_top: Optional[int] = None,
+                 pad_bottom: Optional[int] = None):
+        super().__init__()
+        self.pl = pad_left
+        self.pr = pad_right if pad_right is not None else pad_left
+        self.pt = pad_top if pad_top is not None else pad_left
+        self.pb = pad_bottom if pad_bottom is not None else pad_left
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        if (input.shape[-1] + self.pl + self.pr < 1 or
+                input.shape[-2] + self.pt + self.pb < 1):
+            raise ValueError("input is too small")
+        return F.pad(input, (self.pl, self.pr, self.pt, self.pb))
+
+
+class _ReverseGradFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lam):
+        ctx.lam = lam
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.lam * g, None
+
+
+class GradientReversal(Module):
+    """The identity forward whose backward multiplies the gradient by
+    ``-the_lambda`` (reference ``nn/GradientReversal.scala``; the JAX
+    package's custom VJP)."""
+
+    layout_role = "agnostic"
+
+    def __init__(self, the_lambda: float = 1.0):
+        super().__init__()
+        self.the_lambda = the_lambda
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return _ReverseGradFn.apply(input, self.the_lambda)
+
+
+class Scale(Module):
+    """x * weight + bias with learnable ``size``-shaped weight (ones) and
+    bias (zeros), ``size`` aligned to the dims from dim 1 (reference
+    ``nn/Scale.scala``)."""
+
+    def __init__(self, size: Sequence[int], init_weight=None, init_bias=None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.size = tuple(size)
+        w = (torch.as_tensor(init_weight, dtype=torch.float32)
+             .reshape(self.size).clone() if init_weight is not None
+             else torch.ones(self.size))
+        b = (torch.as_tensor(init_bias, dtype=torch.float32)
+             .reshape(self.size).clone() if init_bias is not None
+             else torch.zeros(self.size))
+        self.weight = torch.nn.Parameter(w.to(device))
+        self.bias = torch.nn.Parameter(b.to(device))
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        shape = [1] * input.dim()
+        for i, s in enumerate(self.size):
+            shape[min(i + 1, input.dim() - 1)] = s
+        return input * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
 class Bottle(Container):
@@ -268,6 +583,71 @@ class Remat(Container):
         return run()
 
 
+class MM(Module):
+    """The matrix product of a table [a, b], either transposed first
+    (reference ``nn/MM.scala``)."""
+
+    def __init__(self, trans_a: bool = False, trans_b: bool = False):
+        super().__init__()
+        self.trans_a, self.trans_b = trans_a, trans_b
+
+    def forward(self, input) -> torch.Tensor:
+        a, b = input[0], input[1]
+        if self.trans_a:
+            a = a.transpose(-1, -2)
+        if self.trans_b:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b)
+
+
+class MV(Module):
+    """The matrix-vector product of a table [m, v] (reference
+    ``nn/MV.scala``)."""
+
+    def __init__(self, trans: bool = False):
+        super().__init__()
+        self.trans = trans
+
+    def forward(self, input) -> torch.Tensor:
+        m, v = input[0], input[1]
+        if self.trans:
+            m = m.transpose(-1, -2)
+        return torch.einsum("...ij,...j->...i", m, v)
+
+
+class DotProduct(Module):
+    """The row-wise dot product of a table [a, b] over the last dim
+    (reference ``nn/DotProduct.scala``)."""
+
+    def forward(self, input) -> torch.Tensor:
+        return (input[0] * input[1]).sum(dim=-1)
+
+
+class Pack(Module):
+    """Stack a table of tensors along a new 1-based ``dimension``
+    (reference ``nn/Pack.scala``)."""
+
+    def __init__(self, dimension: int):
+        super().__init__()
+        self.dimension = dimension
+
+    def forward(self, input) -> torch.Tensor:
+        xs = input if isinstance(input, (list, tuple)) else [input]
+        return torch.stack(list(xs), dim=self.dimension - 1)
+
+
+class Reverse(Module):
+    """Reverse along the 1-based ``dimension`` (reference
+    ``nn/Reverse.scala``)."""
+
+    def __init__(self, dimension: int = 1):
+        super().__init__()
+        self.dimension = dimension
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return torch.flip(input, dims=(self.dimension - 1,))
+
+
 class MulConstant(Module):
     """Multiply by a scalar constant (reference ``nn/MulConstant.scala``)."""
 
@@ -351,3 +731,16 @@ class DeviceAugment(Module):
             return input
         return crop_flip_transpose(input[0], input[1], input[2],
                                    self.crop_h, self.crop_w)
+
+
+class AddConstant(Module):
+    """Add a scalar constant (reference ``nn/AddConstant.scala``)."""
+
+    layout_role = "agnostic"
+
+    def __init__(self, constant_scalar: float, inplace: bool = False):
+        super().__init__()
+        self.constant = constant_scalar
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        return input + self.constant

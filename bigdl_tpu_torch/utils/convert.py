@@ -22,7 +22,11 @@ modules hold nothing (:mod:`bigdl_tpu_torch.nn.layout`).  A
 expert template's tree with a leading expert dim on every leaf (the
 layouts above apply behind it), and its state ``{"expert": tree,
 "aux_loss": scalar}``.  ``Remat`` is a container of one child in both
-packages.  A pipeline's stacked stage tree (the JAX package's
+packages, as are ``ParallelTable``, ``MapTable`` (its one shared child) and
+``Graph`` (its nodes' modules in topological order, the order the JAX
+``Graph`` indexes ``params[i]`` by).  The rest of the layer library keeps
+the JAX package's layouts (``PReLU``, ``Bilinear``, ``Add``, ``Mul``,
+``CMul``, ``CAdd``, ``Euclidean``, ``Cosine``, ``Scale``).  A pipeline's stacked stage tree (the JAX package's
 ``stack_stage_params``: every leaf with a leading stage dim) goes to and
 from a list of the port's per-stage blocks.
 """
@@ -83,10 +87,14 @@ def _copy(dst: torch.Tensor, value, what: str) -> None:
 def _moe_entries(module, own):
     """A ``MixtureOfExperts``' entries, keyed as the JAX package keys
     them: (own entries, expert template, the stacked tensors by the
-    template's names)."""
+    template's names); the gradients of those for :func:`_grads`."""
     if own is _params:
         return ({"gate": module.gate}, module.expert,
                 module.stacked_parameters())
+    if own is _grads:
+        return ({"gate": _grad(module.gate)}, module.expert,
+                {k: _grad(v) for k, v in
+                 module.stacked_parameters().items()})
     return ({"aux_loss": module.aux_loss}, module.expert, {})
 
 
@@ -167,7 +175,7 @@ def _dump(module: nn.Module,
     if isinstance(module, MixtureOfExperts):
         mine, template, stacked = _moe_entries(module, own)
         out = {k: np.array(t.detach().cpu().numpy()) for k, t in mine.items()}
-        if own is _params:
+        if own in (_params, _grads):
             out["experts"] = _dump_stacked(template, stacked)
         else:
             out["expert"] = _dump(template, own)
@@ -185,6 +193,14 @@ def _dump(module: nn.Module,
 
 def _params(module: nn.Module) -> Dict[str, torch.Tensor]:
     return dict(module.named_parameters(recurse=False))
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(p) if p.grad is None else p.grad
+
+
+def _grads(module: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: _grad(p) for k, p in module.named_parameters(recurse=False)}
 
 
 def _row(tree: Any, i: int) -> Any:
@@ -226,6 +242,13 @@ def params_to_jax(torch_model) -> Any:
     if isinstance(torch_model, (list, tuple)):
         return _stack([_dump(b, _params) for b in torch_model])
     return _dump(torch_model, _params)
+
+
+def grads_to_jax(torch_model: nn.Module) -> Any:
+    """The parameters' gradients (``.grad``, zeros where none) as a numpy
+    tree in the JAX package's layout, the twin of the JAX package's
+    ``model.grads``."""
+    return _dump(torch_model, _grads)
 
 
 def state_from_jax(jax_state: Any, torch_model: nn.Module) -> nn.Module:

@@ -387,6 +387,30 @@ Phases, each fatal on any fault:
    past"), the watchdog fires once before the wedge ends, the identity
    holds, every block is free after ``close()``; no flash kernel launched
    in (c) and (d).
+19. the Torch-style layer library, fp32 with TF32 off.  (a) Every module
+   and criterion class the library adds (the activations, tables,
+   structural layers, the linear family, the criterions) forward and
+   backward on the card against the same object on the CPU at LL_ROWS x
+   LL_WIDTH, the stochastic ones in eval mode: the worst relative error
+   within LL_RTOL; then ``RReLU``, ``GaussianDropout``, ``GaussianNoise``
+   and ``Dropout`` in training over LL_NOISE entries: the noise's mean and
+   variance within 1%, and the shell's ``backward`` replaying the
+   ``update_output``'s draw.  With cuDNN deterministic: (b) ResNet-50 at
+   ImageNet width (NCHW, seeded random weights, ``LogSoftMax``) through
+   ``save_model`` to a ``.t7`` in a temporary directory and ``load_model``
+   onto the card: the eval B32 log-probs bit-identical; the file's size and
+   the save and load times.  (c) From the loaded model, 3 steps of the
+   imperative shell (``zero_grad_parameters``, ``update_output``,
+   ``ClassNLLCriterion.forward``/``backward``, ``backward``,
+   ``update_parameters``) against 3 steps of ``LocalOptimizer`` with
+   SGD(0.01) over the same batches: weights and BatchNorm statistics bit
+   for bit, or within phase 8's 1e-3 of the update's norm with the largest
+   difference printed; both step times.  (d) A ``Graph`` built with
+   ``inputs()`` over the model's top-level stages, outputs the
+   log-probabilities and the pooled features: the first bit-identical to
+   the ``Sequential``'s, and the shell's ``backward`` through it giving the
+   ``Sequential``'s parameter gradients bit for bit.  No flash kernel
+   launched.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
@@ -394,8 +418,9 @@ its launches on its main path and, as ``distri_launches``, in phase 10's LM
 run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
 phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
 in phase 15 (a), as ``pipeline_launches`` in phase 16 (a) and as
-``resilience_launches`` in phase 17 and as ``failure_launches`` in phase
-18 (a); phases 8, 9, 11, 12, 14 and 16 run none of them), then the
+``resilience_launches`` in phase 17, as ``failure_launches`` in phase
+18 (a) and as ``library_launches`` in phase 19; phases 8, 9, 11, 12, 14,
+16 and 19 run none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -5799,6 +5824,15 @@ FT_OUT = 32             # (c), (d): new tokens a stream
 FT_PROMPTS = (128, 256)  # (c), (d): prompt lengths (sample_lm_workload)
 
 
+LL_ROWS, LL_WIDTH = 64, 256   # phase 19 (a): the moderate inputs
+LL_RTOL = 1e-5          # (a): card against CPU, of each tensor's largest
+LL_NOISE = 1 << 20      # (a): entries of each noise's moment check
+LL_MOMENT_RTOL = 0.01   # (a): mean and variance of the noise
+LL_BATCH = 32           # (b)-(d): ResNet-50 at B32, 224 x 224
+LL_STEPS = 3            # (c)
+LL_LR = 0.01            # (c)
+
+
 def wait_until(cond, what: str, timeout: float = 10.0) -> None:
     deadline = time.monotonic() + timeout
     while not cond():
@@ -6084,11 +6118,449 @@ def phase_failures(card: str) -> dict:
     return served
 
 
+def ll_module_cases():
+    """Phase 19 (a)'s modules: (name, factory, inputs from a generator) for
+    every module class the layer library adds, at LL_ROWS x LL_WIDTH."""
+    import torch
+    from bigdl_tpu_torch import nn
+    n, d = LL_ROWS, LL_WIDTH
+
+    def x(*shape):
+        return lambda g: torch.randn(shape or (n, d), generator=g)
+
+    def pos(*shape):
+        return lambda g: torch.rand(shape or (n, d), generator=g) + 0.2
+
+    def table(*makers):
+        return lambda g: [m(g) for m in makers]
+
+    idx = lambda g: torch.randint(1, d + 1, (n,), generator=g).float()
+    mask = lambda g: (torch.rand(n, d, generator=g) < 0.5).float()
+    gen = torch.Generator().manual_seed(SEED)
+    kw = dict(generator=gen)
+    elementwise = [
+        ("ReLU6", nn.ReLU6, x()), ("LeakyReLU", lambda: nn.LeakyReLU(0.1),
+                                   x()),
+        ("ELU", nn.ELU, x()), ("TanhShrink", nn.TanhShrink, x()),
+        ("LogSigmoid", nn.LogSigmoid, x()), ("SoftMax", nn.SoftMax, x()),
+        ("SoftMin", nn.SoftMin, x()), ("SoftPlus", nn.SoftPlus, x()),
+        ("SoftSign", nn.SoftSign, x()),
+        ("SoftShrink", nn.SoftShrink, x()),
+        ("HardShrink", nn.HardShrink, x()), ("HardTanh", nn.HardTanh, x()),
+        ("Clamp", lambda: nn.Clamp(-0.5, 0.5), x()),
+        ("Power", lambda: nn.Power(2.5, 0.5, 1.0), pos()),
+        ("Sqrt", nn.Sqrt, pos()), ("Square", nn.Square, x()),
+        ("Abs", nn.Abs, x()), ("Log", nn.Log, pos()), ("Exp", nn.Exp, x()),
+        ("Negative", nn.Negative, x()),
+        ("PReLU", lambda: nn.PReLU(16), x(n, 16, 16, 16)),
+        ("L1Penalty", lambda: nn.L1Penalty(0.1), x()),
+        ("RReLU", nn.RReLU, x()), ("GaussianDropout",
+                                   lambda: nn.GaussianDropout(0.3), x()),
+        ("GaussianNoise", lambda: nn.GaussianNoise(0.5), x())]
+    tables = [
+        ("ParallelTable", lambda: nn.ParallelTable().add(
+            nn.Linear(d, 8, **kw)).add(nn.Tanh()), table(x(), x())),
+        ("MapTable", lambda: nn.MapTable(nn.Linear(d, 8, **kw)),
+         table(x(), x(), x())),
+        ("JoinTable", lambda: nn.JoinTable(2), table(x(), x())),
+        ("SplitTable", lambda: nn.SplitTable(1), x(4, d)),
+        ("SelectTable", lambda: nn.SelectTable(-1), table(x(), x())),
+        ("NarrowTable", lambda: nn.NarrowTable(2, 2), table(x(), x(), x())),
+        ("FlattenTable", nn.FlattenTable, table(x(), table(x(), x()))),
+        ("MixtureTable", nn.MixtureTable,
+         table(x(n, 3), table(x(), x(), x()))),
+        ("CSubTable", nn.CSubTable, table(x(), x())),
+        ("CMulTable", nn.CMulTable, table(x(), x(), x())),
+        ("CDivTable", nn.CDivTable, table(x(), pos())),
+        ("CMaxTable", nn.CMaxTable, table(x(), x())),
+        ("CMinTable", nn.CMinTable, table(x(), x())),
+        ("PairwiseDistance", nn.PairwiseDistance, table(x(), x())),
+        ("CosineDistance", nn.CosineDistance, table(x(), x()))]
+    structural = [
+        ("Echo", nn.Echo, x(2, 3)), ("Contiguous", nn.Contiguous, x()),
+        ("InferReshape", lambda: nn.InferReshape((0, -1, 16)), x()),
+        ("Squeeze", lambda: nn.Squeeze(2), x(n, 1, d)),
+        ("Unsqueeze", lambda: nn.Unsqueeze(2), x()),
+        ("Narrow", lambda: nn.Narrow(2, 3, 100), x()),
+        ("Index", lambda: nn.Index(2), table(x(), idx)),
+        ("MaskedSelect", nn.MaskedSelect, table(x(), mask)),
+        ("Max", lambda: nn.Max(2), x()), ("Min", lambda: nn.Min(2), x()),
+        ("Mean", lambda: nn.Mean(2), x()), ("Sum", lambda: nn.Sum(2), x()),
+        ("Replicate", lambda: nn.Replicate(3, 2), x()),
+        ("Padding", lambda: nn.Padding(2, -3, 2, 0.5), x()),
+        ("SpatialZeroPadding", lambda: nn.SpatialZeroPadding(1, -1, 2, 0),
+         x(8, 16, 16, 16)),
+        ("GradientReversal", lambda: nn.GradientReversal(0.5), x()),
+        ("Scale", lambda: nn.Scale((16, 1, 1)), x(8, 16, 16, 16)),
+        ("MM", nn.MM, table(x(8, 64, 32), x(8, 32, 48))),
+        ("MV", nn.MV, table(x(8, 64, 32), x(8, 32))),
+        ("DotProduct", nn.DotProduct, table(x(), x())),
+        ("Pack", lambda: nn.Pack(2), table(x(), x())),
+        ("Reverse", lambda: nn.Reverse(2), x()),
+        ("AddConstant", lambda: nn.AddConstant(1.5), x())]
+    linear = [
+        ("Bilinear", lambda: nn.Bilinear(d, 128, 16, **kw),
+         table(x(), x(n, 128))),
+        ("Add", lambda: nn.Add(d, **kw), x()), ("Mul", lambda: nn.Mul(**kw),
+                                               x()),
+        ("CMul", lambda: nn.CMul((1, d), **kw), x()),
+        ("CAdd", lambda: nn.CAdd((1, d), **kw), x()),
+        ("Euclidean", lambda: nn.Euclidean(d, 32, **kw), x()),
+        ("Cosine", lambda: nn.Cosine(d, 32, **kw), x())]
+    return elementwise + tables + structural + linear
+
+
+def ll_criterion_cases():
+    """Phase 19 (a)'s criterions: (name, criterion, input, target) from a
+    generator, at LL_ROWS x LL_WIDTH."""
+    import torch
+    from bigdl_tpu_torch import nn
+    n, d = LL_ROWS, LL_WIDTH
+    g = torch.Generator().manual_seed(SEED + 19)
+    x = lambda *s: torch.randn(s or (n, d), generator=g)
+    p = lambda *s: torch.rand(s or (n, d), generator=g) * 0.9 + 0.05
+    b = lambda *s: (torch.rand(s or (n, d), generator=g) < 0.5).float()
+    sign = lambda: b(n) * 2 - 1
+    label = lambda c, *s: torch.randint(1, c + 1, s or (n,),
+                                        generator=g).float()
+    labels = torch.zeros(n, d)
+    labels[:, :3] = torch.stack([torch.randperm(d, generator=g)[:3] + 1
+                                 for _ in range(n)]).float()
+    return [
+        ("AbsCriterion", nn.AbsCriterion(), x(), x()),
+        ("BCECriterion", nn.BCECriterion(), p(), b()),
+        ("DistKLDivCriterion", nn.DistKLDivCriterion(),
+         torch.log_softmax(x(), -1), torch.softmax(x(), -1)),
+        ("CosineEmbeddingCriterion", nn.CosineEmbeddingCriterion(0.1),
+         [x(), x()], sign()),
+        ("HingeEmbeddingCriterion", nn.HingeEmbeddingCriterion(), x(n),
+         sign()),
+        ("L1HingeEmbeddingCriterion", nn.L1HingeEmbeddingCriterion(500.0),
+         [x(d), x(d)], torch.tensor([-1.0])),
+        ("MarginCriterion", nn.MarginCriterion(), x(n), sign()),
+        ("MarginRankingCriterion", nn.MarginRankingCriterion(0.3),
+         [x(n), x(n)], sign()),
+        ("MultiCriterion", nn.MultiCriterion().add(nn.MSECriterion(), 0.5)
+         .add(nn.AbsCriterion(), 2.0), x(), x()),
+        ("ParallelCriterion", nn.ParallelCriterion().add(nn.MSECriterion())
+         .add(nn.ClassNLLCriterion(), 0.5),
+         [x(), torch.log_softmax(x(), -1)], [x(), label(d)]),
+        ("MultiLabelMarginCriterion", nn.MultiLabelMarginCriterion(), x(),
+         labels),
+        ("MultiLabelSoftMarginCriterion",
+         nn.MultiLabelSoftMarginCriterion(), x(), b()),
+        ("MultiMarginCriterion", nn.MultiMarginCriterion(2), x(), label(d)),
+        ("SmoothL1Criterion", nn.SmoothL1Criterion(), x(), x()),
+        ("SmoothL1CriterionWithWeights",
+         nn.SmoothL1CriterionWithWeights(2.0, n), x(), [x(), p(), p()]),
+        ("SoftmaxWithCriterion", nn.SoftmaxWithCriterion(),
+         x(8, 21, 16, 16), label(21, 8, 16, 16)),
+        ("SoftMarginCriterion", nn.SoftMarginCriterion(), x(n), sign()),
+        ("L1Cost", nn.L1Cost(), x(), None),
+        ("CosineDistanceCriterion", nn.CosineDistanceCriterion(), x(), x()),
+        ("DiceCoefficientCriterion", nn.DiceCoefficientCriterion(), p(),
+         b()),
+        ("ClassSimplexCriterion", nn.ClassSimplexCriterion(32), x(n, 32),
+         label(32))]
+
+
+def ll_rel(a, b) -> float:
+    """max |a - b| over b's largest magnitude."""
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return float((a.cpu() - b).abs().max()) / max(scale, 1e-30) \
+        if b.numel() else 0.0
+
+
+def ll_run(module, inputs, grad_out) -> tuple:
+    """Forward and backward by autograd: (outputs, then the floating
+    inputs' and the parameters' gradients), for ``grad_out``, one a
+    floating output."""
+    import torch
+    from bigdl_tpu_torch.engine import tree_leaves, tree_map
+    xs = tree_map(lambda t: t.detach().clone().requires_grad_(
+        t.is_floating_point()), inputs)
+    out = module(xs)
+    outs = [o for o in tree_leaves(out) if o.requires_grad]
+    wrt = [t for t in tree_leaves(xs) if t.requires_grad] + \
+        list(module.parameters())
+    gys = [g for g, o in zip(grad_out, tree_leaves(out))
+           if o.requires_grad]
+    grads = torch.autograd.grad(outs, wrt, gys, allow_unused=True) \
+        if outs else [None] * len(wrt)
+    return ([o.detach() for o in tree_leaves(out)],
+            [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, wrt)])
+
+
+def ll_classes(card: str) -> None:
+    """Phase 19 (a): every module and criterion class of the layer library
+    forward and backward on the card against the same object on the CPU
+    (fp32, TF32 off), the stochastic ones in eval mode; then their noise
+    in training on the card: moments and the shell's replay."""
+    import copy
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.engine import tree_leaves, tree_map
+    worst, held = (0.0, ""), 0
+    g = torch.Generator().manual_seed(SEED)
+    with tf32_off():
+        for name, make, inputs in ll_module_cases():
+            cpu = make()
+            if getattr(cpu, "stochastic", False):
+                cpu.evaluate()
+            card_m = copy.deepcopy(cpu).to(DEVICE)
+            x = inputs(g)
+            with torch.no_grad():
+                shapes = [o.shape for o in tree_leaves(cpu(x))
+                          if o.is_floating_point()]
+            gys = [torch.randn(s, generator=g) for s in shapes]
+            outs, grads = ll_run(cpu, x, gys)
+            c_outs, c_grads = ll_run(
+                card_m, tree_map(lambda t: t.to(DEVICE), x),
+                [t.to(DEVICE) for t in gys])
+            for a, b in zip(c_outs + c_grads, outs + grads, strict=True):
+                e = ll_rel(a, b)
+                if e > worst[0]:
+                    worst = (e, name)
+            held += 1
+        for name, crit, x, t in ll_criterion_cases():
+            loss = crit.forward(x, t)
+            grad = crit.backward(x, t)
+            to = lambda v: tree_map(
+                lambda u: None if u is None else u.to(DEVICE), v)
+            c_loss = crit.forward(to(x), to(t))
+            c_grad = crit.backward(to(x), to(t))
+            for a, b in zip([c_loss] + tree_leaves(c_grad),
+                            [loss] + tree_leaves(grad), strict=True):
+                e = ll_rel(a, b)
+                if e > worst[0]:
+                    worst = (e, name)
+            held += 1
+    torch.cuda.synchronize()
+    log(f"[library] (a) {held} classes held on {card} against the CPU, "
+        f"forward and backward in fp32 (TF32 off): worst relative error "
+        f"{worst[0]:.3e} ({worst[1]}), gate {LL_RTOL}")
+    if not worst[0] <= LL_RTOL:
+        raise AssertionError(f"{worst[1]}: card against CPU {worst[0]:.3e} "
+                             f"> {LL_RTOL}")
+    for name, make, moments in (
+            ("RReLU", lambda: nn.RReLU(0.1, 0.4),
+             lambda x, y: (y / x, 0.25, 0.3 ** 2 / 12)),
+            ("GaussianDropout", lambda: nn.GaussianDropout(0.3),
+             lambda x, y: (y / x, 1.0, 0.3 / 0.7)),
+            ("GaussianNoise", lambda: nn.GaussianNoise(0.5),
+             lambda x, y: (y - x, 0.0, 0.25)),
+            ("Dropout", lambda: nn.Dropout(0.4),
+             lambda x, y: (y / x, 1.0, 0.4 / 0.6))):
+        m = make().to(DEVICE)
+        x = torch.full((LL_NOISE,), -2.0 if name == "RReLU" else 1.0,
+                       device=DEVICE)
+        y = m.update_output(x)
+        noise, mean, var = moments(x, y)
+        got_mean, got_var = float(noise.mean()), float(noise.var())
+        gy = torch.randn(LL_NOISE, device=DEVICE)
+        gin = m.backward(x, gy)
+        replay = gy if name == "GaussianNoise" else gy * noise
+        off = float(((gin - replay).abs() / replay.abs().clamp(
+            min=1e-30)).max())
+        log(f"[library] (a) {name} in training on {card}: noise mean "
+            f"{got_mean:.5f} (expected {mean:.5f}), variance {got_var:.5f} "
+            f"(expected {var:.5f}) over {LL_NOISE} entries; the backward's "
+            f"gradient against the forward's noise times the output "
+            f"gradient: {off:.3e} relative")
+        if abs(got_mean - mean) > max(LL_MOMENT_RTOL * mean, 3e-3) or \
+                abs(got_var - var) > LL_MOMENT_RTOL * var or off > 1e-6:
+            raise AssertionError(f"{name}: noise moments or the backward's "
+                                 "replay of the draw are off")
+
+
+def ll_resnet50():
+    """ResNet-50 at ImageNet width in NCHW (Torch7 has no channels-last),
+    random weights from SEED, LogSoftMax appended, on the card."""
+    import torch
+    from bigdl_tpu_torch.models import model_init, resnet
+    from bigdl_tpu_torch.nn import LogSoftMax, Sequential
+    body = resnet(R50_CLASSES, depth=50, dataset="imagenet", layout="NCHW",
+                  device=DEVICE, seed=SEED)
+    model_init(body, generator=torch.Generator().manual_seed(SEED))
+    return Sequential().add(body).add(LogSoftMax())
+
+
+def ll_interop(card: str, tmp: str):
+    """Phase 19 (b): ResNet-50 to a ``.t7`` and back onto the card; the
+    loaded model's eval output equal, bit for bit, to the original's.
+    Returns the loaded model."""
+    import torch
+    from bigdl_tpu_torch.utils.torch_module import load_model, save_model
+    model = ll_resnet50()
+    path = os.path.join(tmp, "resnet50.t7")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_model(path, model)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = load_model(path, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    x, _ = r50_batch(LL_BATCH, SEED + 19)
+    x = torch.from_numpy(x).to(DEVICE)
+    with torch.no_grad():
+        a = model.evaluate()(x)
+        b = loaded.evaluate()(x)
+    n = sum(p.numel() for p in loaded.parameters())
+    log(f"[library] (b) ResNet-50 ({n:,} parameters) saved to a "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB .t7 in {save_s:.2f} s and "
+        f"loaded onto the card in {load_s:.2f} s (the file's reads warm) on "
+        f"{card}; eval B{LL_BATCH} log-probs bit-identical: "
+        f"{torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"the loaded ResNet-50's eval output differs "
+                             f"by {float((a - b).abs().max()):.3e}")
+    del model
+    return loaded
+
+
+def ll_weights(model) -> list:
+    return [t.detach().clone() for t in model.parameters()] + bn_stats(model)
+
+
+def ll_shell(card: str, loaded):
+    """Phase 19 (c): 3 steps of the imperative shell on the loaded model
+    against 3 steps of ``LocalOptimizer`` with plain SGD from the same
+    weights over the same batches (each the optimizer's own, recorded at
+    its model's forward, as its shuffle left the rows)."""
+    import copy
+    import torch
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    shell = loaded.train()
+    other = copy.deepcopy(shell)
+    start = ll_weights(shell)
+    x, y = r50_batch(LL_BATCH * LL_STEPS, SEED + 20)
+    samples = [Sample(x[i], y[i]) for i in range(len(x))]
+    seen = []
+
+    class Recorded(ClassNLLCriterion):
+        def apply(self, input, target):
+            seen[-1].append(torch.as_tensor(target).clone())
+            return super().apply(input, target)
+
+    hook = other.register_forward_pre_hook(
+        lambda m, args: seen.append([args[0].detach().clone()]))
+    RandomGenerator.RNG().set_seed(SEED)
+    opt = (Optimizer.create(other, samples, Recorded(),
+                            batch_size=LL_BATCH, device=DEVICE)
+           .set_optim_method(SGD(LL_LR))
+           .set_end_when(max_iteration(LL_STEPS)))
+    with properties(bigdl__prefetch__depth=0):
+        opt.optimize()
+    hook.remove()
+    opt_ms = [h["seconds"] * 1e3 for h in opt.history]
+    crit = ClassNLLCriterion()
+    shell_ms = []
+    for xs, ys in seen:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        shell.zero_grad_parameters()
+        out = shell.update_output(xs)
+        crit.forward(out, ys)
+        shell.backward(xs, crit.backward(out, ys))
+        shell.update_parameters(LL_LR)
+        torch.cuda.synchronize()
+        shell_ms.append((time.perf_counter() - t) * 1e3)
+    a, b = ll_weights(shell), ll_weights(other)
+    exact = all(torch.equal(u, v) for u, v in zip(a, b))
+    diff = max(float((u - v).abs().max()) for u, v in zip(a, b))
+    moved = torch.cat([(v - s).flatten() for v, s in zip(b, start)])
+    off = torch.cat([(u - v).flatten() for u, v in zip(a, b)])
+    rel = float(off.norm() / moved.norm())
+    log(f"[library] (c) {len(seen)} shell steps of ResNet-50 B{LL_BATCH} "
+        f"fp32 (TF32 off, cuDNN deterministic) against LocalOptimizer "
+        f"SGD({LL_LR}) on {card}: weights and BatchNorm statistics "
+        f"bit-identical: {exact} (largest difference {diff:.3e}, "
+        f"{rel:.3e} of the update's norm); step ms shell "
+        f"{[round(v, 2) for v in shell_ms]}, optimizer "
+        f"{[round(v, 2) for v in opt_ms]}")
+    if len(seen) != LL_STEPS or not (exact or rel <= R50_GRAD_RTOL):
+        raise AssertionError(f"the shell's weights are {rel:.3e} of the "
+                             f"update from LocalOptimizer's, over "
+                             f"{R50_GRAD_RTOL}")
+    del other, opt
+    return shell, seen[0]
+
+
+def ll_graph(card: str, model, batch) -> None:
+    """Phase 19 (d): a ``Graph`` over ResNet-50's top-level stages with two
+    outputs, the log-probabilities and the pooled features: the first
+    equal to the ``Sequential``'s bit for bit, and the shell's backward
+    through it giving the ``Sequential``'s parameter gradients."""
+    import torch
+    from bigdl_tpu_torch import nn
+    body, head = model.layers[0], model.layers[1]
+    node = source = nn.Input()
+    for layer in body.layers:
+        node = layer.inputs(node)
+        if isinstance(layer, nn.View):
+            features = node
+    graph = nn.Graph(source, [head.inputs(node), features])
+    xs, ys = batch
+    with torch.no_grad():
+        a = model.evaluate()(xs)
+        logp, feats = graph.evaluate()(xs)
+    same = torch.equal(a, logp)
+    model.train()
+    crit = nn.ClassNLLCriterion()
+    g = crit.backward(a, ys)
+    model.zero_grad_parameters()
+    model.backward(xs, g)
+    ref = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad_parameters()
+    graph.backward(xs, [g, torch.zeros_like(feats)])
+    got = [p.grad for p in model.parameters()]
+    grads_same = all(torch.equal(u, v) for u, v in zip(got, ref))
+    log(f"[library] (d) Graph of {len(graph.layers)} nodes over ResNet-50 "
+        f"on {card}: eval log-probs bit-identical to the Sequential's: "
+        f"{same}; features {tuple(feats.shape)}; the shell's backward "
+        f"through it gives the Sequential's {len(ref)} parameter "
+        f"gradients bit for bit: {grads_same}")
+    if not (same and grads_same):
+        raise AssertionError("the Graph's output or gradients differ from "
+                             "the Sequential's")
+
+
+def phase_layer_library(card: str) -> dict:
+    """Phase 19: the Torch-style layer library, the ``.t7`` interop, the
+    imperative shell and ``Graph`` on the card (fp32, TF32 off, cuDNN
+    deterministic).  Returns the flash launches of the phase (none: no
+    flash model runs)."""
+    import tempfile
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    ll_classes(card)
+    with tf32_off(), cudnn_deterministic(), \
+            tempfile.TemporaryDirectory() as tmp:
+        loaded = ll_interop(card, tmp)
+        trained, batch = ll_shell(card, loaded)
+        ll_graph(card, trained, batch)
+    launches = dict(fa.launches)
+    if any(launches.values()):
+        raise AssertionError(f"phase 19 launched flash kernels: {launches}")
+    log(f"[library] phase 19 took {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+    del loaded, trained
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
                 sharded: dict, pipelined: dict, resilient: dict,
-                failures: dict) -> list:
+                failures: dict, library: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -6100,7 +6572,7 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     16 (a) (the ring and the pipeline blocks run no flash: 0),
     ``resilience_launches`` in phase 17 (the bf16 kernels > 0, the fp32
     ones 0), ``failure_launches`` in phase 18 (a) (the fp32 forward > 0,
-    the rest 0)."""
+    the rest 0), ``library_launches`` in phase 19 (no flash model: 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -6121,7 +6593,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "sharded_launches": sharded[name],
                     "pipeline_launches": pipelined[name],
                     "resilience_launches": resilient.get(name, 0),
-                    "failure_launches": failures.get(name, 0)})
+                    "failure_launches": failures.get(name, 0),
+                    "library_launches": library.get(name, 0)})
     return out
 
 
@@ -6243,10 +6716,12 @@ def main(argv=None) -> int:
     resilient = phase_resilience(card)
     torch.cuda.empty_cache()
     failures = phase_failures(card)
+    torch.cuda.empty_cache()
+    library = phase_layer_library(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
-                          sharded, pipelined, resilient, failures)
+                          sharded, pipelined, resilient, failures, library)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
