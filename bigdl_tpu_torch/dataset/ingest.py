@@ -73,6 +73,7 @@ import numpy as np
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.dataset.transformer import Transformer
 from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -82,7 +83,7 @@ _LIVE: "weakref.WeakSet" = weakref.WeakSet()
 _END = object()          # upstream exhausted
 _NO_ITEM = object()      # a get that gave up
 
-_NAME_LOCK = threading.Lock()
+_NAME_LOCK = make_lock("ingest.name")
 
 #: seconds a close waits for each stage thread to end once ``stop`` is set;
 #: a thread still alive then makes the close raise :class:`IngestInfraError`
@@ -140,7 +141,7 @@ class RecordQuarantine:
         self.count = 0
         self.by_stage: dict = {}
         self.samples: List[dict] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("ingest.quarantine")
 
     def admit(self, stage: str, index: Optional[int], name: Optional[str],
               error: BaseException) -> None:
@@ -188,7 +189,7 @@ class StageStats:
 
     def __init__(self, name: str):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = make_lock("ingest.stage_stats")
         self.items = 0
         self.busy_s = 0.0
         self.starve_s = 0.0

@@ -29,6 +29,7 @@ import numpy as np
 
 from bigdl_tpu_torch.dataset.native import load_native
 from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 
 def _check_crop_fits(images: Sequence[np.ndarray],
@@ -154,7 +155,7 @@ def crop_flip_host(images: Sequence[np.ndarray],
     return out
 
 
-_CV2_LOCK = threading.Lock()
+_CV2_LOCK = make_lock("mt_batch.cv2")
 _CV2: list = []          # [cv2 or None] once the import has been tried
 
 

@@ -24,6 +24,7 @@ import subprocess
 import threading
 import time
 from typing import Optional
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -38,7 +39,7 @@ REQUIRED_SYMBOLS = ("seqfile_open", "seqfile_next", "seqfile_close",
                     "seqfile_close_writer", "assemble_batch",
                     "assemble_batch_u8")
 
-_lock = threading.Lock()
+_lock = make_lock("native.build")
 _lib: Optional[ctypes.CDLL] = None
 #: the last build: (library path, compile seconds, 0.0 when it was built
 #: before)

@@ -39,6 +39,7 @@ import torch.distributed as dist
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.utils import config
 from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 DeviceLike = Union[str, torch.device]
 
@@ -427,8 +428,12 @@ class BatchPrefetcher:
 
     def __init__(self, fetch, depth: Optional[int] = None, on_batch=None,
                  transfer_ahead: Optional[int] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", guard=None):
         self.device = default_device(device)
+        #: the host-sync guard (:mod:`bigdl_tpu_torch.analysis.hostsync`)
+        #: armed around the caller's ``fetch`` on the fetch thread: the
+        #: guard is thread-local, and at depth > 0 the fetch runs there
+        self._guard = guard
         self.depth = (depth if depth is not None
                       else config.get_int("bigdl.prefetch.depth", 2))
         self.transfer_ahead = (
@@ -436,7 +441,7 @@ class BatchPrefetcher:
             else config.get_int("bigdl.ingest.batchesInFlight", 2))
         self._fetch = fetch
         self._on_batch = on_batch
-        self._stats_lock = threading.Lock()
+        self._stats_lock = make_lock("engine.prefetch")
         self.fetch_ns = 0            # guarded-by: _stats_lock
         self.block_ns = 0            # guarded-by: _stats_lock
         self.wait_ns = 0             # the consumer's alone
@@ -511,7 +516,11 @@ class BatchPrefetcher:
 
     def _fetch_once(self):
         t0 = telemetry.clock_ns()
-        batch = self._fetch()
+        if self._guard is not None:
+            with self._guard.armed():
+                batch = self._fetch()
+        else:
+            batch = self._fetch()
         if self._on_batch is not None:
             self._on_batch(batch)
         batch, event, nbytes = self._stage(batch)
@@ -623,7 +632,11 @@ class BatchPrefetcher:
             batch = self._fetch()
             if self._on_batch is not None:
                 self._on_batch(batch)
-            batch = tree_to_device(batch, self.device)
+            # the copy to the device is the fetch's own work (a pageable
+            # copy, which the sync debug mode reports), not a host pull
+            from bigdl_tpu_torch.analysis.hostsync import allow_host_sync
+            with allow_host_sync():
+                batch = tree_to_device(batch, self.device)
             t1 = telemetry.clock_ns()
             dt = t1 - t0
             with self._stats_lock:

@@ -21,6 +21,7 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, NamedTuple
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -28,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "bigdl_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = make_lock("kernels.build")
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +33,7 @@ from torch.autograd.function import once_differentiable
 
 from bigdl_tpu_torch.kernels import build
 from bigdl_tpu_torch.telemetry.step_stats import counted_as
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 FWD_SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -59,7 +59,7 @@ _ENTRY_POINTS = {
                  "bigdl_flash_attention_bwd_dq": [_P] * 7 + [_STRIDES] + _SHAPE},
 }
 
-_bind_lock = threading.Lock()
+_bind_lock = make_lock("kernels.bind")
 _libs = {}
 
 
@@ -147,7 +147,7 @@ def _check(q, k, v) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention takes q, k, v on one device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _, t, _, dh = q.shape
     if dh != HEAD_DIM or t % BLOCK != 0:
@@ -343,8 +343,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the inputs' dtype.  When a gradient is needed this runs
     :class:`FlashAttentionFunction`; otherwise the forward alone.  On CUDA
     tensors the hand kernels run (or the call raises); on CPU tensors their
-    plain versions."""
+    plain versions; on ``meta`` tensors nothing runs (an empty output of
+    q's shape and dtype)."""
     _check(q, k, v)
+    if q.device.type == "meta":
+        # the contract walk (analysis/contracts.py): shapes and dtypes only
+        return torch.empty_like(q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

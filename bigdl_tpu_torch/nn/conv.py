@@ -20,6 +20,7 @@ from torch import nn
 from bigdl_tpu_torch.nn.init import RandomUniform, redraw as _redraw
 from bigdl_tpu_torch.nn.module import Module, make_generator
 from bigdl_tpu_torch.ops import convolution as _conv
+from bigdl_tpu_torch.analysis.contracts import ModuleContract
 
 
 class SpatialConvolution(Module):
@@ -29,6 +30,9 @@ class SpatialConvolution(Module):
     weight as (out, in/groups, kh, kw), or as the reference's
     (groups, out/groups, in/groups, kh, kw)).  A 3-D input is one unbatched
     image."""
+
+    #: image maps in, float compute (analysis/contracts.py)
+    contract = ModuleContract(input_ndim=(3, 4), dtypes="float")
 
     layout_role = "spatial"
 

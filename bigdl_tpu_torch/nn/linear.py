@@ -24,6 +24,7 @@ from torch import nn
 
 from bigdl_tpu_torch.nn.init import RandomUniform, redraw as _redraw
 from bigdl_tpu_torch.nn.module import Module, make_generator
+from bigdl_tpu_torch.analysis.contracts import ModuleContract
 
 
 class Linear(Module):
@@ -37,6 +38,9 @@ class Linear(Module):
     rank's block and runs its half
     (:func:`~bigdl_tpu_torch.parallel.tensor_parallel.linear_forward`,
     which adds a row half's bias after the product, split or not)."""
+
+    #: float matmul input (any rank; the trailing dim contracts with W)
+    contract = ModuleContract(dtypes="float")
 
     _tp: Optional[str] = None
     #: the mesh axis of the Megatron split, set by the trainer
@@ -86,26 +90,43 @@ class Linear(Module):
 
 
 class LookupTable(Module):
-    """Embedding lookup (reference ``nn/LookupTable.scala:44``).
+    """Embedding lookup (reference ``nn/LookupTable.scala:44``; JAX
+    ``nn/linear.py:160``).
 
     Input indices are 1-based float ids (Torch convention): they are cast
     to integers (truncating), shifted to 0-based and clipped into the
-    table, as in the JAX package.  ``max_norm`` renormalisation is not in
-    this slice."""
+    table, as in the JAX package.  A finite ``max_norm`` renormalises each
+    gathered row to at most that ``norm_type``-norm (JAX :186-190: the
+    rows are scaled by ``min(1, max_norm / max(norm, 1e-7))``; the table
+    itself is not written).  ``padding_value`` and
+    ``should_scale_grad_by_freq`` are taken as the JAX package takes them,
+    and change nothing there either."""
 
-    def __init__(self, n_index: int, n_output: int, w_regularizer=None,
-                 device: Optional[torch.device] = None,
+    def __init__(self, n_index: int, n_output: int, padding_value: float = 0,
+                 max_norm: float = float("inf"), norm_type: float = 2.0,
+                 should_scale_grad_by_freq: bool = False,
+                 w_regularizer=None, device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_index = n_index
         self.n_output = n_output
+        self.padding_value = padding_value
+        self.max_norm = max_norm
+        self.norm_type = norm_type
+        self.should_scale_grad_by_freq = should_scale_grad_by_freq
         self.w_regularizer = w_regularizer
         w = torch.randn(n_index, n_output, generator=make_generator(generator))
         self.weight = nn.Parameter(w.to(device))
 
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         idx = (input.to(torch.int64) - 1).clamp(0, self.n_index - 1)
-        return F.embedding(idx, self.weight)
+        out = F.embedding(idx, self.weight)
+        if self.max_norm != float("inf"):
+            norms = torch.linalg.vector_norm(out, ord=self.norm_type,
+                                             dim=-1, keepdim=True)
+            out = out * torch.clamp(self.max_norm / norms.clamp_min(1e-7),
+                                    max=1.0)
+        return out
 
 
 def _uniform(shape, stdv: float, g: torch.Generator) -> torch.Tensor:

@@ -141,6 +141,19 @@ class Module(nn.Module):
     #: (:func:`random_stream`); the twin of the JAX package's
     #: ``is_stochastic`` layers (``Dropout``)
     stochastic = False
+    #: the declared IO contract (:class:`~bigdl_tpu_torch.analysis.
+    #: contracts.ModuleContract`) that :func:`~bigdl_tpu_torch.analysis.
+    #: check_model` verifies at zero FLOPs: a class attribute for a layer
+    #: kind, :meth:`set_contract` for one instance
+    contract = None
+
+    def set_contract(self, **kwargs) -> "Module":
+        """Attach a per-instance IO contract, e.g.
+        ``m.set_contract(input_ndim=(2, 3), dtypes="float")`` (the JAX
+        package's ``declare_contract``)."""
+        from bigdl_tpu_torch.analysis.contracts import ModuleContract
+        self.contract = ModuleContract(**kwargs)
+        return self
 
     def is_stochastic(self) -> bool:
         """True if this module or one inside it draws from the random

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.module import Module, make_generator
+from bigdl_tpu_torch.analysis.contracts import ModuleContract
 
 
 def _vector(value, default: torch.Tensor) -> torch.Tensor:
@@ -43,6 +44,9 @@ class BatchNormalization(Module):
     U(0, 1) from the generator and the bias is 0, as in the JAX package,
     unless ``init_weight``/``init_bias`` are given; ``init_running_mean``/
     ``init_running_var`` seed the statistics (default 0 and 1)."""
+
+    #: (N, C) float input (analysis/contracts.py)
+    contract = ModuleContract(input_ndim=(2,), dtypes="float")
 
     def __init__(self, n_output: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -82,6 +86,9 @@ class BatchNormalization(Module):
 class SpatialBatchNormalization(BatchNormalization):
     """BN over the channels of (N, C, H, W) maps, in either memory format
     (``format`` records which, :mod:`bigdl_tpu_torch.nn.layout`)."""
+
+    #: image maps in, float compute (analysis/contracts.py)
+    contract = ModuleContract(input_ndim=(3, 4), dtypes="float")
 
     layout_role = "spatial"
 

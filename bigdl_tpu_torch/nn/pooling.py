@@ -11,10 +11,14 @@ import torch
 
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops import pooling
+from bigdl_tpu_torch.analysis.contracts import ModuleContract
 
 
 class SpatialMaxPooling(Module):
     """2-D max pooling; ``ceil()``/``floor()`` pick the output rounding."""
+
+    #: image maps in, float compute (analysis/contracts.py)
+    contract = ModuleContract(input_ndim=(3, 4), dtypes="float")
 
     layout_role = "spatial"
 
@@ -48,6 +52,9 @@ class SpatialAveragePooling(Module):
     kh*kw (the reference's rule, ceil-mode overhang included), otherwise by
     its count of input pixels; ``divide=False`` returns the sums;
     ``global_pooling`` pools each whole map."""
+
+    #: image maps in, float compute (analysis/contracts.py)
+    contract = ModuleContract(input_ndim=(3, 4), dtypes="float")
 
     layout_role = "spatial"
 

@@ -23,8 +23,10 @@ As in the JAX package every method is split into
   ``epoch``, the negated ``clr``).
 
 Hyper-parameters follow the reference's names and defaults.  ``LBFGS``
-(:535), whose line search re-evaluates the loss inside a step, is not
-ported: building one raises :class:`NotImplementedError`.
+(:535, with ``_lswolfe`` :654) is the exception to the split: its line
+search re-evaluates the loss inside a step, so it has no ``pure_update``
+and runs host-driven through ``optimize(feval, x)``, which
+``LocalOptimizer``'s feval step calls.
 
 Persistence.  The JAX package pickles the whole object.  Here an
 ``OptimMethod`` is saved as plain data (:func:`optim_payload`: the class
@@ -536,14 +538,166 @@ class RMSprop(OptimMethod):
 
 
 class LBFGS(OptimMethod):
-    """(reference ``optim/LBFGS.scala``): not ported.  Its line search
-    evaluates the loss several times inside one step (the JAX trainer's
-    ``_build_feval_step``), which the port's trainers do not have."""
+    """Limited-memory BFGS with an optional strong-Wolfe line search
+    (``bigdl_tpu/optim/optim_method.py`` :535; reference
+    ``optim/LBFGS.scala``).
 
-    def __init__(self, *args, **kwargs):
+    Host-driven by design, as in the JAX package and the reference: one
+    flat fp32 vector on the parameters' device, the two-loop recursion
+    over the curvature history, and a ``float()`` of every reduction (the
+    gradient's max and L1 norm, each dot product, the loss), each an
+    intended pull that steers the next step.  ``state`` keeps
+    ``old_dirs``/``old_stps`` (the history, ``2 * n_correction`` vectors of
+    the parameters' size), ``Hdiag``, ``prev_g``, ``prev_step`` and
+    ``prev_loss`` between calls.  The trainers run it through
+    ``LocalOptimizer``'s feval step, which calls :meth:`optimize`."""
+
+    #: the trainer uses the host-driven ``optimize(feval, x)`` path instead
+    #: of the step's ``pure_update`` (the line search re-evaluates the loss)
+    requires_feval = True
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tolerance_fun: float = 1e-5, tolerance_x: float = 1e-9,
+                 n_correction: int = 100, learning_rate: float = 1.0,
+                 line_search: bool = False):
+        super().__init__()
+        self.max_iter = max_iter
+        self.max_eval = max_eval if max_eval is not None else max_iter * 1.25
+        self.tolerance_fun = tolerance_fun
+        self.tolerance_x = tolerance_x
+        self.n_correction = n_correction
+        self.learning_rate = learning_rate
+        self.line_search = line_search
+
+    def pure_update(self, grads, params, slots, hyper):
         raise NotImplementedError(
-            "LBFGS is not ported yet: its line search re-evaluates the loss "
-            "inside a step, which the port's trainers do not do")
+            "LBFGS needs re-evaluation inside the step; use optimize(feval, x)")
+
+    def optimize(self, feval: Callable, x):
+        """One call of the inner loop (torch ``lbfgs`` semantics).  ``x``
+        is a tensor or a list/tuple of tensors, flattened internally;
+        ``feval(x) -> (loss, grad)`` in ``x``'s structure.  Returns the new
+        ``x`` and the tuple of losses (Python floats), one per iteration
+        plus the starting one."""
+        leaves = [x] if isinstance(x, torch.Tensor) else list(x)
+        shapes = [l.shape for l in leaves]
+
+        def to_flat(t):
+            ls = [t] if isinstance(t, torch.Tensor) else list(t)
+            return torch.cat([l.reshape(-1) for l in ls])
+
+        def from_flat(vec):
+            out, off = [], 0
+            for shp in shapes:
+                n = math.prod(shp)
+                out.append(vec[off:off + n].reshape(shp))
+                off += n
+            if isinstance(x, torch.Tensor):
+                return out[0]
+            return type(x)(out)
+
+        def feval_flat(vec):
+            loss, g = feval(from_flat(vec))
+            return float(loss), to_flat(g)
+
+        f, g = feval_flat(to_flat(x))
+        xv = to_flat(x)
+        losses = [f]
+        n_eval = 1
+
+        old_dirs = self.state.setdefault("old_dirs", [])
+        old_stps = self.state.setdefault("old_stps", [])
+        hdiag = self.state.get("Hdiag", 1.0)
+        prev_g = self.state.get("prev_g")
+        prev_loss = self.state.get("prev_loss", f)
+
+        for _ in range(self.max_iter):
+            if float(g.abs().max()) <= 1e-10:
+                break
+            if prev_g is not None and "prev_step" in self.state:
+                y = g - prev_g
+                s = self.state["prev_step"]
+                ys = float(y @ s)
+                if ys > 1e-10:
+                    if len(old_dirs) == self.n_correction:
+                        old_dirs.pop(0)
+                        old_stps.pop(0)
+                    old_dirs.append(s)
+                    old_stps.append(y)
+                    hdiag = ys / float(y @ y)
+            # the L-BFGS two-loop recursion
+            k = len(old_dirs)
+            ro = [1.0 / float(old_stps[i] @ old_dirs[i]) for i in range(k)]
+            al = [0.0] * k
+            q = -g
+            for i in range(k - 1, -1, -1):
+                al[i] = float(old_dirs[i] @ q) * ro[i]
+                q = q - al[i] * old_stps[i]
+            d = q * hdiag
+            for i in range(k):
+                be = float(old_stps[i] @ d) * ro[i]
+                d = d + old_dirs[i] * (al[i] - be)
+
+            gtd = float(g @ d)
+            if gtd > -self.tolerance_x:
+                break
+            if prev_g is None:
+                t = min(1.0, 1.0 / float(g.abs().sum())) * self.learning_rate
+            else:
+                t = self.learning_rate
+
+            prev_g = g
+            self.state["prev_g"] = g
+            if self.line_search:
+                t, f, g, xv, ls_evals = _lswolfe(feval_flat, xv, t, d, f, g,
+                                                 gtd)
+                n_eval += ls_evals
+            else:
+                xv = xv + t * d
+                f, g = feval_flat(xv)
+                n_eval += 1
+            losses.append(f)
+            self.state["prev_step"] = t * d
+
+            if n_eval >= self.max_eval:
+                break
+            if abs(losses[-1] - prev_loss) < self.tolerance_fun:
+                break
+            prev_loss = losses[-1]
+            self.state["prev_loss"] = prev_loss
+
+        self.state["Hdiag"] = hdiag
+        self.state["evalCounter"] = self.state.get("evalCounter", 0) + 1
+        return from_flat(xv), tuple(losses)
+
+
+def _lswolfe(feval_flat, xv, t, d, f, g, gtd,
+             c1: float = 1e-4, c2: float = 0.9, max_ls: int = 25):
+    """The strong-Wolfe line search (JAX :654, a backtracking/extending
+    search with simplified bracketing).  Returns ``(t, f, g, x, evals)``,
+    all of the SAME evaluated point ``xv + t * d``, so the caller's
+    curvature pair stays consistent."""
+    f0, gtd0 = f, gtd
+    evals = 0
+    f_prev = f
+    # the last evaluated point (step, loss, gradient)
+    t_eval, f_eval, g_eval = 0.0, f, g
+    for _ in range(max_ls):
+        f_new, g_new = feval_flat(xv + t * d)
+        evals += 1
+        t_eval, f_eval, g_eval = t, f_new, g_new
+        gtd_new = float(g_new @ d)
+        if f_new > f0 + c1 * t * gtd0 or (evals > 1 and f_new >= f_prev):
+            t = t * 0.5
+            continue
+        if abs(gtd_new) <= -c2 * gtd0:
+            break
+        if gtd_new >= 0:
+            t = t * 0.5
+            continue
+        f_prev = f_new
+        t = t * 2.0
+    return t_eval, f_eval, g_eval, xv + t_eval * d, evals
 
 
 # ---------------------------------------------------------------------------

@@ -76,8 +76,23 @@ set_validation_summary` write TensorBoard events (Loss, Throughput,
 LearningRate, then every registry summary scalar; each validation
 metric; "Parameters" histograms on their trigger), rank 0 alone.
 :meth:`Optimizer.set_trace_profile` captures a ``torch.profiler`` window
-in place of ``jax.profiler``.  The port has no ``analysis`` package, so no
-``Analysis/*`` gauge is written.
+in place of ``jax.profiler``.
+
+The analysis passes (:mod:`bigdl_tpu_torch.analysis`, JAX :689,
+:1105-1125, :1546-1555) ride every run.  The step is wrapped by the
+recompile sentinel (``bigdl.analysis.retrace``, :meth:`Optimizer.
+_arm_retrace`), and the fetch and the step with its loss read run inside
+the host-sync guard (``bigdl.analysis.hostSync``; ``bigdl.analysis.
+hotLoopScope`` "iteration" arms the fetch too, on the prefetcher's fetch
+thread at depth > 0, "step" only the step): the loss read goes through
+:func:`~bigdl_tpu_torch.analysis.host_pull`, the one intended pull of an
+iteration, and any other host sync there raises (strict) or is counted
+(warn).  TrainSummary gets ``Analysis/retraces`` and this run's
+``Analysis/implicit_host_syncs``.  ``Optimizer.metrics``
+(:class:`~bigdl_tpu_torch.optim.metrics.Metrics`) records "get batch
+time", "computing time for each node", "batch fetch time" and "transfer
+block time" in nanoseconds, at the JAX package's sites (:962, :1241,
+:1344-1345).
 
 The failure taxonomy of :meth:`Optimizer.optimize` (JAX
 ``_optimize_with_retry`` :436-560) sorts each failure and answers it:
@@ -123,8 +138,14 @@ steps and checks the verdict every N iterations (JAX :1635-1700).  The
 ``Resources/*``, ``Integrity/*`` and ``Elastic/*`` gauges and counters and
 the incident records are the JAX package's.
 
-Not ported yet: the compile cache and its warmup spans, and the host-sync
-and retrace counters (the ``analysis`` package); ``LBFGS``.  A
+An optimization method that re-evaluates the loss inside a step
+(``LBFGS``, ``requires_feval``) runs through
+:meth:`LocalOptimizer._build_feval_step` (JAX :1755-1784): fp32 only, no
+integrity pass, no sentinel and no guard (its line search reads the loss on
+the host by design, JAX :1109-1112).  The data-parallel trainers refuse it
+at their first step, as the JAX package's do (its ``pure_update`` raises).
+
+Not ported yet: the compile cache and its warmup spans.  A
 ``bigdl.chaos.*`` key of a part the port lacks raises
 :class:`NotImplementedError` (:func:`refuse_unported`).
 """
@@ -161,6 +182,9 @@ from bigdl_tpu_torch.optim.optim_method import (SGD, OptimMethod,
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation_method import ValidationMethod
 from bigdl_tpu_torch import integrity, telemetry
+from bigdl_tpu_torch.analysis.hostsync import (NULL_GUARD, STATS,
+                                               HostSyncGuard, host_pull)
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.resources import microbatch
 from bigdl_tpu_torch.resources import storage as resource_storage
 from bigdl_tpu_torch.resources.device import classify_dispatch_error
@@ -397,11 +421,18 @@ class _ProfileWindow:
     :1151-1195), or the one-step window the slow-step detector asks for.
     The window's steps end with their loss read, so their device work has
     finished when it closes; torch.profiler synchronizes the device once
-    as it stops."""
+    as it stops.
+
+    On the card the window's own steps are its control: they launch
+    kernels, so a window whose trace holds no CUDA kernel at all is blind
+    (``blind``; logged and counted in ``Telemetry/profile_blind_windows``),
+    as torch.profiler windows were seen to be now and then after heavy
+    CUDA work in the same process."""
 
     def __init__(self, opt: "Optimizer"):
         self.opt = opt
         self.prof = None
+        self.blind = False
         self.end = 0
         self.path: Optional[str] = None
         self.slow_dir: Optional[str] = None
@@ -452,6 +483,16 @@ class _ProfileWindow:
         if prof is None:
             return
         prof.__exit__(None, None, None)
+        if self.opt.device.type == "cuda" and not any(
+                e.device_type().name == "CUDA"
+                for e in prof.profiler.kineto_results.events()):
+            self.blind = True
+            telemetry.counter(
+                "Telemetry/profile_blind_windows",
+                help="profiler windows that recorded no CUDA kernel").inc()
+            logger.warning("The profiler window recorded no CUDA kernel of "
+                           "its steps: the trace at %s holds the host's "
+                           "side only", self.path)
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         prof.export_chrome_trace(self.path)
         logger.info("Profiler trace written to %s", self.path)
@@ -525,6 +566,14 @@ class Optimizer:
         #: OOM, and after the re-plan released its memory (None: no re-plan)
         self.oom_replan_memory: Optional[Tuple[int, int]] = None
         self._step_entry_bytes = 0
+        #: named phase counters (JAX ``optimizer.py`` :268)
+        self.metrics = Metrics()
+        #: the last run's recompile sentinel (None: the pass is off)
+        self._retrace_sentinel = None
+        #: the last run's step, as wrapped by the sentinel
+        self._step_fn = None
+        #: the host-sync counter at the run's start (None: the guard is off)
+        self._hostsync_base: Optional[int] = None
 
     # -- fluent setters (reference Optimizer.scala fluent API) ------------
 
@@ -606,6 +655,29 @@ class Optimizer:
             raise ValueError(f"unsupported precision {precision!r}")
         self.precision = precision
         return self
+
+    def _feval(self) -> bool:
+        """The method re-evaluates the loss inside a step (LBFGS)."""
+        return getattr(self.optim_method, "requires_feval", False)
+
+    def _arm_retrace(self, step_fn, label: str):
+        """Wrap a step with the recompile sentinel (``bigdl.analysis.
+        retrace``, JAX :689): post-warmup signature drift raises (strict) or
+        logs a per-leaf shape/dtype diff (warn), charted as
+        ``Analysis/retraces``.  A fresh sentinel each run.  Host-driven
+        feval methods (LBFGS) pass through unwrapped."""
+        self._retrace_sentinel = None
+        if self._feval():
+            self._step_fn = step_fn
+            return step_fn
+        from bigdl_tpu_torch.analysis.retrace import RetraceSentinel
+        sentinel = RetraceSentinel.from_config(
+            f"{type(self).__name__}[{label}]")
+        if sentinel is not None:
+            self._retrace_sentinel = sentinel
+            step_fn = sentinel.wrap(step_fn)
+        self._step_fn = step_fn
+        return step_fn
 
     def set_moe_aux_weight(self, weight: float) -> "Optimizer":
         """The weight of the MoE load-balancing term folded into the loss
@@ -1010,6 +1082,7 @@ class Optimizer:
             telemetry.name_thread("driver")
             telemetry.reset_tracer()
         telemetry.REGISTRY.drop_prefix("Telemetry/")
+        telemetry.REGISTRY.drop_prefix("Analysis/")
         account = telemetry.StepAccount(
             window=config.get_int("bigdl.telemetry.percentileWindow", 512),
             detector=telemetry.SlowStepDetector(
@@ -1026,28 +1099,54 @@ class Optimizer:
                 fetched["records"] = 0
                 reset_epoch()
 
-        fetch = BatchPrefetcher(fetch_batch, on_batch=on_batch,
-                                device=self.device)
+        # the host-sync guard (JAX :1105-1134): implicit syncs inside the
+        # fetch -> step -> loss-read region fail with their call site
+        # (strict) or are counted (warn); the host-driven feval path (LBFGS
+        # line search) pulls by design and is exempt.  hotLoopScope
+        # "iteration" arms the fetch too, "step" only the step.
+        hot_guard = (NULL_GUARD if self._feval() else
+                     HostSyncGuard.from_config(device=self.device))
+        scope = str(config.get_property("bigdl.analysis.hotLoopScope",
+                                        "iteration"))
+        fetch_guard = hot_guard if scope == "iteration" else NULL_GUARD
+        # a per-run baseline: the process-wide counter survives runs, and
+        # TrainSummary charts THIS run's syncs
+        self._hostsync_base = (STATS.snapshot()["implicit"]
+                               if hot_guard.enabled else None)
+        fetch = BatchPrefetcher(
+            fetch_batch, on_batch=on_batch, device=self.device,
+            guard=fetch_guard if fetch_guard.enabled else None)
         self.prefetcher = fetch
         profiler = _ProfileWindow(self)
         watchdog = elastic.HungStepWatchdog.from_config()
         wall_start = time.perf_counter()
         if watchdog is not None:
             watchdog.start()
-        try:
-            self._loop(state, fetch, run_step, epoch_size, max_bad_steps,
-                       publish, account, profiler, watchdog, integrity)
-        finally:
-            # the watchdog first: the teardown below may block, and an
-            # armed monitor would read that as a hung step
+        # the guard's tier 1 is held for the run, so the per-iteration
+        # regions below switch only thread-local state
+        with hot_guard.hold():
             try:
-                if watchdog is not None:
-                    watchdog.stop()
+                self._loop(state, fetch, run_step, epoch_size, max_bad_steps,
+                           publish, account, profiler, watchdog, integrity,
+                           hot_guard, fetch_guard)
             finally:
+                # the watchdog first: the teardown below may block, and an
+                # armed monitor would read that as a hung step
                 try:
-                    profiler.stop()
+                    if watchdog is not None:
+                        watchdog.stop()
                 finally:
-                    fetch.stop()
+                    try:
+                        profiler.stop()
+                    finally:
+                        fetch.stop()
+                        if fetch.batches:
+                            # where the input pipeline spent its time (JAX
+                            # :1344-1345)
+                            self.metrics.add("batch fetch time",
+                                             fetch.fetch_ns)
+                            self.metrics.add("transfer block time",
+                                             fetch.block_ns)
         logger.info("Training finished in %.1f s; batch fetch %.3f s, the "
                     "loop's wait for batches %.3f s, large copies waited "
                     "for %.3f s, over %d batches.",
@@ -1118,7 +1217,8 @@ class Optimizer:
 
     def _loop(self, state, fetch, run_step, epoch_size: int,
               max_bad_steps: int, publish, account, profiler,
-              watchdog=None, integrity=None) -> None:
+              watchdog=None, integrity=None, hot_guard=NULL_GUARD,
+              fetch_guard=NULL_GUARD) -> None:
         clock = telemetry.clock_ns
         want_flops = (config.get_bool("bigdl.telemetry.mfu", False) and
                       self._step_flops is None)
@@ -1155,38 +1255,44 @@ class Optimizer:
                     f"({elastic.preemption_reason()}) - drained and "
                     f"published at iteration {state['neval']}")
             t_fetch = clock()
-            with telemetry.span("driver/fetch"):
-                inputs, targets, bsz = fetch()
+            with fetch_guard.armed():
+                with telemetry.span("driver/fetch"):
+                    inputs, targets, bsz = fetch()
             t_fetched = clock()
-            self.optim_method.state["epoch"] = state["epoch"]
-            hyper = self.optim_method.hyper()
-            t_step = clock()
-            with telemetry.span("driver/device_step"):
-                if want_flops:
-                    # the first step runs under the flop counter, which
-                    # changes nothing it computes
-                    want_flops = False
-                    with telemetry.StepFlops() as sf:
+            self.metrics.add("get batch time", t_fetched - t_fetch)
+            with hot_guard.armed():
+                self.optim_method.state["epoch"] = state["epoch"]
+                hyper = self.optim_method.hyper()
+                t_step = clock()
+                with telemetry.span("driver/device_step"):
+                    if want_flops:
+                        # the first step runs under the flop counter, which
+                        # changes nothing it computes
+                        want_flops = False
+                        with telemetry.StepFlops() as sf:
+                            loss_t = run_step(inputs, targets, hyper,
+                                              state["neval"] - 1)
+                        self._step_flops = sf.total
+                        if sf.total:
+                            logger.info("Step FLOPs for MFU: %.3f GFLOP",
+                                        sf.total / 1e9)
+                    else:
                         loss_t = run_step(inputs, targets, hyper,
                                           state["neval"] - 1)
-                    self._step_flops = sf.total
-                    if sf.total:
-                        logger.info("Step FLOPs for MFU: %.3f GFLOP",
-                                    sf.total / 1e9)
-                else:
-                    loss_t = run_step(inputs, targets, hyper,
-                                      state["neval"] - 1)
-            t_stepped = clock()
-            loss_t, aux = (loss_t if isinstance(loss_t, tuple)
-                           else (loss_t, None))
-            self.optim_method.step_done()
-            t_pull = clock()
-            with telemetry.span("driver/host_wait"):
-                loss = float(loss_t)     # the one host read of the iteration
+                t_stepped = clock()
+                loss_t, aux = (loss_t if isinstance(loss_t, tuple)
+                               else (loss_t, None))
+                self.optim_method.step_done()
+                t_pull = clock()
+                with telemetry.span("driver/host_wait"):
+                    # the one intended host read of the iteration, through
+                    # the explicit choke point
+                    loss = float(host_pull(loss_t, what="iteration loss"))
             if inject_nan:
                 loss = math.nan
             t_book = clock()
             dt = (t_book - t0) / 1e9
+            self.metrics.add("computing time for each node", t_book - t0)
             neval, recs = state["neval"], state["recordsProcessedThisEpoch"]
             state["Loss"] = loss
             self.history.append({"neval": neval, "epoch": state["epoch"],
@@ -1218,7 +1324,8 @@ class Optimizer:
                 culprit = ""
                 if (integrity is not None and aux is not None
                         and "nf" in aux):
-                    culprit = integrity.describe_nonfinite(int(aux["nf"]))
+                    culprit = integrity.describe_nonfinite(int(host_pull(
+                        aux["nf"], what="first non-finite leaf")))
                 logger.warning(
                     "Non-finite loss/grads (%s) at iteration %d - update "
                     "skipped (%d consecutive bad step(s); limit %d)%s",
@@ -1319,6 +1426,17 @@ class Optimizer:
         self.train_summary.add_scalar("Throughput", throughput, neval)
         self.train_summary.add_scalar(
             "LearningRate", self.optim_method.get_learning_rate(), neval)
+        # the sanitizers' counters (JAX :1543-1555): post-warmup retraces
+        # of the step and implicit host syncs caught in the hot loop THIS
+        # run; a healthy run charts both flat at zero.  Each pass gates
+        # its own gauge.
+        if self._retrace_sentinel is not None:
+            telemetry.gauge("Analysis/retraces", summary=True).set(
+                self._retrace_sentinel.retraces)
+        if self._hostsync_base is not None:
+            telemetry.gauge("Analysis/implicit_host_syncs",
+                            summary=True).set(
+                STATS.snapshot()["implicit"] - self._hostsync_base)
         scalars = telemetry.summary_scalars()
         acct = self._step_account
         if acct is not None and acct.steps:
@@ -1464,8 +1582,58 @@ class LocalOptimizer(Optimizer):
                                              fp_s_out))
         return loss, aux
 
+    def _build_feval_step(self, params, mstate, stream=None):
+        """The host-driven step of a feval method (LBFGS; JAX :1755):
+        ``step(inputs, targets, seed) -> (loss, aux)`` hands the method's
+        inner loop one loss-and-gradient function of the parameters,
+        called as often as it asks.  Each call writes its point into the
+        live parameters, runs the forward from the step's module state
+        (BatchNorm's running statistics are held fixed within a step, as
+        the JAX step discards the new state; a stochastic model replays the
+        step's random stream ``stream``) and returns the criterion plus the
+        regularizer penalties with their gradients.  LBFGS is a full-batch
+        method in the reference too.  The step's loss is the last one (a
+        Python float); its aux is empty."""
+        def step(inputs, targets, seed):
+            saved = [b.clone() for b in mstate]
+
+            def feval(point):
+                with torch.no_grad():
+                    for live, new in zip(params, point):
+                        live.copy_(new)
+                    for live, kept in zip(mstate, saved):
+                        live.copy_(kept)
+                if stream is not None:
+                    stream.manual_seed(seed)
+                out = self.model(inputs)
+                loss = self.criterion.apply(out, targets)
+                penalty = regularization_penalty(self.model)
+                if penalty is not None:
+                    loss = loss + penalty
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                return loss.detach(), [torch.zeros_like(p) if g is None
+                                       else g for g, p in zip(grads, params)]
+
+            start = [p.detach().clone() for p in params]
+            self._torn = True
+            new_params, losses = self.optim_method.optimize(feval, start)
+            with torch.no_grad():
+                for live, new in zip(params, new_params):
+                    live.copy_(new)
+                for live, kept in zip(mstate, saved):
+                    live.copy_(kept)
+            self._torn = False
+            return losses[-1], {}
+
+        return step
+
     def _optimize(self) -> torch.nn.Module:
         refuse_unported()
+        feval = self._feval()
+        if feval and self.precision is not None:
+            raise ValueError(
+                f"{type(self.optim_method).__name__} uses the host-driven "
+                "feval path, which is fp32-only; unset set_precision")
         self.model.train()
         # one generator on the device, seeded afresh each step: the same
         # seed and data give the same masks, run after run
@@ -1476,8 +1644,10 @@ class LocalOptimizer(Optimizer):
         mstate = module_state(self.model)
         slots = self.optim_method.slots(params)
         self.optim_method.state.setdefault("epoch", 1)
-        guard = config.get_bool("bigdl.divergence.guard", True)
-        every_n = config.get_int("bigdl.integrity.everyN", 0)
+        # the integrity pass and its continuity are off for feval methods
+        # (JAX :1800-1805): the line search's steps are not one update
+        guard = not feval and config.get_bool("bigdl.divergence.guard", True)
+        every_n = 0 if feval else config.get_int("bigdl.integrity.everyN", 0)
         integ = None
         if guard or every_n > 0:
             integ = integrity.DriverIntegrity(
@@ -1507,7 +1677,15 @@ class LocalOptimizer(Optimizer):
             self._plan_batch_size = batch.size()
             return batch.get_input(), batch.get_target(), batch.size()
 
+        feval_step = (self._build_feval_step(params, mstate, stream)
+                      if feval else None)
+
         def step(inputs, targets, hyper, seed):
+            if feval_step is not None:
+                if stream is None:
+                    return feval_step(inputs, targets, seed)
+                with random_stream(self.model, stream):
+                    return feval_step(inputs, targets, seed)
             args = (params, slots, mstate, inputs, targets, hyper, guard,
                     scales, carry["fpc"],
                     self.optim_method.state.get("evalCounter", 0) + 1,
@@ -1547,6 +1725,7 @@ class LocalOptimizer(Optimizer):
                 carry["fpc"] = aux["fpc"]
             return loss, aux
 
+        run_step = self._arm_retrace(run_step, "local")
         self._sync_dataset_epoch()
         reset_epoch()
         try:

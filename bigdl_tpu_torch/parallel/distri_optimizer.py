@@ -693,6 +693,7 @@ class DistriOptimizer(Optimizer):
                 carry["fpc"] = aux["fpc"]
             return loss, aux
 
+        run_step = self._arm_retrace(run_step, "shard_map")
         self._sync_dataset_epoch()
         reset_epoch()
         try:
@@ -881,6 +882,7 @@ class DistriOptimizer(Optimizer):
             with random_stream(model, stream):
                 return step(inputs, targets, hyper)
 
+        run_step = self._arm_retrace(run_step, "gspmd")
         self._sync_dataset_epoch()
         reset_epoch()
         try:

@@ -702,6 +702,7 @@ class PipelineOptimizer(Optimizer):
                     loss = loss / n_d
             return loss
 
+        run_step = self._arm_retrace(run_step, "pipeline")
         self._sync_dataset_epoch()
         reset_epoch()
         try:

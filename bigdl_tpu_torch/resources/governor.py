@@ -29,10 +29,10 @@ import, and again after a registry reset.
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Callable, Dict, Iterable, Tuple
 
 from bigdl_tpu_torch.resources.errors import HostMemoryError
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -41,7 +41,7 @@ class Account:
     """One named byte ledger.  Thread-safe; clamped at zero, so a stray
     double subtraction cannot go negative."""
 
-    def __init__(self, name: str, lock: threading.Lock):
+    def __init__(self, name: str, lock):
         self.name = name
         self._lock = lock
         self._bytes = 0
@@ -68,7 +68,7 @@ class HostMemoryGovernor:
     reaction (shrinkers) and the hard escalation (HostMemoryError)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("governor.host")
         self._accounts: Dict[str, Account] = {}
         self._shrinkers: Dict[str, Callable[[], None]] = {}
         self._polls = 0
@@ -84,7 +84,7 @@ class HostMemoryGovernor:
             acct = self._accounts.get(name)
             if acct is None:
                 acct = self._accounts[name] = Account(name,
-                                                      threading.Lock())
+                                                      make_lock("governor.account"))
         return acct
 
     def total_bytes(self) -> int:

@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 from typing import Callable, Dict, List, Optional
 
 from bigdl_tpu_torch.resources.errors import is_storage_exhausted
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
-_lock = threading.Lock()
+_lock = make_lock("storage.degraded")
 _degraded: Dict[str, str] = {}          # component -> first error message
 _timeline_dumps: List[str] = []         # dump paths, oldest first
 

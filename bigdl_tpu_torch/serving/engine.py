@@ -95,6 +95,9 @@ from bigdl_tpu_torch.resources import GOVERNOR as _resource_governor
 from bigdl_tpu_torch.resources import item_nbytes as _item_nbytes
 from bigdl_tpu_torch.telemetry import incident, request_trace
 from bigdl_tpu_torch.utils import chaos, compile_cache, config, elastic
+from bigdl_tpu_torch.analysis.hostsync import host_pull
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
+from bigdl_tpu_torch.analysis.retrace import RetraceSentinel, Spec
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -198,7 +201,7 @@ class RequestHandle:
         self.submit_ns = submit_ns
         self.deadline_ns = deadline_ns
         self.trace_id = trace_id      # None when request tracing is disarmed
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.handle")
         self.payload_nbytes = 0       # guarded-by: _lock — governor bytes
         self.finish_ns: Optional[int] = None            # guarded-by: _lock
         self.outcome: Optional[str] = None              # guarded-by: _lock
@@ -336,10 +339,17 @@ class ServingEngine:
         self._buckets = sorted(set(
             (compile_cache.configured_buckets() or []) + [self.max_batch]))
         self._forward = _eval_forward(self.model)
+        # the recompile sentinel over the forward's signature (JAX :570).
+        # A row family (row shape and dtype) is observed at its first
+        # batch; the plan's other buckets of that family are then
+        # registered, as the JAX package's bucket precompile registers
+        # them.  A family first seen after warmup is a retrace.
+        self._sentinel = RetraceSentinel.from_config("ServingEngine[forward]")
+        self._families: set = set()
         # the admission queue IS the bound: put_nowait + Full -> Overloaded
         self._q: "queue.Queue[RequestHandle]" = queue.Queue(
             maxsize=self.max_queue_depth)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.engine")
         # queued + in-flight payload bytes, rolled into Resources/host_bytes
         self._payload_acct = _resource_governor.account("serving_admission")
         self._counts: Dict[str, int] = dict.fromkeys(OUTCOMES, 0)  # guarded-by: _lock
@@ -779,8 +789,24 @@ class ServingEngine:
         n = rows.shape[0]
         eff = compile_cache.bucket_size(n, self._buckets)
         inputs = compile_cache.pad_batch(rows, n, eff)
+        if self._sentinel is not None:
+            self._sentinel.check((inputs,))
+            family = (inputs.shape[1:], inputs.dtype)
+            if family not in self._families:
+                self._families.add(family)
+                for b in self._buckets:
+                    self._sentinel.register_warmup(
+                        (Spec((b,) + family[0], family[1]),))
         out = self._forward(to_device(inputs, self.device))
-        return compile_cache.slice_rows(out.cpu().numpy(), n)
+        return compile_cache.slice_rows(
+            host_pull(out, what="serving outputs"), n)
+
+    @property
+    def sentinel(self):
+        """The retrace sentinel over the serving forward (None when
+        ``bigdl.analysis.retrace`` is off): a run proves zero post-warmup
+        retraces with ``sentinel.retraces``."""
+        return self._sentinel
 
     def _dispatch_batch(self, batch: List[RequestHandle], wd) -> None:
         t0 = telemetry.clock_ns()

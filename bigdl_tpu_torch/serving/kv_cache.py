@@ -31,7 +31,6 @@ free-list and tables are host state under a lock.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, List
 
 import torch
@@ -39,6 +38,7 @@ import torch
 from bigdl_tpu_torch.engine import DeviceLike, default_device
 from bigdl_tpu_torch.resources.device import preflight_pool
 from bigdl_tpu_torch.serving.engine import Overloaded
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 #: the block every padded or inactive-slot scatter targets: reserved at
 #: construction, never handed out by the free-list
@@ -78,7 +78,7 @@ class PagedKVCache:
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self._free: List[int] = list(range(self.n_blocks - 1, 0, -1))  # guarded-by: _lock
         self._tables: Dict[int, List[int]] = {}         # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = make_lock("lm.kv_cache")
 
     # -- capacity ---------------------------------------------------------
 

@@ -24,7 +24,12 @@ steps.  The engine serves them the Orca/vLLM way:
   the JAX package's one compiled decode program and its zero-retrace
   contract: :attr:`LMServingEngine.decode_captures` stays 1 for the
   engine's life (2 with the int8 tier, whose gate captures the fp graph
-  too).  A capture or replay failure raises; a CUDA device has no eager
+  too), and the recompile sentinels (:attr:`LMServingEngine.sentinels`,
+  ``lm_decode``, ``lm_prefill``, ``lm_full`` and, with the int8 tier,
+  ``lm_decode_int8``) see zero post-warmup retraces: every planned shape
+  (each prefill bucket, the one decode shape) is registered as a warmup
+  plan at construction, and any other signature is a retrace (a graph
+  recapture on the card, were the decode step to take it).  A capture or replay failure raises; a CUDA device has no eager
   decode path.  The decode step runs eagerly only on the CPU, where
   the caller asked for ``device="cpu"``.  Prefill and the teacher-forced
   full forward run eagerly over a bucket ladder of padded lengths.
@@ -80,9 +85,9 @@ preemption request (``utils.elastic``, the flag a SIGTERM sets under
 The chaos hooks ``poisonPromptAt``, ``hangDecodeAt`` and ``evictBlockAt``
 (:mod:`~bigdl_tpu_torch.utils.chaos`) act on the scheduler.
 
-Not ported: the ``sentinels`` property (it raises
-:class:`NotImplementedError`; :attr:`LMServingEngine.decode_captures`
-counts the decode graphs' captures instead).
+Every host read of the logits (the decode step's, the prefill's, the
+teacher-forced baseline's and the int8 gate's two) goes through
+:func:`~bigdl_tpu_torch.analysis.host_pull`, the counted choke point.
 
 Telemetry (JAX :666-672, :934-1062, :1189-1260, :1293-1485): the
 ``LM/ttft_ms``, ``LM/itl_ms`` and ``LM/latency_ms`` histograms (trace ids
@@ -130,6 +135,9 @@ from bigdl_tpu_torch.serving.engine import (OUTCOMES, DeadlineExceeded,
 from bigdl_tpu_torch.serving.kv_cache import DUMP_BLOCK, PagedKVCache
 from bigdl_tpu_torch.telemetry import incident, request_trace
 from bigdl_tpu_torch.utils import chaos, config, elastic
+from bigdl_tpu_torch.analysis.hostsync import host_pull
+from bigdl_tpu_torch.analysis.lockwitness import make_condition, make_lock
+from bigdl_tpu_torch.analysis.retrace import RetraceSentinel, Spec
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -490,7 +498,7 @@ class TokenStream:
         self._error: Optional[BaseException] = None     # guarded-by: _cv
         self._terminal = False                          # guarded-by: _cv
         self.payload_nbytes = 0     # guarded-by: _cv — governor bytes
-        self._cv = threading.Condition()
+        self._cv = make_condition("lm.stream")
 
     # -- scheduler side ---------------------------------------------------
 
@@ -676,6 +684,7 @@ class LMServingEngine:
                                            self._max_blocks)
         self._prefill_fn = _build_prefill_fn(self.graph, self.block_size)
         self._full_fn = _build_full_fn(self.graph)
+        self._sentinels = self._build_sentinels()
         #: quantized? -> (graph, static input, static output)
         self._graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, torch.Tensor,
                                        torch.Tensor]] = {}
@@ -690,7 +699,7 @@ class LMServingEngine:
         # the stream mid-admission: popped from the queue, not yet slotted;
         # _shed_active covers it so it never lives only in a local
         self._admitting: Optional[TokenStream] = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("lm.engine")
         self._payload_acct = _resource_governor.account("lm_admission")
         self._counts: Dict[str, int] = dict.fromkeys(OUTCOMES, 0)  # guarded-by: _lock
         self._counts["submitted"] = 0
@@ -755,11 +764,44 @@ class LMServingEngine:
                 return b
         return self._buckets[-1]
 
+    def _build_sentinels(self) -> Dict[str, RetraceSentinel]:
+        """One recompile sentinel per step (JAX :718-770), each with its
+        planned signatures registered as warmup plans: the prefill and the
+        full forward at every bucket, the decode step at its one shape.
+        None of them when ``bigdl.analysis.retrace`` is off; no int8 one
+        without the int8 tier."""
+        labels = ["lm_decode", "lm_prefill", "lm_full"]
+        if self._served_q:
+            labels.append("lm_decode_int8")
+        out = {}
+        for label in labels:
+            sentinel = RetraceSentinel.from_config(label)
+            if sentinel is None:
+                return {}
+            out[label] = sentinel
+        table = Spec((self._max_blocks,), torch.int64)
+        for b in self._buckets:
+            tokens = Spec((1, b), torch.int64)
+            out["lm_prefill"].register_warmup((tokens, 0, table))
+            out["lm_full"].register_warmup((tokens,))
+        decode_in = Spec((self.max_batch, _TABLE + self._max_blocks),
+                         np.int64)
+        for label in labels:
+            if label.startswith("lm_decode"):
+                out[label].register_warmup((decode_in,))
+        return out
+
     @property
-    def sentinels(self):
-        raise NotImplementedError(
-            "retrace sentinels are not ported yet (analysis/retrace.py); "
-            "decode_captures counts the decode graph's captures")
+    def sentinels(self) -> Dict[str, RetraceSentinel]:
+        """Label -> recompile sentinel of every LM step (absent labels run
+        without one): the zero-post-warmup-retrace proof reads
+        ``.retraces`` off each."""
+        return dict(self._sentinels)
+
+    def _observe(self, label: str, *args) -> None:
+        sentinel = self._sentinels.get(label)
+        if sentinel is not None:
+            sentinel.check(args)
 
     def warmup(self) -> None:
         """Run every planned step once (prefill and the full forward at
@@ -839,6 +881,7 @@ class LMServingEngine:
         static input (one copy of every column), replay, pull (capturing
         the graph first if warmup or the gate did not)."""
         q = self._served_q if quantized is None else quantized
+        self._observe("lm_decode_int8" if q else "lm_decode", inputs)
         if self.device.type == "cuda":
             if q not in self._graphs:
                 self._capture_decode(q)
@@ -846,10 +889,11 @@ class LMServingEngine:
             with torch.cuda.device(self.device):
                 static_in.copy_(torch.from_numpy(inputs))
                 graph.replay()
-                return static_out.cpu().numpy()
+                return host_pull(static_out, what="lm decode logits")
         with torch.no_grad():
-            return self._run_decode(self.cache.k, self.cache.v,
-                                    torch.from_numpy(inputs), q).numpy()
+            return host_pull(self._run_decode(
+                self.cache.k, self.cache.v, torch.from_numpy(inputs), q),
+                what="lm decode logits")
 
     # -- the int8 gate ----------------------------------------------------
 
@@ -1379,11 +1423,13 @@ class LMServingEngine:
         blocks = self.cache.table(seq_id)
         table_row = np.full((self._max_blocks,), DUMP_BLOCK, np.int64)
         table_row[:len(blocks)] = blocks
+        tokens = to_device(padded, self.device)
+        table = to_device(table_row, self.device)
+        self._observe("lm_prefill", tokens, P, table)
         with torch.no_grad():
             lp = self._prefill_fn(self._dp, self.cache.k, self.cache.v,
-                                  to_device(padded, self.device), P,
-                                  to_device(table_row, self.device))
-        lp = lp.cpu().numpy()
+                                  tokens, P, table)
+        lp = host_pull(lp, what="lm prefill logits")
         with self._lock:
             self.prefills += 1
         telemetry.counter("LM/prefills").inc()
@@ -1547,9 +1593,11 @@ class LMServingEngine:
             t = len(seq)
             padded = np.ones((1, self._prefill_bucket(t)), np.int64)
             padded[0, :t] = seq
+            tokens = to_device(padded, self.device)
+            self._observe("lm_full", tokens)
             with torch.no_grad():
-                lp = self._full_fn(self._dp, to_device(padded, self.device))
-            row = lp[t - 1].cpu().numpy()
+                lp = self._full_fn(self._dp, tokens)
+            row = host_pull(lp[t - 1], what="lm full-forward logits")
             tok = int(np.argmax(row)) + 1
             seq.append(tok)
             out_tokens.append(tok)

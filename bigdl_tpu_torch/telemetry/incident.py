@@ -37,12 +37,13 @@ from typing import Dict, List, Optional
 
 from bigdl_tpu_torch.telemetry import tracer
 from bigdl_tpu_torch.telemetry.metrics import REGISTRY
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 SCHEMA = "bigdl.incident/1"
 DEFAULT_RING_SIZE = 512
 DEFAULT_MAX_DUMPS = 8
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("telemetry.incident")
 _EVENTS: deque = deque(maxlen=DEFAULT_RING_SIZE)
 _DUMPS: List[str] = []          # bundle paths, oldest first
 _DUMPED_SLUGS: set = set()      # one auto-dump per fault slug per run

@@ -29,9 +29,9 @@ import json
 import logging
 import math
 import re
-import threading
 from collections import deque
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -87,7 +87,7 @@ class _Metric:
         self.labels = dict(labels) if labels else None
         self.summary = summary
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.metric")
 
 
 class Counter(_Metric):
@@ -232,7 +232,7 @@ class MetricsRegistry:
     """The process-wide metric table (module singleton ``REGISTRY``)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("telemetry.registry")
         self._metrics: "Dict[str, _Metric]" = {}
         self._providers: "Dict[str, Callable[[], Iterable[Tuple[str, float]]]]" = {}
         self._label_variants: Dict[str, int] = {}

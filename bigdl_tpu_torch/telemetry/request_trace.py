@@ -32,12 +32,12 @@ evicted first) and at most ``bigdl.trace.maxSpansPerTrace`` spans per trace
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 from bigdl_tpu_torch.telemetry import tracer
 from bigdl_tpu_torch.telemetry.metrics import REGISTRY
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 DEFAULT_MAX_TRACES = 2048
 DEFAULT_MAX_SPANS = 512
@@ -47,7 +47,7 @@ DEFAULT_MAX_SPANS = 512
 #: abandoned handle)
 VERDICTS = ("completed", "shed", "rejected", "quarantined", "aborted")
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("telemetry.request_trace")
 
 # armed flag + bounds in a plain dict: one dict load on the disarmed
 # fast path (same idiom as tracer._STATE)

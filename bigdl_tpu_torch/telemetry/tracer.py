@@ -27,6 +27,7 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 #: the one hot-path clock: monotonic (immune to wall-clock steps), ns
 #: resolution, same epoch as ``time.monotonic()`` (fractional seconds
@@ -40,7 +41,7 @@ DEFAULT_RING_SIZE = 65536
 #: ingest/prefetch threads — their rings must not accumulate forever)
 MAX_RINGS = 256
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("telemetry.tracer")
 _TLS = threading.local()
 
 # armed flag + ring size live in a plain dict: one dict load on the

@@ -93,8 +93,16 @@ The keys, each read at :func:`install`:
                                     retriably and frees its blocks, once.
 ==================================  =========================================
 
+``bigdl.chaos.lockDelayAt``         "<lockname>:k[:seconds]": the k-th
+                                    acquisition of the named lock-witness
+                                    lock (``analysis.make_lock`` names)
+                                    stalls for ``seconds`` (default 0.05)
+                                    just after the acquisition-order
+                                    check, while the witness is armed;
+                                    once per position per plan.
+
 Every other ``bigdl.chaos.*`` key of the JAX package (the ingest, fleet,
-compile, lock and audit injectors) belongs to a part the port does not have
+compile and audit injectors) belongs to a part the port does not have
 yet: :func:`install` raises :class:`NotImplementedError` when
 one is set (:data:`UNPORTED_KEYS`), as do the trainers
 (:func:`refuse_unported_keys`).
@@ -108,10 +116,10 @@ from __future__ import annotations
 import errno
 import io
 import sys as _sys
-import threading
 from typing import Optional, Tuple
 
 from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 #: the JAX package's injectors that the port does not have
 UNPORTED_KEYS = (
@@ -121,7 +129,7 @@ UNPORTED_KEYS = (
     "bigdl.chaos.corruptCompileCacheAt", "bigdl.chaos.hangCompileAt",
     "bigdl.chaos.killReplicaAt",
     "bigdl.chaos.corruptCandidateAt", "bigdl.chaos.sigtermFleetAt",
-    "bigdl.chaos.lockDelayAt", "bigdl.chaos.extraAllGather",
+    "bigdl.chaos.extraAllGather",
     "bigdl.chaos.f32Upcast", "bigdl.chaos.dropBucketCollective")
 
 
@@ -307,6 +315,9 @@ class _ChaosState:
         self.hang_decode_at, self.hang_decode_seconds = _parse_stall(
             config.get_property("bigdl.chaos.hangDecodeAt"))
         self.evict_block_at = config.get_int("bigdl.chaos.evictBlockAt", 0)
+        (self.lock_delay_name, self.lock_delay_at,
+         self.lock_delay_seconds) = _parse_lock_delay(
+            config.get_property("bigdl.chaos.lockDelayAt"))
         self.writes = 0
         self.steps_failed = 0
         self.steps_seen = 0
@@ -331,7 +342,25 @@ class _ChaosState:
         self.prompt_poison_fired: set = set()
         self.decode_hangs = 0
         self.block_evictions = 0
-        self._lock = threading.Lock()
+        self.lock_delays_fired: set = set()
+        self.lock_delays = 0
+        self._lock = make_lock("chaos.plan")
+
+    # ---- the lock witness ----------------------------------------------
+
+    def lock_delay(self, name: str, n: int) -> float:
+        """Seconds the ``n``-th acquisition of witness lock ``name`` should
+        stall (0.0 almost always); once per position per plan."""
+        if not self.lock_delay_name or name != self.lock_delay_name:
+            return 0.0
+        if n != self.lock_delay_at:
+            return 0.0
+        with self._lock:
+            if n in self.lock_delays_fired:
+                return 0.0
+            self.lock_delays_fired.add(n)
+            self.lock_delays += 1
+        return self.lock_delay_seconds
 
     # ---- the storage layer ---------------------------------------------
 
@@ -578,21 +607,47 @@ class _ChaosState:
         return self.burst_arrivals_n if fire else 0
 
 
+def _parse_lock_delay(value) -> Tuple[Optional[str], int, float]:
+    """``"lockname:k"`` -> (lockname, k, 0.05); ``"lockname:k:seconds"``
+    -> (lockname, k, seconds); falsy -> (None, 0, 0.0)."""
+    if not value:
+        return (None, 0, 0.0)
+    parts = str(value).split(":")
+    name = parts[0].strip()
+    k = int(parts[1]) if len(parts) > 1 else 1
+    secs = float(parts[2]) if len(parts) > 2 else 0.05
+    return (name, k, secs)
+
+
 _state: Optional[_ChaosState] = None
 
 
 def install() -> None:
     """Arm the harness from the current ``bigdl.chaos.*`` keys; a new
     install starts a fresh plan.  Raises :class:`NotImplementedError` when
-    a key outside the port's subset is set."""
+    a key outside the port's subset is set.  The ``lockDelayAt`` target is
+    pushed into the lock witness, whose armed acquire path then pays one
+    attribute compare instead of a probe here per acquisition."""
     global _state
     refuse_unported_keys()
     _state = _ChaosState()
+    from bigdl_tpu_torch.analysis import lockwitness
+    lockwitness.set_chaos_delay_target(_state.lock_delay_name or None)
 
 
 def uninstall() -> None:
     global _state
     _state = None
+    from bigdl_tpu_torch.analysis import lockwitness
+    lockwitness.set_chaos_delay_target(None)
+
+
+def lock_delay(name: str, n: int) -> float:
+    """The lock witness's acquire hook: seconds the ``n``-th acquisition of
+    the named witness lock should stall (0.0 when disarmed)."""
+    if _state is None:
+        return 0.0
+    return _state.lock_delay(name, n)
 
 
 def active() -> bool:

@@ -73,6 +73,7 @@ from bigdl_tpu_torch.integrity import fingerprint_key, host_fingerprint
 from bigdl_tpu_torch.resources.errors import StorageExhaustedError
 from bigdl_tpu_torch.utils import chaos, config, elastic, file_io
 from bigdl_tpu_torch.visualization.crc32c import crc32c
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -149,7 +150,7 @@ class _AsyncWriter:
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("checkpoint.writer")
         self._error: Optional[BaseException] = None   # guarded by _lock
 
     def submit(self, job) -> None:
@@ -257,7 +258,7 @@ class CheckpointManager:
         self.last_snapshot_bytes: Optional[int] = None
         #: guards the two below; a full disk degrades to one snapshot, the
         #: newest, kept in memory
-        self._state_lock = threading.Lock()
+        self._state_lock = make_lock("checkpoint.state")
         self._storage_degraded = False
         self._memory_snapshot: Optional[Dict[str, Any]] = None
 

@@ -99,6 +99,17 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.chaos.poisonPromptAt": None,
     "bigdl.chaos.hangDecodeAt": None,
     "bigdl.chaos.evictBlockAt": 0,
+    # the runtime analysis passes (bigdl_tpu_torch/analysis): each pass is
+    # "strict" (raise), "warn" (log + count), or "off"
+    "bigdl.analysis.retrace": "warn",      # recompile sentinel on the steps
+    "bigdl.analysis.retraceWarmupSteps": 2,  # calls treated as warmup plans
+    "bigdl.analysis.retraceBudget": 2,     # distinct signatures allowed in warmup
+    "bigdl.analysis.hostSync": "warn",     # implicit device->host syncs in hot loop
+    "bigdl.analysis.hotLoopScope": "iteration",  # sanitize fetch+step, or "step"
+    "bigdl.analysis.contracts": "warn",    # module contract checker strictness
+    "bigdl.analysis.lockWitness": "off",   # runtime lock-order witness
+    "bigdl.chaos.lockDelayAt": None,       # "<lockname>:k[:seconds]": the k-th
+    # acquisition of the named witness lock stalls (default 0.05 s)
     # the trainers' batch prefetcher (bigdl_tpu_torch/engine.py)
     "bigdl.prefetch.depth": 2,               # batches fetched ahead; 0 = synchronous
     "bigdl.pipeline.depth": 8,               # DispatchPipeline's results in flight

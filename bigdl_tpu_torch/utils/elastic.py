@@ -56,6 +56,7 @@ from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
 
@@ -387,7 +388,7 @@ class HungStepWatchdog:
         self.timeline_dir = timeline_dir
         self.on_fire = on_fire
         self.fired = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("elastic.watchdog")
         self._last_beat_ns: Optional[int] = None
         self._beats = 0
         self._fired_this_stall = False       # guarded-by: _lock

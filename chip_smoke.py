@@ -12,6 +12,11 @@
                                           # GPipe stages on 4 cards
     python3 chip_smoke.py --sp 4 nccl     # phase 16: the LM at T8192,
                                           # ring attention over 4 cards
+    python3 chip_smoke.py --profiler-probe ARM [N]   # ARM: plain, off,
+                                          # guard, hooks, mode or idle;
+                                          # torch.profiler's control window
+                                          # after each of N (AN_PROBE_RUNS)
+                                          # short LM runs (profiler_probe)
 
 Phases, each fatal on any fault:
 
@@ -411,6 +416,43 @@ Phases, each fatal on any fault:
    the ``Sequential``'s, and the shell's ``backward`` through it giving the
    ``Sequential``'s parameter gradients bit for bit.  No flash kernel
    launched.
+20. the runtime analysis passes, ``Metrics`` and ``LBFGS``, with the port's
+   lock witness armed strict throughout.  (a) The host-sync guard on the
+   trainers' hot loops: phase 6's LM (B8/T2048, bf16) through
+   ``LocalOptimizer`` in interleaved runs under ``hostSync`` warn, off and
+   strict (the step medians printed; a warn run that counts a sync stops
+   the phase with its sites), then AN_STEPS steps strict through
+   ``LocalOptimizer`` and through ``DistriOptimizer`` on one NCCL rank, and
+   ResNet-50 (B128, bf16, prefetch depth 2) strict: no implicit sync,
+   exactly one explicit pull (the loss read) a step, every bf16 flash
+   kernel once a layer a step; a ``float()`` of a CUDA tensor in the fetch
+   (the fetch thread) raises ``HostSyncError`` naming its line (tier 2,
+   the conversion hooks), a ``torch.nonzero`` inside the step raises too
+   (tier 1, the sync debug mode), and one inside a backward (the autograd
+   engine's device thread) raises as its strict region ends; the step
+   with the guard off, warn and strict, AN_ROUNDS rotated rounds, each
+   against its round's off run.  (b) The recompile sentinels, strict:
+   ``LMServingEngine(quantize="int8")`` at phase 7's pool, after
+   ``warmup()``, AN_LM_REQUESTS streams with prompts of 16-2040 tokens:
+   zero retraces under ``lm_decode``, ``lm_prefill``, ``lm_full`` and
+   ``lm_decode_int8``; ``ServingEngine`` with ``bigdl.compile.buckets``
+   1,2,4,8 over ragged submissions: zero retraces, and a float64 row after
+   warmup raises ``RetraceError``; ``LocalOptimizer`` over
+   batches of 2, 2 and 1 rows raises ``RetraceError`` with the shape diff.
+   (c) ``LBFGS`` through ``LocalOptimizer``, fp32, TF32 off: (c1) the
+   separable MLP of ``tests/test_dead_apis.py`` on the card against the
+   CPU, the losses within LB_RTOL; (c2) phase 17's 2-layer LM at full width
+   with flash, one fixed B2/T2048 batch, ``LBFGS(max_iter=5,
+   n_correction=5, line_search=True)``, 3 calls, each final loss at most
+   the previous one's, the fp32 flash kernels launched (evaluations, ms
+   each and peak memory printed).  (d) No lock-order violation over
+   (a)-(c) and phase 18's wedged ``ServingEngine``; the serving p50 armed
+   and disarmed, interleaved; ``bigdl.chaos.lockDelayAt`` stalls the named
+   lock's k-th acquisition once.  (e) In a child process
+   (``chip_smoke.py --contracts``, a fresh torch.profiler), ``check_model``
+   on the LM and on ResNet-50 reports ok and launches no CUDA kernel (the
+   profiler's window must also see a control matmul), its wall time
+   printed.  (f) ``Metrics.summary()`` of (a) and (c2).
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
@@ -419,8 +461,9 @@ run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
 phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
 in phase 15 (a), as ``pipeline_launches`` in phase 16 (a) and as
 ``resilience_launches`` in phase 17, as ``failure_launches`` in phase
-18 (a) and as ``library_launches`` in phase 19; phases 8, 9, 11, 12, 14,
-16 and 19 run none of them), then the
+18 (a), as ``library_launches`` in phase 19 and as ``analysis_launches``
+in phase 20's gated trainer runs; phases 8, 9, 11, 12, 14, 16 and 19 run
+none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -6556,11 +6599,793 @@ def phase_layer_library(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the analysis passes, Metrics and LBFGS
+# ---------------------------------------------------------------------------
+
+AN_STEPS = 12           # (a): steps of each gated strict run
+AN_TIMED = 10           # (a): steps of each interleaved off/warn/strict run
+AN_ROUNDS = 10          # (a): rounds of the interleaved runs, each round's
+                        # order rotated by one
+AN_REGION_N = 20000     # (a): empty armed regions timed in each mode
+AN_MODES = ("warn", "off", "strict")
+AN_R50_STEPS = 6        # (a): ResNet-50 B128 bf16, prefetch depth 2
+AN_LM_REQUESTS = 32     # (b): LM streams after warmup
+AN_PROMPTS = (16, 2048 - 8)   # (b): prompt lengths drawn from [lo, hi)
+AN_NEW_TOKENS = 4       # (b)
+AN_BUCKETS = "1,2,4,8"  # (b): ServingEngine's bucket plan
+AN_RAGGED = (1, 3, 2, 5, 8, 7, 1)   # (b): requests submitted at once
+AN_ROW_T = 128          # (b), (d): served rows' length (flash: 128 | T)
+AN_P50_REQUESTS = 24    # (d): requests of each interleaved p50 run
+AN_P50_ROUNDS = 4       # (d)
+AN_LOCK_DELAY = ("serving.engine", 3, 0.2)   # (d): name, k, seconds
+AN_PROFILE_TRIES = 5    # (e): profiler windows tried until one sees kernels
+AN_CHILD_TIMEOUT = 600  # (e): seconds for its child process
+AN_PROBE_RUNS = 24      # --profiler-probe: LM runs, each then a control
+AN_PROBE_STEPS = 4      # --profiler-probe: steps of each run
+LB_ITERS = 4            # (c1): the test_dead_apis.py problem
+LB_MAX_ITER = 8         # (c1)
+LB_RTOL = 1e-5          # (c1): losses, the card against the CPU, with
+LB_ATOL = 1e-8          # an absolute floor: from the second iteration the
+                        # losses are 1e-5 to 1e-6, means of log-probs of
+                        # order 1 whose fp32 rounding (2^-24 ~ 6e-8 a term)
+                        # is 1e-4 of them; the CPU's own two fp32 runs (the
+                        # JAX package's and the port's) differ by 2.8e-5
+LB_BATCH = 2            # (c2): one fixed B2/T2048 batch
+LB_CALLS = 3            # (c2)
+LB_ITER, LB_CORR = 5, 5   # (c2): max_iter, n_correction
+
+
+def an_stats():
+    from bigdl_tpu_torch.analysis.hostsync import STATS
+    return STATS.snapshot()
+
+
+def an_delta(before: dict) -> dict:
+    after = an_stats()
+    return {k: after[k] - before[k] for k in after}
+
+
+class AnSyncingCriterion:
+    """The LM criterion with a deliberate ``torch.nonzero`` of the targets
+    inside the step: a sync no conversion hook sees (tier 1)."""
+
+    def __init__(self, crit):
+        self.crit = crit
+        self.line = 0
+
+    def apply(self, out, targets):
+        import torch
+        self.line = sys._getframe().f_lineno + 1
+        torch.nonzero(targets)
+        return self.crit.apply(out, targets)
+
+
+def an_region_cost(card: str, step_ms: float) -> None:
+    """(a) The guard's own cost on the host: an empty armed region in warn
+    and strict, with tier 1 held as a trainer holds it (a trainer's
+    iteration arms two: the fetch and the step), and one conversion of a
+    CPU tensor outside every region through the hook against the hook's
+    original (every conversion in the process pays that once the hooks are
+    in)."""
+    import torch
+    from bigdl_tpu_torch.analysis import HostSyncGuard
+    region = {}
+    for mode in ("warn", "strict"):
+        guard = HostSyncGuard(mode, device=DEVICE)
+        with guard.hold():
+            t = time.perf_counter()
+            for _ in range(AN_REGION_N):
+                with guard.armed():
+                    pass
+            region[mode] = (time.perf_counter() - t) / AN_REGION_N * 1e6
+    x = torch.ones(())
+    hooked = torch.Tensor.__float__
+    orig = getattr(hooked, "_bigdl_hostsync_orig", hooked)
+    conv = {}
+    for name, fn in (("hooked", hooked), ("original", orig)):
+        t = time.perf_counter()
+        for _ in range(AN_REGION_N):
+            fn(x)
+        conv[name] = (time.perf_counter() - t) / AN_REGION_N * 1e6
+    log(f"[analysis] (a) the guard's host cost: an armed region "
+        f"{region['warn']:.2f} us (warn), {region['strict']:.2f} us "
+        f"(strict), two an iteration = "
+        f"{2 * region['warn'] / (step_ms * 10):.4f}% of the off step's "
+        f"{step_ms:.2f} ms; float() of a CPU tensor {conv['hooked']:.3f} us "
+        f"hooked, {conv['original']:.3f} us original ({AN_REGION_N} each) "
+        f"on {card}")
+
+
+def an_backward_sync(card: str) -> None:
+    """(a) A ``torch.nonzero`` inside a backward, which the autograd engine
+    runs on its device thread: the strict region on the calling thread
+    raises as it ends (the device thread's own raise would be lost)."""
+    import torch
+    from bigdl_tpu_torch.analysis import HostSyncError, HostSyncGuard
+
+    class SyncInBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            torch.nonzero(g)
+            return g * 2
+
+    w = torch.ones(1024, device=DEVICE, requires_grad=True)
+
+    def run():
+        with HostSyncGuard("strict", device=DEVICE).armed():
+            SyncInBackward.apply(w).sum().backward()
+
+    an_expect_error("(a) torch.nonzero in a backward (the autograd device "
+                    "thread)", run, HostSyncError,
+                    ("autograd device thread",), card)
+
+
+def an_poison(ds, where: dict):
+    """Wrap ``ds.data``: a deliberate ``float()`` of a CUDA tensor in every
+    fetch, as a fetch transformer would make it (tier 2)."""
+    import torch
+    orig = ds.data
+
+    def poisoned(*a, **kw):
+        for batch in orig(*a, **kw):
+            where["line"] = sys._getframe().f_lineno + 1
+            float(torch.ones((), device=DEVICE))
+            yield batch
+
+    ds.data = poisoned
+    return ds
+
+
+def an_lm_run(model, init, samples, mode: str, steps: int, distri=False,
+              crit=None, poison=None):
+    """``steps`` bf16 steps of the LM (SGD 0.01, momentum 0.9) from
+    ``init`` under ``bigdl.analysis.hostSync`` = ``mode`` through
+    LocalOptimizer (or DistriOptimizer over the process group): returns
+    (optimizer, flash launches, the guard's counter deltas, median step
+    ms of steps 2..n)."""
+    import torch
+    from bigdl_tpu_torch.dataset import (LocalDataSet, SampleToMiniBatch,
+                                         ShardedDataSet)
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), init, strict=True):
+            p.copy_(v)
+    RandomGenerator.RNG().set_seed(SEED)
+    if distri:
+        ds = ShardedDataSet(samples, 1).transform(
+            SampleToMiniBatch(TRAIN_BATCH, 1))
+    else:
+        ds = LocalDataSet(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+    if poison is not None:
+        an_poison(ds, poison)
+    cls = DistriOptimizer if distri else LocalOptimizer
+    opt = cls(model, ds, crit or lm_criterion(), device=DEVICE)
+    (opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
+     .set_end_when(max_iteration(steps)))
+    with properties(bigdl__analysis__hostSync=mode):
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        before = an_stats()
+        opt.optimize()
+        torch.cuda.synchronize()
+        delta = an_delta(before)
+    ms = statistics.median(h["seconds"] for h in opt.history[1:]) * 1e3
+    return opt, dict(fa.launches), delta, ms
+
+
+def an_gate_clean(what: str, opt, launches: dict, delta: dict, steps: int,
+                  card: str, bf16: bool = True) -> None:
+    """A strict run's gates: no implicit sync, one explicit pull a step,
+    every step finite, each bf16 flash kernel once a layer a step."""
+    losses = [h["loss"] for h in opt.history]
+    log(f"[analysis] (a) {what}: {steps} steps strict, implicit syncs "
+        f"{delta['implicit']}, explicit pulls {delta['explicit_pulls']}, "
+        f"other threads' syncs {delta['other_thread']}; step "
+        f"{statistics.median(h['seconds'] for h in opt.history[1:]) * 1e3:.2f}"
+        f" ms; launches {launches} on {card}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(a) {what}: losses {losses}")
+    if delta["implicit"] != 0 or delta["explicit_pulls"] != steps:
+        raise AssertionError(f"(a) {what}: {delta}, expected 0 implicit and "
+                             f"{steps} explicit pulls")
+    if bf16:
+        expect = N_LAYERS * steps
+        got = [launches[f"flash_attention_{k}_bf16"]
+               for k in ("fwd", "bwd_dkv", "bwd_dq")]
+        if got != [expect] * 3:
+            raise AssertionError(f"(a) {what}: bf16 launches {launches}, "
+                                 f"expected {expect} each")
+
+
+def an_expect_error(what: str, run, err_type, needles, card: str) -> str:
+    """``run()`` must raise ``err_type`` with every one of ``needles`` in
+    its message; returns the message."""
+    try:
+        run()
+    except err_type as e:
+        msg = str(e)
+        missing = [n for n in needles if n not in msg]
+        log(f"[analysis] {what}: {type(e).__name__} at "
+            f"{msg.split(' at ', 1)[-1].split(' - ')[0]} on {card}")
+        if missing:
+            raise AssertionError(f"{what}: {missing} not in {msg!r}")
+        return msg
+    raise AssertionError(f"{what}: no {err_type.__name__}")
+
+
+def an_hostsync(card: str, model, init, samples) -> tuple:
+    """(a) The host-sync guard on the trainers' hot loops; returns the
+    gated runs' flash launches, summed, and the strict LocalOptimizer
+    run's Metrics."""
+    import torch
+    import torch.distributed as dist
+    import tempfile
+    import shutil
+    from bigdl_tpu_torch.analysis import HostSyncError
+    from bigdl_tpu_torch.analysis.hostsync import STATS
+    from bigdl_tpu_torch.engine import Engine
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # the interleaved off / warn / strict runs, each round's order rotated
+    # by one; warn first in the first, so that a hidden sync is listed with
+    # its site before strict would stop on it
+    medians = {m: [] for m in AN_MODES}
+    for r in range(AN_ROUNDS):
+        for mode in AN_MODES[r % 3:] + AN_MODES[:r % 3]:
+            sites = set(STATS.warned_sites)
+            opt, _, delta, ms = an_lm_run(model, init, samples, mode,
+                                          AN_TIMED)
+            medians[mode].append(ms)
+            if mode == "warn" and delta["implicit"]:
+                raise AssertionError(
+                    f"(a) hidden syncs in the LM's hot loop: {delta}; "
+                    f"sites {sorted(STATS.warned_sites - sites)}")
+    # each round's runs against its own off run: the host's drift between
+    # rounds cancels
+    ratios = {m: [a / b for a, b in zip(medians[m], medians["off"])]
+              for m in ("warn", "strict")}
+    log(f"[analysis] (a) LM B{TRAIN_BATCH}/T{SEQ} bf16 step ms by hostSync "
+        f"mode, {AN_ROUNDS} interleaved rounds of {AN_TIMED} steps: " +
+        "; ".join(f"{m} {[round(x, 2) for x in medians[m]]} (median "
+                  f"{statistics.median(medians[m]):.2f})" for m in AN_MODES) +
+        "; against the round's off run: " +
+        "; ".join(f"{m} {[round(x, 4) for x in v]} (median "
+                  f"{statistics.median(v):.4f})" for m, v in ratios.items()) +
+        f" on {card}")
+    an_region_cost(card, statistics.median(medians["off"]))
+    opt, launches, delta, _ = an_lm_run(model, init, samples, "strict",
+                                        AN_STEPS)
+    an_gate_clean(f"LocalOptimizer LM B{TRAIN_BATCH}/T{SEQ}", opt, launches,
+                  delta, AN_STEPS, card)
+    add(launches)
+    local_metrics = opt.metrics
+    # tier 2: a float() of a CUDA tensor in the fetch (the fetch thread at
+    # prefetch depth 2), named by its file:line
+    where = {}
+    with properties(bigdl__failure__retryTimes=1):
+        msg = an_expect_error(
+            "(a) float() of a CUDA tensor in the fetch",
+            lambda: an_lm_run(model, init, samples, "strict", 2,
+                              poison=where),
+            HostSyncError, ("__float__",), card)
+        if f"chip_smoke.py:{where['line']}" not in msg:
+            raise AssertionError(f"(a) the report does not name "
+                                 f"chip_smoke.py:{where['line']}: {msg}")
+        # tier 1: torch.nonzero inside the step, on the arming thread
+        crit = AnSyncingCriterion(lm_criterion())
+        msg = an_expect_error(
+            "(a) torch.nonzero inside the step",
+            lambda: an_lm_run(model, init, samples, "strict", 2, crit=crit),
+            HostSyncError, ("synchronizing CUDA call",), card)
+        if f"chip_smoke.py:{crit.line}" not in msg:
+            raise AssertionError(f"(a) the report does not name "
+                                 f"chip_smoke.py:{crit.line}: {msg}")
+    an_backward_sync(card)
+    # DistriOptimizer on one NCCL rank
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_an_")
+    Engine.init_distributed(backend="nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        opt, launches, delta, _ = an_lm_run(model, init, samples, "strict",
+                                            AN_STEPS, distri=True)
+        an_gate_clean("DistriOptimizer LM over NCCL, 1 rank", opt, launches,
+                      delta, AN_STEPS, card)
+        add(launches)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), init, strict=True):
+            p.copy_(v)
+    an_resnet(card)
+    return total, local_metrics
+
+
+def an_resnet(card: str) -> None:
+    """(a) ResNet-50 B128 bf16 at prefetch depth 2 under strict."""
+    import torch
+    from bigdl_tpu_torch.dataset import (LocalDataSet, Sample,
+                                         SampleToMiniBatch)
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    model = resnet50(DEVICE)
+    x, y = r50_batch(2 * R50_BATCH, SEED + 20)
+    samples = [Sample(a, b) for a, b in zip(x, y)]
+    RandomGenerator.RNG().set_seed(SEED)
+    ds = LocalDataSet(samples).transform(SampleToMiniBatch(R50_BATCH))
+    opt = LocalOptimizer(model, ds, ClassNLLCriterion(), device=DEVICE)
+    (opt.set_optim_method(SGD(0.01, momentum=0.9)).set_precision("bf16")
+     .set_end_when(max_iteration(AN_R50_STEPS)))
+    with properties(bigdl__analysis__hostSync="strict",
+                    bigdl__prefetch__depth=2):
+        fa.reset_launches()
+        before = an_stats()
+        opt.optimize()
+        torch.cuda.synchronize()
+        delta = an_delta(before)
+    an_gate_clean(f"ResNet-50 B{R50_BATCH} bf16, prefetch depth 2", opt,
+                  dict(fa.launches), delta, AN_R50_STEPS, card, bf16=False)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def an_retrace(card: str, model) -> None:
+    """(b) The recompile sentinels, strict."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.analysis import RetraceError
+    from bigdl_tpu_torch.serving import LMServingEngine, ServingEngine
+    rng = np.random.default_rng(SEED + 20)
+    with properties(bigdl__analysis__retrace="strict"):
+        t = time.perf_counter()
+        eng = LMServingEngine(model, quantize="int8", max_batch=MAX_BATCH,
+                              block_size=LM_BLOCK, max_context=SEQ,
+                              deadline_ms=600_000.0, device=DEVICE)
+        try:
+            eng.warmup()
+            eng.start()
+            lens = rng.integers(*AN_PROMPTS, AN_LM_REQUESTS)
+            streams = [eng.submit(rng.integers(1, VOCAB + 1, n),
+                                  max_new_tokens=AN_NEW_TOKENS)
+                       for n in lens]
+            tokens = [list(s) for s in streams]
+            sentinels = eng.sentinels
+            stats = eng.stats()
+        finally:
+            eng.close()
+        report = {k: (s.calls, s.retraces, s.compiles_in_warmup)
+                  for k, s in sentinels.items()}
+        log(f"[analysis] (b) LMServingEngine int8 tier, {AN_LM_REQUESTS} "
+            f"streams of prompts {int(lens.min())}-{int(lens.max())} tokens "
+            f"in {time.perf_counter() - t:.2f} s: sentinels (calls, "
+            f"retraces, warmup plans) {report}; decode captures "
+            f"{eng.decode_captures} on {card}")
+        if (set(report) != {"lm_decode", "lm_prefill", "lm_full",
+                            "lm_decode_int8"} or
+                any(r[1] for r in report.values()) or
+                stats["completed"] != AN_LM_REQUESTS or
+                any(len(x) != AN_NEW_TOKENS for x in tokens)):
+            raise AssertionError(f"(b) LM sentinels {report}, stats {stats}")
+        rows = rng.integers(1, VOCAB + 1, (max(AN_RAGGED), AN_ROW_T)
+                            ).astype(np.float32)
+        with properties(bigdl__compile__buckets=AN_BUCKETS):
+            with ServingEngine(model, max_batch=8, deadline_ms=600_000.0,
+                               device=DEVICE) as srv:
+                srv.warmup(rows[0])
+                for n in AN_RAGGED:
+                    for h in [srv.submit(r) for r in rows[:n]]:
+                        h.result(timeout=600)
+                s = srv.sentinel
+                report = (s.calls, s.retraces, len(s._seen))
+                log(f"[analysis] (b) ServingEngine buckets {AN_BUCKETS}, "
+                    f"ragged submissions {AN_RAGGED}: sentinel (calls, "
+                    f"retraces, signatures) {report} on {card}")
+                if report[1] != 0:
+                    raise AssertionError(
+                        f"(b) ServingEngine retraced: {s.last_diff}")
+                # a row of another dtype after warmup is a new family
+                an_expect_error("(b) ServingEngine, a float64 row after "
+                                "warmup", lambda: srv.warmup(
+                                    rows[0].astype(np.float64)),
+                                RetraceError, ("float64", "dtype"), card)
+    an_uneven(card, model)
+    torch.cuda.empty_cache()
+
+
+def an_uneven(card: str, model) -> None:
+    """(b) LocalOptimizer over batches of 2, 2, then 1 row (an uneven last
+    batch) under strict: RetraceError with the diff at the third step."""
+    import itertools
+    from bigdl_tpu_torch.analysis import RetraceError
+    from bigdl_tpu_torch.dataset import LocalDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    samples = lm_samples(5)
+    ds = LocalDataSet(samples)
+    batches = list(SampleToMiniBatch(2)(iter(samples)))
+    ds.data = lambda *a, **kw: itertools.cycle(batches)
+    opt = LocalOptimizer(model, ds, lm_criterion(), device=DEVICE)
+    (opt.set_optim_method(SGD(0.0)).set_precision("bf16")
+     .set_end_when(max_iteration(4)))
+    with properties(bigdl__analysis__retrace="strict",
+                    bigdl__failure__retryTimes=1):
+        msg = an_expect_error("(b) uneven last batch",
+                              opt.optimize, RetraceError,
+                              ("shape", f"(2, {SEQ})", f"(1, {SEQ})"), card)
+    log(f"[analysis] (b) the diff: {msg.splitlines()[1:3]}")
+
+
+def an_lbfgs_mlp(device: str, init: dict) -> list:
+    """(c1) test_dead_apis.py's problem: the 4-8-2 MLP on
+    synthetic_separable(128, 4, 2, seed=3), LBFGS(max_iter=8), 4
+    iterations; the losses."""
+    from bigdl_tpu_torch.dataset.datasets import synthetic_separable
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion, Linear, LogSoftMax,
+                                    Sequential, Tanh)
+    from bigdl_tpu_torch.optim import LBFGS, Optimizer, max_iteration
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    model = (Sequential().add(Linear(4, 8)).add(Tanh()).add(Linear(8, 2))
+             .add(LogSoftMax()))
+    model.load_state_dict(init)
+    model.to(device)
+    RandomGenerator.RNG().set_seed(SEED)
+    opt = Optimizer.create(model, synthetic_separable(128, 4, 2, seed=3),
+                           ClassNLLCriterion(), batch_size=128,
+                           device=device)
+    opt.set_optim_method(LBFGS(max_iter=LB_MAX_ITER))
+    opt.set_end_when(max_iteration(LB_ITERS))
+    opt.optimize()
+    return [h["loss"] for h in opt.history]
+
+
+def an_lbfgs(card: str) -> tuple:
+    """(c) LBFGS through LocalOptimizer, fp32 with TF32 off; returns (c2)'s
+    flash launches and its optimizer."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import LocalDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.nn import (Linear, LogSoftMax, Sequential, Tanh)
+    from bigdl_tpu_torch.optim import LBFGS, LocalOptimizer, max_iteration
+    init = (Sequential().add(Linear(4, 8)).add(Tanh()).add(Linear(8, 2))
+            .add(LogSoftMax())).state_dict()
+    with tf32_off():
+        cpu = an_lbfgs_mlp("cpu", init)
+        card_losses = an_lbfgs_mlp(DEVICE, init)
+    err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu))
+    close = all(abs(a - b) <= LB_ATOL + LB_RTOL * abs(b)
+                for a, b in zip(card_losses, cpu))
+    log(f"[analysis] (c1) LBFGS(max_iter={LB_MAX_ITER}) on the separable "
+        f"MLP, {LB_ITERS} iterations: card {card_losses}, CPU {cpu}; "
+        f"largest relative difference {err:.3e}, largest absolute "
+        f"{max(abs(a - b) for a, b in zip(card_losses, cpu)):.3e} (rtol "
+        f"{LB_RTOL:g}, atol {LB_ATOL:g}) on {card}")
+    if len(cpu) != LB_ITERS or not close:
+        raise AssertionError(f"(c1) LBFGS losses: card {card_losses}, CPU "
+                             f"{cpu}")
+    model = rz_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    history = 2 * LB_CORR * 4 * n_params
+    samples = lm_samples(LB_BATCH)
+    evals = {"n": 0}
+    hook = model.register_forward_pre_hook(
+        lambda m, a: evals.__setitem__("n", evals["n"] + 1))
+    opt = LocalOptimizer(
+        model, LocalDataSet(samples).transform(SampleToMiniBatch(LB_BATCH)),
+        lm_criterion(), device=DEVICE)
+    opt.set_optim_method(LBFGS(max_iter=LB_ITER, n_correction=LB_CORR,
+                               line_search=True))
+    rows = []
+    try:
+        with tf32_off():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            for _ in range(LB_CALLS):
+                opt.set_end_when(max_iteration(
+                    opt.optim_method.state["evalCounter"] + 1))
+                n0, t0 = evals["n"], time.perf_counter()
+                opt.optimize()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                n = evals["n"] - n0
+                rows.append((opt.history[-1]["loss"], n, dt * 1e3 / n))
+            launches = dict(fa.launches)
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        hook.remove()
+    log(f"[analysis] (c2) LBFGS(max_iter={LB_ITER}, n_correction={LB_CORR},"
+        f" line_search) on the {RZ_LAYERS}-layer LM at full width "
+        f"({n_params:,} parameters; history {history / 2**30:.2f} GiB), "
+        f"fixed B{LB_BATCH}/T{SEQ}, fp32 TF32 off, {LB_CALLS} calls: "
+        f"(final loss, evaluations, ms per evaluation) "
+        f"{[(round(l, 6), n, round(ms, 2)) for l, n, ms in rows]}; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches} on {card}")
+    losses = [r[0] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or any(
+            b > a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"(c2) LBFGS call losses {losses}")
+    for k in ("fwd", "bwd_dkv", "bwd_dq"):
+        if launches[f"flash_attention_{k}_fp32"] <= 0:
+            raise AssertionError(f"(c2) fp32 {k} kernel not launched: "
+                                 f"{launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, opt
+
+
+def an_serving_p50(card: str, model) -> None:
+    """(d) ServingEngine's p50 with the witness armed and disarmed,
+    interleaved, one request at a time."""
+    import numpy as np
+    from bigdl_tpu_torch.analysis import lockwitness
+    from bigdl_tpu_torch.serving import ServingEngine
+    rows = np.random.default_rng(SEED + 21).integers(
+        1, VOCAB + 1, (AN_P50_REQUESTS, AN_ROW_T)).astype(np.float32)
+    p50 = {"disarmed": [], "armed": []}
+    for _ in range(AN_P50_ROUNDS):
+        for state in ("disarmed", "armed"):
+            if state == "armed":
+                lockwitness.arm("strict")
+            else:
+                lockwitness.disarm()
+            with ServingEngine(model, max_batch=MAX_BATCH,
+                               deadline_ms=600_000.0, device=DEVICE) as eng:
+                eng.warmup(rows[0])
+                lat = []
+                for r in rows:
+                    t0 = time.perf_counter()
+                    eng.submit(r).result(timeout=600)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            p50[state].append(statistics.median(lat))
+    lockwitness.arm("strict")
+    log(f"[analysis] (d) serving p50 ms, B1/T{AN_ROW_T} requests, "
+        f"{AN_P50_ROUNDS} interleaved rounds: disarmed "
+        f"{[round(x, 3) for x in p50['disarmed']]}, armed "
+        f"{[round(x, 3) for x in p50['armed']]}; medians "
+        f"{statistics.median(p50['disarmed']):.3f} / "
+        f"{statistics.median(p50['armed']):.3f} on {card}")
+
+
+def an_lock_delay(card: str) -> None:
+    """(d) ``bigdl.chaos.lockDelayAt``: the k-th acquisition of the named
+    witness lock stalls the given seconds, once."""
+    from bigdl_tpu_torch.analysis.lockwitness import make_lock
+    from bigdl_tpu_torch.utils import chaos
+    name, k, secs = AN_LOCK_DELAY
+    with properties(bigdl__chaos__lockDelayAt=f"{name}:{k}:{secs}"):
+        chaos.install()
+        try:
+            lock = make_lock(name)
+            times = []
+            for _ in range(k + 1):
+                t0 = time.perf_counter()
+                with lock:
+                    pass
+                times.append(time.perf_counter() - t0)
+            fired = chaos._state.lock_delays
+        finally:
+            chaos.uninstall()
+    log(f"[analysis] (d) lockDelayAt {name}:{k}:{secs}: acquisition ms "
+        f"{[round(t * 1e3, 3) for t in times]}, fired {fired} on {card}")
+    if (fired != 1 or times[k - 1] < secs or
+            max(t for i, t in enumerate(times) if i != k - 1) >= secs):
+        raise AssertionError(f"(d) lockDelayAt: {times}, fired {fired}")
+
+
+def an_contracts(card: str) -> None:
+    """(e) check_model on the full-width LM and on ResNet-50, in a child
+    process (``chip_smoke.py --contracts``): ok, 0 CUDA kernels, the walk's
+    wall time.  The kernels are counted with torch.profiler, which in a
+    process that has run this script's earlier windows and trainers came
+    to record no kernel at all, window after window (seen in development
+    runs); a fresh process's profiler is trusted only after it sees a
+    control matmul."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--contracts"], cwd=HERE, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         timeout=AN_CHILD_TIMEOUT)
+    sys.stderr.write(out.stdout)
+    sys.stderr.flush()
+    if out.returncode != 0:
+        raise AssertionError(f"(e) the contract check's child exited "
+                             f"{out.returncode} on {card}")
+
+
+def contracts_child() -> int:
+    """``chip_smoke.py --contracts``: leg (e) of phase 20 in a fresh
+    process.  The walk shares its profiler window with a control matmul
+    whose kernels a window of its own counts first; the pair is tried
+    again (up to AN_PROFILE_TRIES) until both windows see the control, and
+    the walk's kernels are the shared window's beyond the control's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.analysis import check_model
+    from bigdl_tpu_torch.analysis.retrace import Spec
+    card = gpu_line()
+    x = torch.ones(1024, 1024, device=DEVICE)
+
+    def kernels(fn) -> list:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+    for name, m, spec in (
+            (f"LM B{TRAIN_BATCH}/T{SEQ}", lm(flash=True),
+             Spec((TRAIN_BATCH, SEQ), torch.float32)),
+            (f"ResNet-50 B{R50_BATCH}", resnet50(DEVICE),
+             Spec((R50_BATCH,) + R50_IMAGE, torch.float32))):
+        out = {}
+
+        def walk():
+            t0 = time.perf_counter()
+            out["rep"] = check_model(m, spec, mode="strict")
+            out["wall"] = time.perf_counter() - t0
+            torch.mm(x, x)
+
+        for attempt in range(1, AN_PROFILE_TRIES + 1):
+            control = kernels(lambda: torch.mm(x, x))
+            shared = kernels(walk)
+            if control and len(shared) >= len(control):
+                break
+        else:
+            log(f"(e) torch.profiler saw no CUDA kernel of the control in "
+                f"{AN_PROFILE_TRIES} tries on {card}")
+            return 1
+        walked = len(shared) - len(control)
+        log(f"[analysis] (e) check_model({name}): {out['rep']}; walk "
+            f"{out['wall'] * 1e3:.1f} ms, CUDA kernels {walked} (the "
+            f"window's {len(shared)} less the control matmul's "
+            f"{len(control)}; try {attempt}) on {card}")
+        if not out["rep"].ok or walked:
+            log(f"(e) {name}: {out['rep']}, kernels {shared} against the "
+                f"control's {control}")
+            return 1
+        del m
+        torch.cuda.empty_cache()
+    return 0
+
+
+def profiler_control() -> tuple:
+    """(CUDA kernels, CUDA runtime calls) that a fresh torch.profiler
+    window records around one 1024 x 1024 matmul."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, 1024, device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.mm(x, x)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    return (sum(e.device_type().name == "CUDA" for e in events),
+            sum(e.name().startswith("cuda") for e in events))
+
+
+def profiler_probe(arm: str, runs: int = AN_PROBE_RUNS) -> int:
+    """``chip_smoke.py --profiler-probe ARM [N]``: N runs of
+    AN_PROBE_STEPS LM steps, each followed by a control window
+    (:func:`profiler_control`); prints the windows that saw no kernel.
+    ``plain``: a hand loop of fp32 forward, backward and SGD, no trainer;
+    ``off``: ``LocalOptimizer`` with the host-sync guard never armed in the
+    process; ``guard``: ``LocalOptimizer`` cycling the guard warn, off,
+    strict; ``hooks``: the same with tier 1 stubbed out (the conversion
+    hooks alone); ``mode``: the guard off and the sync debug mode set to
+    warn around each run (tier 1's setting alone, no handler); ``idle``:
+    no run, the control windows alone.  No NCCL group is made in any
+    arm."""
+    import torch
+    from bigdl_tpu_torch.analysis import hostsync
+    if arm not in ("plain", "off", "guard", "hooks", "mode", "idle"):
+        log(f"--profiler-probe: unknown arm {arm!r}")
+        return 2
+    if arm == "hooks":
+        hostsync._tier1_enter = hostsync._tier1_exit = lambda: None
+    card = gpu_line()
+    phase_build(card)
+    model = lm(flash=True)
+    init = [p.detach().clone() for p in model.parameters()]
+    samples = lm_samples()
+    crit = lm_criterion()
+    x = torch.stack([torch.as_tensor(s.feature) for s in
+                     samples[:TRAIN_BATCH]]).to(DEVICE)
+    y = torch.stack([torch.as_tensor(s.label) for s in
+                     samples[:TRAIN_BATCH]]).to(DEVICE)
+    first = profiler_control()
+    blind = []
+    t0 = time.perf_counter()
+    for i in range(runs):
+        if arm == "plain":
+            for _ in range(AN_PROBE_STEPS):
+                loss = crit.apply(model(x), y)
+                loss.backward()
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.add_(p.grad, alpha=-0.01)
+                        p.grad = None
+                float(loss)
+        elif arm == "idle":
+            pass
+        elif arm == "mode":
+            torch.cuda.set_sync_debug_mode("warn")
+            an_lm_run(model, init, samples, "off", AN_PROBE_STEPS)
+            torch.cuda.set_sync_debug_mode(0)
+        else:
+            mode = "off" if arm == "off" else AN_MODES[i % 3]
+            an_lm_run(model, init, samples, mode, AN_PROBE_STEPS)
+        kernels, runtime = profiler_control()
+        if kernels == 0:
+            blind.append((i, runtime))
+    log(f"[probe] profiler after {arm} LM runs: the first control window "
+        f"saw (kernels, runtime calls) {first}; blind windows (run, runtime "
+        f"calls) {blind}, {len(blind)} of {runs}, over "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return 0
+
+
+def phase_analysis(card: str) -> dict:
+    """Phase 20: the analysis passes, Metrics and LBFGS (see the module
+    docstring).  Returns the phase's flash launches: (a)'s gated runs and
+    (c2)."""
+    import torch
+    from bigdl_tpu_torch.analysis import lockwitness
+    t0 = time.perf_counter()
+    lockwitness.reset()
+    lockwitness.arm("strict")
+    try:
+        model = lm(flash=True)
+        init = [p.detach().clone() for p in model.parameters()]
+        samples = lm_samples()
+        launches, local_metrics = an_hostsync(card, model, init, samples)
+        an_retrace(card, model)
+        lb_launches, lb_opt = an_lbfgs(card)
+        for k, v in lb_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        ft_dispatch(card, model)
+        snap = lockwitness.snapshot()
+        log(f"[analysis] (d) lock witness strict over (a)-(c) and the "
+            f"wedged ServingEngine: {snap} on {card}")
+        if snap["violations"] or snap["acquires"] <= 0:
+            raise AssertionError(f"(d) lock witness: {snap}")
+        an_serving_p50(card, model)
+        an_lock_delay(card)
+        an_contracts(card)
+        log(f"[analysis] (f) Metrics of (a)'s strict LocalOptimizer run on "
+            f"{card}:\n{local_metrics.summary()}")
+        log(f"[analysis] (f) Metrics of (c2) on {card}:\n"
+            f"{lb_opt.metrics.summary()}")
+    finally:
+        lockwitness.disarm()
+        lockwitness.reset()
+    del model, init
+    torch.cuda.empty_cache()
+    log(f"[analysis] phase 20 took {time.perf_counter() - t0:.1f} s on "
+        f"{card}; launches {launches}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
                 sharded: dict, pipelined: dict, resilient: dict,
-                failures: dict, library: dict) -> list:
+                failures: dict, library: dict, analysis: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -6572,7 +7397,9 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     16 (a) (the ring and the pipeline blocks run no flash: 0),
     ``resilience_launches`` in phase 17 (the bf16 kernels > 0, the fp32
     ones 0), ``failure_launches`` in phase 18 (a) (the fp32 forward > 0,
-    the rest 0), ``library_launches`` in phase 19 (no flash model: 0)."""
+    the rest 0), ``library_launches`` in phase 19 (no flash model: 0),
+    ``analysis_launches`` in phase 20's gated trainer runs, (a) and (c2)
+    (all six > 0: the fp32 backward kernels' first trainer launches)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -6594,7 +7421,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "pipeline_launches": pipelined[name],
                     "resilience_launches": resilient.get(name, 0),
                     "failure_launches": failures.get(name, 0),
-                    "library_launches": library.get(name, 0)})
+                    "library_launches": library.get(name, 0),
+                    "analysis_launches": analysis.get(name, 0)})
     return out
 
 
@@ -6664,6 +7492,19 @@ def main(argv=None) -> int:
                          argv[5])
     if argv[:1] in (["--tp"], ["--ep"], ["--pp"], ["--sp"]):
         return main_mesh(argv[0][2:], int(argv[1]), argv[2])
+    if argv[:1] == ["--contracts"]:   # phase 20 (e)'s child
+        if not os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch")):
+            return 1
+        sys.path.insert(0, HERE)
+        return contracts_child()
+    if argv[:1] == ["--profiler-probe"]:
+        if not (torch.cuda.is_available() and
+                os.path.isdir(os.path.join(HERE, "bigdl_tpu_torch"))):
+            return 1
+        sys.path.insert(0, HERE)
+        fail_fast()
+        return profiler_probe(argv[1] if len(argv) > 1 else "",
+                              *[int(a) for a in argv[2:3]])
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
         return 1
@@ -6718,10 +7559,13 @@ def main(argv=None) -> int:
     failures = phase_failures(card)
     torch.cuda.empty_cache()
     library = phase_layer_library(card)
+    torch.cuda.empty_cache()
+    analysis = phase_analysis(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
-                          sharded, pipelined, resilient, failures, library)
+                          sharded, pipelined, resilient, failures, library,
+                          analysis)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

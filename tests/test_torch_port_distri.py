@@ -80,6 +80,7 @@ from bigdl_tpu_torch.utils.convert import (params_from_jax, params_to_jax,
                                            state_to_jax)
 from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 from tests.test_e2e_train import synthetic_digit_images
+from test_torch_port_analysis import port_lock_witness  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 17

@@ -71,6 +71,7 @@ from bigdl_tpu_torch.utils import config as pconfig
 from bigdl_tpu_torch.utils.convert import (params_from_jax, params_to_jax,
                                            state_to_jax)
 from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+from test_torch_port_analysis import port_lock_witness  # noqa: F401
 
 N_IMAGES, HW, BATCH, CROP = 24, (40, 48), 8, (32, 32)
 SEED = 20240731

@@ -63,6 +63,12 @@ def ints(*shape, lo=-4, hi=5, seed=0):
         np.float32)
 
 
+def ids(*shape, n, seed=0):
+    """1-based float ids in [1, n] (the lookup layers' Torch convention)."""
+    return np.random.default_rng(seed).integers(1, n + 1, shape).astype(
+        np.float32)
+
+
 def normal(*shape, seed=0, scale=1.0):
     return (scale * np.random.default_rng(seed).standard_normal(shape)) \
         .astype(np.float32)
@@ -128,6 +134,12 @@ MODULE_CASES = [
     ("HardShrink", "HardShrink", (0.3,), lambda: normal(3, 5), ELEMENTWISE),
     ("HardTanh", "HardTanh", (-0.5, 0.8), lambda: normal(3, 5), ELEMENTWISE),
     ("Clamp", "Clamp", (-0.2, 0.4), lambda: normal(3, 5), ELEMENTWISE),
+    ("LookupTable-maxnorm-p1", "LookupTable", (10, 4, 0, 0.8, 1.0),
+     lambda: ids(3, 5, n=10), ELEMENTWISE),
+    ("LookupTable-maxnorm-p2", "LookupTable", (10, 4, 0, 0.8, 2.0),
+     lambda: ids(3, 5, n=10), ELEMENTWISE),
+    ("LookupTable-maxnorm-p3", "LookupTable", (10, 4, 0, 0.8, 3.0),
+     lambda: ids(3, 5, n=10), ELEMENTWISE),
     ("Power", "Power", (2.5, 0.5, 1.0), lambda: positive(3, 5),
      ELEMENTWISE),
     ("Sqrt", "Sqrt", (), lambda: positive(3, 5), ELEMENTWISE),

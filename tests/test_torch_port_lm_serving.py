@@ -68,6 +68,7 @@ from bigdl_tpu_torch.serving.engine import OUTCOMES
 from bigdl_tpu_torch.serving.kv_cache import DUMP_BLOCK
 from bigdl_tpu_torch.utils import chaos, config, elastic
 from bigdl_tpu_torch.utils.convert import params_from_jax
+from test_torch_port_analysis import port_lock_witness  # noqa: F401
 
 VOCAB = 32
 SHAPE = dict(d_model=16, n_head=2, n_layers=2, max_len=64)
@@ -588,14 +589,16 @@ def test_run_open_loop_drives_serving_engine():
 
 
 # ---------------------------------------------------------------------------
-# (g) what is not ported raises: the sentinels, in every configuration
+# (g) the recompile sentinels, in every configuration
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["quantize_arg", "quantize_key",
                                   "stall_factor"])
 def test_left_out_features_raise(case, models):
-    """The int8 tier and the watchdog build now; the retrace sentinels
-    still raise in each configuration."""
+    """The int8 tier and the watchdog build, and every configuration has
+    its recompile sentinels (they raised NotImplementedError before the
+    port had them): one per step, ``lm_decode_int8`` with the int8 tier,
+    every planned shape registered as a warmup plan, none a retrace."""
     kw = {}
     if case == "quantize_arg":
         kw["quantize"] = "int8"
@@ -605,19 +608,30 @@ def test_left_out_features_raise(case, models):
         config.set_property("bigdl.lm.stallFactor", 20.0)
     eng = LMServingEngine(models[1], device="cpu", **ENGINE, **kw)
     assert eng.quantize == ("off" if case == "stall_factor" else "int8")
-    with pytest.raises(NotImplementedError, match="decode_captures"):
-        eng.sentinels
+    labels = {"lm_decode", "lm_prefill", "lm_full"}
+    if eng.quantize == "int8":
+        labels.add("lm_decode_int8")
+    sentinels = eng.sentinels
+    assert set(sentinels) == labels
+    assert sentinels["lm_prefill"].compiles_in_warmup == len(eng._buckets)
+    assert all(s.retraces == 0 for s in sentinels.values())
     eng.close()
 
 
-def test_sentinels_raise_and_unknown_quantize_is_refused(models):
+def test_sentinels_raise_and_unknown_quantize_is_refused(models, offline,
+                                                          jax_engine):
+    """An unknown tier is refused; the offline engine (warmed up, then
+    generating at mixed prompt lengths) shows zero post-warmup retraces
+    under the JAX engine's labels."""
     for tier in ("fp8", "int4"):
         with pytest.raises(ValueError, match="int8"):
             LMServingEngine(models[1], device="cpu", quantize=tier, **ENGINE)
-    eng = _engine(models[1], warm=False)
-    with pytest.raises(NotImplementedError, match="decode_captures"):
-        eng.sentinels
-    eng.close()
+    for n in (3, 9, 17):
+        offline.generate(_prompt(n, seed=n), max_new_tokens=3)
+        offline.generate_sequential(_prompt(n, seed=n), max_new_tokens=2)
+    sentinels = offline.sentinels
+    assert set(sentinels) == set(jax_engine.sentinels)
+    assert all(s.retraces == 0 and s.calls > 0 for s in sentinels.values())
 
 
 # ---------------------------------------------------------------------------

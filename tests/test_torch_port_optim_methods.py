@@ -154,8 +154,21 @@ def test_method_matches_jax_over_ten_steps(name, kw):
 
 
 def test_lbfgs_is_refused():
-    with pytest.raises(NotImplementedError, match="LBFGS"):
-        pom.LBFGS()
+    """LBFGS builds with the JAX package's hyper-parameters and refuses
+    only the fused step: its ``pure_update`` raises the JAX text (the line
+    search re-evaluates the loss, through ``optimize(feval, x)``), and it
+    asks the trainers for the feval path."""
+    j, p = jom.LBFGS(max_iter=7, line_search=True), pom.LBFGS(
+        max_iter=7, line_search=True)
+    for attr in ("max_iter", "max_eval", "tolerance_fun", "tolerance_x",
+                 "n_correction", "learning_rate", "line_search",
+                 "requires_feval"):
+        assert getattr(j, attr) == getattr(p, attr), attr
+    assert j.state == p.state
+    for m in (j, p):
+        with pytest.raises(NotImplementedError,
+                           match="LBFGS needs re-evaluation inside the step"):
+            m.pure_update([], [], {}, {})
 
 
 # ----------------------------------------------------------- the schedules
@@ -333,6 +346,37 @@ def test_distri_optimizer_shards_the_method_bit_for_bit(group1, name):
     assert l0 == l1 and len(s0) == len(s1) > 0
     for a, b in zip(p0 + s0, p1 + s1):
         assert torch.equal(a, b)
+
+
+def test_distri_optimizer_refuses_lbfgs_like_jax(group1):
+    """Neither package's data-parallel trainer has a feval step: its first
+    step calls LBFGS's ``pure_update``, which raises (the JAX package's
+    retry loop retries it; with one attempt, both raise the same text)."""
+    from bigdl_tpu.dataset import ShardedDataSet as JaxShardedDataSet
+    from bigdl_tpu.dataset import SampleToMiniBatch as JaxSampleToMiniBatch
+    from bigdl_tpu.parallel import DistriOptimizer as JaxDistriOptimizer
+    from bigdl_tpu.utils import config as jconfig
+    records = jax_synthetic_separable(32, 4, n_classes=3, seed=9)
+    jm = _mlp(jnn)
+    jm.reset(jax.random.PRNGKey(4))
+    jds = JaxShardedDataSet(records, partition_num=8).transform(
+        JaxSampleToMiniBatch(16, 8))
+    pds = ShardedDataSet([Sample(s.features[0], s.labels[0])
+                          for s in records], 1).transform(
+        SampleToMiniBatch(16))
+    with properties([jconfig, pconfig], bigdl__failure__retryTimes=1):
+        for opt, mod in ((JaxDistriOptimizer(jm, jds,
+                                             jnn.ClassNLLCriterion()),
+                          joptim),
+                         (DistriOptimizer(_mlp(pnn, device="cpu"), pds,
+                                          pnn.ClassNLLCriterion(),
+                                          device="cpu"), poptim)):
+            opt.set_optim_method(mod.LBFGS())
+            opt.set_end_when(mod.max_iteration(2))
+            with pytest.raises(NotImplementedError,
+                               match="LBFGS needs re-evaluation inside the "
+                                     "step; use optimize"):
+                opt.optimize()
 
 
 def test_optim_method_saves_and_loads_as_plain_data(tmp_path):

@@ -84,6 +84,7 @@ from bigdl_tpu_torch.utils import chaos, config, elastic
 from bigdl_tpu_torch.utils.checkpoint_manager import CheckpointManager
 from bigdl_tpu_torch.utils.convert import params_from_jax, params_to_jax
 from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+from test_torch_port_analysis import port_lock_witness  # noqa: F401
 
 #: weights after an injected fault against an uninjected run, and the port
 #: against the JAX package (tests/test_resources.py:470)

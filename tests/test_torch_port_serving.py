@@ -45,6 +45,7 @@ from bigdl_tpu_torch.serving import (DeadlineExceeded, HungDispatchError,
 from bigdl_tpu_torch.serving.engine import OUTCOMES
 from bigdl_tpu_torch.utils import chaos, config, elastic
 from bigdl_tpu_torch.utils.convert import params_from_jax
+from test_torch_port_analysis import port_lock_witness  # noqa: F401
 
 VOCAB, T = 64, 128
 SHAPE = dict(d_model=128, n_head=1, n_layers=2, max_len=256)
@@ -138,6 +139,75 @@ def test_served_results_match_jax(models):
     for got, ref in zip(outs["port"], outs["jax"]):
         assert isinstance(got, np.ndarray) and got.shape == (T, VOCAB)
         np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+def test_sentinel_sees_no_retrace_over_ragged_batches(models):
+    """``bigdl.compile.buckets=1,2,4``: every padded batch is a planned
+    shape, registered when the row family first runs (the JAX engine's
+    bucket plan registers its variants the same way), so ragged batches
+    after warmup are no retrace."""
+    config.set_property("bigdl.compile.buckets", "1,2,4")
+    try:
+        with _make("port", models) as eng:
+            eng.warmup(_rows(1)[0])
+            sentinel = eng.sentinel
+            assert sentinel is not None and sentinel.calls == 3
+            assert sentinel.compiles_in_warmup == 3
+            for n in (1, 3, 2, 4):
+                handles = [eng.submit(r) for r in _rows(n, seed=n)]
+                for h in handles:
+                    h.result(timeout=120)
+            assert sentinel.retraces == 0 and sentinel.calls > 3
+            assert len(sentinel._seen) == 3
+    finally:
+        config.clear_property("bigdl.compile.buckets")
+
+
+def _tanh_engine(pkg):
+    """A shape-agnostic model (one ``Tanh``) behind either package's
+    engine, so a drifted row still runs."""
+    if pkg == "jax":
+        import bigdl_tpu.nn as jnn
+        m = jnn.Sequential().add(jnn.Tanh())
+        m.reset(jax.random.PRNGKey(0))
+        return JaxServingEngine(m, max_batch=4, deadline_ms=LONG)
+    import bigdl_tpu_torch.nn as pnn
+    return ServingEngine(pnn.Sequential().add(pnn.Tanh()), max_batch=4,
+                         deadline_ms=LONG, device="cpu")
+
+
+@pytest.mark.parametrize("drift", [np.zeros(6, np.float32),
+                                   np.zeros(8, np.int32)],
+                         ids=["width", "dtype"])
+def test_drifted_row_after_warmup_retraces_as_in_jax(drift):
+    """``bigdl.compile.buckets=1,2,4``: a row family first seen after
+    warmup (re-pinned by a second ``warmup``) counts the same retraces and
+    warmup plans in both packages, and a strict sentinel raises in both."""
+    from bigdl_tpu.analysis.retrace import RetraceError as JaxRetraceError
+    from bigdl_tpu_torch.analysis import RetraceError
+    counts = {}
+    for pkg, cfg, err in (("jax", jax_config, JaxRetraceError),
+                          ("port", config, RetraceError)):
+        cfg.set_property("bigdl.compile.buckets", "1,2,4")
+        cfg.set_property("bigdl.analysis.retrace", "warn")
+        try:
+            with _tanh_engine(pkg) as eng:
+                eng.warmup(np.zeros(8, np.float32))
+                for n in (1, 3, 2, 4):
+                    for h in [eng.submit(np.ones(8, np.float32))
+                              for _ in range(n)]:
+                        h.result(timeout=60)
+                s = eng.sentinel
+                before = (s.retraces, s.compiles_in_warmup)
+                eng.warmup(drift)
+                counts[pkg] = before + (s.retraces, s.compiles_in_warmup)
+                s.mode = "strict"
+                with pytest.raises(err, match="shape"):
+                    eng.warmup(drift.astype(np.float16))
+        finally:
+            cfg.clear_property("bigdl.compile.buckets")
+            cfg.clear_property("bigdl.analysis.retrace")
+    assert counts["port"] == counts["jax"] == (0, 3, 1, 5), counts
 
 
 def test_predictor_matches_served_rows(models):
