@@ -43,7 +43,9 @@ detection, ``bigdl.ingest.stallTimeoutSec`` > 0), the decode-pool
 autoscaler (``autoscale=True`` or ``bigdl.ingest.autoscale.enabled``), the
 synchronous fallback (``bigdl.ingest.fallbackOnFailure``), the decoded-epoch
 cache (``bigdl.ingest.epochCache``), ``device_jitter`` (its ColorJitter
-draws from JAX's threefry) and the ingest chaos keys.
+draws from JAX's threefry), and the ingest chaos keys and
+``bigdl.ingest.zeroCopyUpload`` (``utils/chaos.py``
+``refuse_unported_keys``).
 
 Telemetry (JAX :209-213, :1268-1377, :1803-1858): the ``Ingest/quarantined``,
 ``Ingest/stage_errors`` and ``Ingest/engine_failures`` counters, the spans
@@ -72,7 +74,7 @@ import numpy as np
 
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.dataset.transformer import Transformer
-from bigdl_tpu_torch.utils import config
+from bigdl_tpu_torch.utils import chaos, config
 from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 logger = logging.getLogger("bigdl_tpu_torch")
@@ -89,11 +91,6 @@ _NAME_LOCK = make_lock("ingest.name")
 #: a thread still alive then makes the close raise :class:`IngestInfraError`
 JOIN_TIMEOUT_S = 30.0
 _NAME_SEQ = [0]          # per-process engine names: ingest0, ingest1, ...
-
-#: the ingest stages' fault-injection keys of the JAX package
-CHAOS_KEYS = ("bigdl.chaos.corruptRecordAt", "bigdl.chaos.corruptRecordEvery",
-              "bigdl.chaos.failDecodeAt", "bigdl.chaos.transientReads",
-              "bigdl.chaos.killStageThread", "bigdl.chaos.starveStageAt")
 
 
 # ---------------------------------------------------------------------------
@@ -138,9 +135,9 @@ class RecordQuarantine:
         if budget is None:
             budget = config.get_int("bigdl.ingest.maxBadRecords", 0)
         self.budget = int(budget)
-        self.count = 0
-        self.by_stage: dict = {}
-        self.samples: List[dict] = []
+        self.count = 0                       # guarded-by: _lock
+        self.by_stage: dict = {}             # guarded-by: _lock
+        self.samples: List[dict] = []        # guarded-by: _lock
         self._lock = make_lock("ingest.quarantine")
 
     def admit(self, stage: str, index: Optional[int], name: Optional[str],
@@ -515,6 +512,7 @@ class StreamingIngest(Transformer):
                  stall_timeout: Optional[float] = None,
                  autoscale: Optional[bool] = None,
                  epoch_cache: Optional[bool] = None):
+        chaos.refuse_unported_keys()
         asked = []
         if device_jitter:
             asked.append("device_jitter (ColorJitter keyed by JAX's "
@@ -536,8 +534,6 @@ class StreamingIngest(Transformer):
         if (epoch_cache if epoch_cache is not None else
                 config.get_bool("bigdl.ingest.epochCache", False)):
             asked.append("the decoded-epoch cache (bigdl.ingest.epochCache)")
-        asked += [k for k in CHAOS_KEYS
-                  if config.get_property(k) not in (None, "", 0, "0")]
         if asked:
             raise NotImplementedError(
                 f"StreamingIngest: {'; '.join(asked)}: not ported yet")

@@ -4,7 +4,9 @@ classifiers, the microbatch re-plan after a device OOM
 (:mod:`~bigdl_tpu_torch.resources.microbatch`), the host-memory governor
 (:mod:`~bigdl_tpu_torch.resources.governor`) and the disk-full degradation
 of the telemetry exports.  The per-step device preflight against
-``bigdl.resources.deviceMemBudgetMB`` is not ported."""
+``bigdl.resources.deviceMemBudgetMB`` is not ported: a budget set there is
+refused where the trainers and engines start (``utils/chaos.py``
+``UNHONOURED_KEYS``)."""
 
 from bigdl_tpu_torch.resources.device import (classify_dispatch_error,
                                               preflight_pool)

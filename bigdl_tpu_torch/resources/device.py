@@ -2,8 +2,9 @@
 (``bigdl_tpu/resources/device.py`` :61 ``preflight_pool``;
 ``bigdl_tpu/resources/errors.py`` ``DeviceMemoryError``).
 
-The JAX package gates a pool against ``bigdl.resources.deviceMemBudgetMB``.
-On a CUDA device the port's budget is what the card has free
+The JAX package gates a pool against ``bigdl.resources.deviceMemBudgetMB``,
+which the port refuses (``utils/chaos.py`` ``UNHONOURED_KEYS``).  On a CUDA
+device the port's budget is what the card has free
 (``torch.cuda.mem_get_info``), so an over-budget pool raises before any of
 its buffers exist, never as an out-of-memory error halfway through serving.
 On the CPU the gate passes through, as the JAX package's does when no budget

@@ -306,6 +306,7 @@ class ServingEngine:
                  grace_period: Optional[float] = None,
                  cooldown_batches: Optional[int] = None,
                  start: bool = True, device: DeviceLike = "cuda"):
+        chaos.refuse_unported_keys()
         self.device = default_device(device)
         self.model = Predictor(model, fold_bn=fold_bn,
                                device=self.device).model

@@ -618,6 +618,7 @@ class LMServingEngine:
                  max_queue_depth: Optional[int] = None,
                  quantize: Optional[str] = None,
                  start: bool = False, device: DeviceLike = "cuda"):
+        chaos.refuse_unported_keys()
         self.device = default_device(device)
         self.graph = _LMGraph(model)
         check_on_device(model, self.device)

@@ -1,18 +1,22 @@
 """Chaos harness: configuration-driven fault injection for the training
 loop, the checkpoint write path and the serving engines
-(``bigdl_tpu/utils/chaos.py``, its training, checkpoint and serving subset:
+(``bigdl_tpu/utils/chaos.py``, its training, checkpoint, serving and fleet
+subset:
 ``install``/``uninstall``/``active`` :1074-1104, ``on_step`` :1105,
 ``take_bitflip`` :1227, ``desync_replica`` :1236, ``take_oom_dispatch``
 :1256, ``host_mem_pressure`` :1272, the storage hooks ``on_write`` :1098 and
 ``take_disk_full`` :1264, ``corrupt_state_before_save`` :1247, and the
-serving hooks :1144-1196 over ``_ChaosState`` :533-657).
+serving hooks :1144-1196, the fleet hooks ``kill_replica`` :1280,
+``corrupt_candidate`` :1288 and ``sigterm_fleet`` :1297 over
+``_ChaosState`` :533-657, :805-861).
 
 The trainers' loop consults the harness once an iteration, the trainers'
 step before each dispatch, ``utils.file_io.write_bytes`` on every payload
 write and the checkpoint manager on every capture; ``ServingEngine``'s
 batcher on every request it handles and before every dispatch,
 ``LMServingEngine``'s scheduler on every prompt it validates and before
-every decode iteration, and the open-loop load generators at every arrival.
+every decode iteration, the open-loop load generators at every arrival, the
+fleet at every submission and its rollout on every candidate it prepares.
 The keys, each read at :func:`install`:
 
 ==================================  =========================================
@@ -91,6 +95,24 @@ The keys, each read at :func:`install`:
                                     one active sequence's KV blocks
                                     "evict": the engine sheds that stream
                                     retriably and frees its blocks, once.
+``bigdl.chaos.killReplicaAt``       "k" or "k:replica": at the fleet's k-th
+                                    submitted request, replica ``replica``
+                                    (default 0) of the submitting service
+                                    has its batcher thread killed with an
+                                    asynchronously raised
+                                    ``BaseException``, once; the fleet's
+                                    supervisor sweeps its stranded requests
+                                    into ``shed`` and restarts the slot.
+``bigdl.chaos.corruptCandidateAt``  k: the k-th rollout candidate prepared
+                                    gets one float of its parameters raised
+                                    by 1.0 IN PLACE after the rollout took
+                                    its expected fingerprint, once; the
+                                    pre-cutover verification must roll it
+                                    back.
+``bigdl.chaos.sigtermFleetAt``      k: at the fleet's k-th submitted request
+                                    the harness calls
+                                    ``elastic.request_preemption`` once (a
+                                    fleet-wide SIGTERM).
 ==================================  =========================================
 
 ``bigdl.chaos.lockDelayAt``         "<lockname>:k[:seconds]": the k-th
@@ -101,11 +123,13 @@ The keys, each read at :func:`install`:
                                     check, while the witness is armed;
                                     once per position per plan.
 
-Every other ``bigdl.chaos.*`` key of the JAX package (the ingest, fleet,
-compile and audit injectors) belongs to a part the port does not have
-yet: :func:`install` raises :class:`NotImplementedError` when
-one is set (:data:`UNPORTED_KEYS`), as do the trainers
-(:func:`refuse_unported_keys`).
+Every other ``bigdl.chaos.*`` key of the JAX package (the ingest, compile
+and audit injectors) belongs to a part the port does not have yet:
+:func:`install` raises :class:`NotImplementedError` when one is set
+(:data:`UNPORTED_KEYS`), as do the trainers, both serving engines and
+``StreamingIngest`` (:func:`refuse_unported_keys`), which also refuse the
+JAX package's compile-cache, audit, zero-copy and device-budget keys when
+they ask for what the port lacks (:data:`UNHONOURED_KEYS`).
 
 Counters are process-local and count from :func:`install`; disarmed (the
 default) every hook is a no-op behind one attribute check.
@@ -127,8 +151,6 @@ UNPORTED_KEYS = (
     "bigdl.chaos.failDecodeAt", "bigdl.chaos.transientReads",
     "bigdl.chaos.killStageThread", "bigdl.chaos.starveStageAt",
     "bigdl.chaos.corruptCompileCacheAt", "bigdl.chaos.hangCompileAt",
-    "bigdl.chaos.killReplicaAt",
-    "bigdl.chaos.corruptCandidateAt", "bigdl.chaos.sigtermFleetAt",
     "bigdl.chaos.extraAllGather",
     "bigdl.chaos.f32Upcast", "bigdl.chaos.dropBucketCollective")
 
@@ -137,14 +159,55 @@ def _is_set(value) -> bool:
     return value not in (None, "", False, 0, "0", "false", "False")
 
 
+def _positive(value) -> bool:
+    return value not in (None, "") and float(value) > 0
+
+
+def _strict(value) -> bool:
+    return str(value).lower() == "strict"
+
+
+def _true(value) -> bool:
+    return str(value).lower() in ("1", "true", "yes", "on")
+
+
+#: the JAX package's other keys of parts the port does not have, each with
+#: the test of a value that asks for the missing behaviour: a directory, a
+#: timeout, a budget or ``strict``.  The values that ask for nothing (unset,
+#: 0, ``off``; ``warn``, whose JAX pass only logs; ``zeroCopyUpload``
+#: false, the copy the port makes) pass.
+UNHONOURED_KEYS = {
+    # the executable cache and compile watchdog (utils/compile_cache.py)
+    "bigdl.compile.cacheDir": _is_set,
+    "bigdl.compile.timeoutSec": _positive,
+    "bigdl.compile.keepLast": _positive,
+    "bigdl.compile.lockTimeoutSec": _positive,
+    "bigdl.compile.lockStaleSec": _positive,
+    # the static audit passes (analysis/program_contracts.py, hlo_audit.py)
+    "bigdl.audit.collectives": _strict,
+    "bigdl.audit.precision": _strict,
+    "bigdl.audit.memory": _strict,
+    # the JAX ingest's dlpack hand-off of the assembler's buffers
+    "bigdl.ingest.zeroCopyUpload": _true,
+    # the fused step's device-memory preflight (resources/device.py)
+    "bigdl.resources.deviceMemBudgetMB": _positive,
+}
+
+
 def refuse_unported_keys() -> None:
     """Raise :class:`NotImplementedError` naming every set key of
-    :data:`UNPORTED_KEYS`."""
+    :data:`UNPORTED_KEYS` and every key of :data:`UNHONOURED_KEYS` whose
+    value asks for what the port lacks.  Called where the trainers, both
+    serving engines and ``StreamingIngest`` start, and by
+    :func:`install`."""
     asked = [k for k in UNPORTED_KEYS if _is_set(config.get_property(k))]
+    asked += [f"{k}={config.get_property(k)!r}"
+              for k, asks in UNHONOURED_KEYS.items()
+              if asks(config.get_property(k))]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: these fault injectors belong to parts of "
-            "the JAX package that are not ported yet")
+            f"{', '.join(asked)}: these keys ask for parts of the JAX "
+            "package that are not ported yet")
 
 
 class ChaosError(IOError):
@@ -274,6 +337,27 @@ def _corrupt_payload(obj):
     return copy if walk(copy) else None
 
 
+def _nudge_first_float(obj) -> bool:
+    """Raise the first element of the first float tensor reachable from
+    ``obj`` (a module's parameters and buffers in their order, or dicts,
+    lists and tuples of tensors) by 1.0 in place.  True when something
+    changed."""
+    import torch
+    if isinstance(obj, torch.nn.Module):
+        obj = list(obj.state_dict(keep_vars=True).values())
+    if isinstance(obj, torch.Tensor):
+        if obj.is_floating_point() and obj.numel():
+            with torch.no_grad():
+                obj.view(-1)[0] += 1.0
+            return True
+        return False
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return any(_nudge_first_float(v) for v in obj)
+    return False
+
+
 class _ChaosState:
     """One armed injection plan: the parsed keys and their counters."""
 
@@ -315,6 +399,12 @@ class _ChaosState:
         self.hang_decode_at, self.hang_decode_seconds = _parse_stall(
             config.get_property("bigdl.chaos.hangDecodeAt"))
         self.evict_block_at = config.get_int("bigdl.chaos.evictBlockAt", 0)
+        self.kill_replica_at, self.kill_replica_index = _parse_indexed(
+            config.get_property("bigdl.chaos.killReplicaAt"), 0)
+        self.corrupt_candidate_at = config.get_int(
+            "bigdl.chaos.corruptCandidateAt", 0)
+        self.sigterm_fleet_at = config.get_int(
+            "bigdl.chaos.sigtermFleetAt", 0)
         (self.lock_delay_name, self.lock_delay_at,
          self.lock_delay_seconds) = _parse_lock_delay(
             config.get_property("bigdl.chaos.lockDelayAt"))
@@ -342,6 +432,10 @@ class _ChaosState:
         self.prompt_poison_fired: set = set()
         self.decode_hangs = 0
         self.block_evictions = 0
+        self.replica_kills = 0
+        self.candidates_prepared = 0
+        self.candidate_corruptions = 0
+        self.fleet_sigterms = 0
         self.lock_delays_fired: set = set()
         self.lock_delays = 0
         self._lock = make_lock("chaos.plan")
@@ -606,6 +700,59 @@ class _ChaosState:
             self.bursts_fired.add(index)
         return self.burst_arrivals_n if fire else 0
 
+    # ---- the fleet -----------------------------------------------------
+
+    def kill_replica(self, submits: int) -> Optional[int]:
+        """The replica index whose batcher to kill now, or None: fires once
+        when the fleet's submitted-request count reaches
+        ``killReplicaAt``."""
+        if not self.kill_replica_at:
+            return None
+        with self._lock:
+            fire = (submits >= self.kill_replica_at and
+                    self.replica_kills == 0)
+            if fire:
+                self.replica_kills = 1
+        if fire:
+            _incident_note("kill_replica", submits=submits,
+                           replica=self.kill_replica_index)
+        return self.kill_replica_index if fire else None
+
+    def corrupt_candidate(self, model) -> bool:
+        """Called by the rollout with each candidate AFTER its expected
+        fingerprint was taken: the ``corruptCandidateAt``-th candidate gets
+        one float raised by 1.0 in place (no protective copy: the
+        candidate is what would serve).  True when it changed; once."""
+        if not self.corrupt_candidate_at:
+            return False
+        with self._lock:
+            self.candidates_prepared += 1
+            fire = (self.candidates_prepared == self.corrupt_candidate_at
+                    and self.candidate_corruptions == 0)
+            if fire:
+                self.candidate_corruptions = 1
+        if not fire:
+            return False
+        _incident_note("corrupt_candidate",
+                       candidate=self.candidates_prepared)
+        return _nudge_first_float(model)
+
+    def sigterm_fleet(self, submits: int) -> bool:
+        """Requests preemption once when the fleet's submitted-request count
+        reaches ``sigtermFleetAt``: the flag a SIGTERM handler sets."""
+        if not self.sigterm_fleet_at:
+            return False
+        with self._lock:
+            fire = (submits >= self.sigterm_fleet_at and
+                    self.fleet_sigterms == 0)
+            if fire:
+                self.fleet_sigterms = 1
+        if fire:
+            from bigdl_tpu_torch.utils import elastic
+            _incident_note("sigterm_fleet", submits=submits)
+            elastic.request_preemption("chaos: injected fleet-wide SIGTERM")
+        return fire
+
 
 def _parse_lock_delay(value) -> Tuple[Optional[str], int, float]:
     """``"lockname:k"`` -> (lockname, k, 0.05); ``"lockname:k:seconds"``
@@ -758,3 +905,27 @@ def burst_arrivals(index: int) -> int:
     if _state is None:
         return 0
     return _state.burst_arrivals(index)
+
+
+def kill_replica(submits: int) -> Optional[int]:
+    """Fleet submit hook (None when disarmed): the replica index whose
+    batcher thread to kill now."""
+    if _state is None:
+        return None
+    return _state.kill_replica(submits)
+
+
+def corrupt_candidate(model) -> bool:
+    """Rollout candidate hook (False when disarmed): True when the
+    candidate's weights were changed in place."""
+    if _state is None:
+        return False
+    return _state.corrupt_candidate(model)
+
+
+def sigterm_fleet(submits: int) -> bool:
+    """Fleet submit hook (False when disarmed): requests preemption at the
+    ``sigtermFleetAt``-th submitted request."""
+    if _state is None:
+        return False
+    return _state.sigterm_fleet(submits)

@@ -53,8 +53,12 @@ through :func:`~bigdl_tpu_torch.utils.file_io.write_bytes`, where the
 storage injectors act (``failWriteAt``, ``truncateWriteAt``,
 ``transientWrites``, ``diskFullAt``; :mod:`~bigdl_tpu_torch.utils.chaos`).
 
-Not ported: ``watch_latest`` and remote stores
-(:mod:`bigdl_tpu_torch.utils.file_io` is local only).
+:meth:`CheckpointManager.watch_latest` (JAX :619-660) is the fleet's
+promotion poll: one ``stat`` of the directory while its mtime holds still,
+a names-only rescan when it moves, each new snapshot shallow-verified once.
+
+Not ported: remote stores (:mod:`bigdl_tpu_torch.utils.file_io` is local
+only).
 """
 
 from __future__ import annotations
@@ -151,7 +155,7 @@ class _AsyncWriter:
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._lock = make_lock("checkpoint.writer")
-        self._error: Optional[BaseException] = None   # guarded by _lock
+        self._error: Optional[BaseException] = None   # guarded-by: _lock
 
     def submit(self, job) -> None:
         self.join()
@@ -259,8 +263,16 @@ class CheckpointManager:
         #: guards the two below; a full disk degrades to one snapshot, the
         #: newest, kept in memory
         self._state_lock = make_lock("checkpoint.state")
-        self._storage_degraded = False
-        self._memory_snapshot: Optional[Dict[str, Any]] = None
+        self._storage_degraded = False                          # guarded-by: _state_lock
+        self._memory_snapshot: Optional[Dict[str, Any]] = None  # guarded-by: _state_lock
+        #: watch_latest()'s poll cache: the directory's mtime at the last
+        #: scan, that scan's answer, and the snapshots already
+        #: shallow-verified (a rescan re-lists names but never re-reads
+        #: their manifests)
+        self._watch_mtime: Optional[float] = None
+        self._watch_latest: Optional[int] = None
+        self._watch_scanned = False
+        self._watch_verified: set = set()
 
     # ---- save -------------------------------------------------------------
 
@@ -502,6 +514,39 @@ class CheckpointManager:
                 return (file_io.join(self.path, f"model.{n}"),
                         file_io.join(self.path, f"optimMethod.{n}"), n)
         return None
+
+    def watch_latest(self) -> Optional[int]:
+        """The N of the newest committed, shallow-verified snapshot, or
+        None: the fleet's promotion poll, cheap at tens of hertz.
+
+        Every ``commit.N`` rename touches the directory, so while its mtime
+        holds still the cached answer returns after one ``stat``.  When it
+        moves, the names-only scan reruns and a snapshot not yet known good
+        is shallow-verified once and remembered.  Directory mtimes may have
+        whole-second granularity, so a scan taken while the directory is
+        hot (mtime within the last 2 s) is not trusted as the fast path's
+        anchor: the next poll lists the names again, and the verified set
+        still keeps manifest reads at one per new snapshot.  Deep
+        verification (checksums and the fingerprint) stays with
+        :meth:`load_latest`, which reads the bytes.  The in-memory snapshot
+        of a full disk is not committed durable state and never shows
+        here."""
+        mtime = file_io.modified_time(self.path)
+        stable = mtime is not None and (time.time() - mtime) >= 2.0
+        if self._watch_scanned and stable and mtime == self._watch_mtime:
+            return self._watch_latest
+        latest: Optional[int] = None
+        cands = self.candidates()
+        self._watch_verified &= {n for n, _ in cands}
+        for n, has_manifest in cands:
+            if n in self._watch_verified or self.verify(n, has_manifest):
+                self._watch_verified.add(n)
+                latest = n
+                break
+        self._watch_mtime = mtime if stable else None
+        self._watch_latest = latest
+        self._watch_scanned = stable
+        return latest
 
     def load_latest(self, expected_topology: Optional[Dict[str, Any]] = None
                     ) -> Optional[Tuple[Any, Any, int]]:

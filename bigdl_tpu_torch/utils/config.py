@@ -49,6 +49,28 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.lm.quantize": "off",            # "int8": per-channel int8 decode weights, gated
     "bigdl.lm.quantizeRtol": 0.05,         # int8 gate: fp-vs-int8 log-prob allclose rtol
     "bigdl.lm.quantizeAtol": 0.05,         # int8 gate: fp-vs-int8 log-prob allclose atol
+    # fleet control plane (bigdl_tpu_torch/fleet): N models x N replicas under
+    # one supervisor — zero-downtime hot swap, blue/green rollout gated on the
+    # semantic checkpoint fingerprint + shadow-traffic parity, crash restarts,
+    # replica autoscaling, checkpoint-to-serving promotion
+    "bigdl.fleet.replicas": 1,             # replicas per service at add_model
+    "bigdl.fleet.minReplicas": 1,          # autoscale floor
+    "bigdl.fleet.maxReplicas": 4,          # autoscale ceiling
+    "bigdl.fleet.pollInterval": 0.05,      # supervisor tick period, seconds
+    "bigdl.fleet.maxReplicaRestarts": 2,   # crash restarts per replica slot
+    "bigdl.fleet.gracePeriod": 5.0,        # retired-replica drain window, seconds
+    "bigdl.fleet.shadowSample": 8,         # live requests mirrored per rollout
+    "bigdl.fleet.parityMode": "bitwise",   # bitwise | allclose | off
+    "bigdl.fleet.parityRtol": 1e-5,        # allclose rtol for shadow parity
+    "bigdl.fleet.parityAtol": 1e-6,        # allclose atol for shadow parity
+    "bigdl.fleet.promotionPollSec": 0.2,   # checkpoint watch_latest cadence
+    "bigdl.fleet.autoscale.enabled": False,   # scale replica count per service
+    "bigdl.fleet.autoscale.intervalSec": 0.25,  # decision cadence
+    "bigdl.fleet.autoscale.upQueueFrac": 0.5,   # mean queue fill frac -> +1
+    "bigdl.fleet.autoscale.downQueueFrac": 0.05,  # below this -> -1 toward floor
+    "bigdl.fleet.autoscale.p99Factor": 0.8,  # +1 when p99 > factor x deadline
+    "bigdl.fleet.autoscale.patience": 2,   # consecutive signals before acting
+    "bigdl.fleet.autoscale.cooldown": 3,   # hold intervals after an action
     # training (bigdl_tpu_torch/optim/optimizer.py)
     "bigdl.divergence.guard": True,          # skip non-finite updates in-step
     "bigdl.divergence.maxBadSteps": 5,       # consecutive bad steps -> DivergenceError
@@ -99,6 +121,13 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.chaos.poisonPromptAt": None,
     "bigdl.chaos.hangDecodeAt": None,
     "bigdl.chaos.evictBlockAt": 0,
+    # fleet-control-plane faults (bigdl_tpu_torch/fleet)
+    "bigdl.chaos.killReplicaAt": None,    # "k" / "k:replica": async-kill a replica's
+    # batcher thread at the fleet's k-th submitted request
+    "bigdl.chaos.corruptCandidateAt": 0,  # k: corrupt the k-th rollout candidate's
+    # weights after its fingerprint is taken (pre-cutover verify must catch it)
+    "bigdl.chaos.sigtermFleetAt": 0,      # k: fleet-wide preemption (SIGTERM) at
+    # the fleet's k-th submitted request
     # the runtime analysis passes (bigdl_tpu_torch/analysis): each pass is
     # "strict" (raise), "warn" (log + count), or "off"
     "bigdl.analysis.retrace": "warn",      # recompile sentinel on the steps

@@ -453,6 +453,36 @@ Phases, each fatal on any fault:
    on the LM and on ResNet-50 reports ok and launches no CUDA kernel (the
    profiler's window must also see a control matmul), its wall time
    printed.  (f) ``Metrics.summary()`` of (a) and (c2).
+21. the fleet (``bigdl_tpu_torch/fleet``): FL_REPLICAS replicas of phase
+   4's LM (fp32, ``flash=True``, built afresh from the seed) behind one
+   ``Fleet``, with the port's lock witness armed strict, the bucket plan
+   pinned to one size (``bigdl.compile.buckets`` = ``maxBatch`` =
+   FL_BATCH, so a row replayed alone in the shadow pads to the shape it
+   was served in) and the flash launch counts reset before the fleet comes
+   up and read after it stops.  (a) FL_REQUESTS rows of 2048 ids through
+   ``serving/loadgen.py``'s ``run_open_loop`` at FL_RATE_HZ: the identity
+   exact, and after the phase every output bit for bit the output of one
+   plain ``ServingEngine`` for the same row in the same bucket.  (b) Once
+   FL_SWAP_AFTER requests have completed, a rollout to an identical copy of
+   the served model in ``bitwise`` parity, the last FL_AFTER_CUT arrivals
+   held until its cutover so that admissions straddle it: promoted, the
+   shadow parity exact, nothing shed, quarantined or unaccounted; the
+   prepare, verify, shadow, swap and drain times and the cutover to the
+   first served request.  (c1) A copy with one weight raised by 1.0 rolls
+   back on shadow parity, (c2) a copy hit by ``corruptCandidateAt`` rolls
+   back on its fingerprint, and the incumbent then answers a probe row
+   with the same bits.  (d) ``killReplicaAt``: replica 0's batcher dies
+   (when its CUDA call in flight returns), its slot is restarted within
+   the budget, the identity holds and the probe's bits are unchanged; the
+   restart latency.  (e) A ``CheckpointManager`` snapshot of the served
+   model, seen by ``watch_latest`` and promoted by the supervisor through
+   the verified rollout; the save and promotion times.  (c3)
+   ``sigtermFleetAt`` at the first submission once a rollout has begun:
+   rolled back as preempted, late arrivals rejected, every replica drained, the identity
+   exact; the drain time.  Then, outside the launch count: one row padded
+   to FL_PROBE_BATCH against its bucket-FL_BATCH bits (logged), and one
+   served row against the model with ``flash=False`` (FL_ATOL).  The fp32
+   forward kernel launched, no other flash kernel.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
@@ -461,9 +491,9 @@ run, as ``drivers_launches`` in phase 12, as ``telemetry_launches`` in
 phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
 in phase 15 (a), as ``pipeline_launches`` in phase 16 (a) and as
 ``resilience_launches`` in phase 17, as ``failure_launches`` in phase
-18 (a), as ``library_launches`` in phase 19 and as ``analysis_launches``
-in phase 20's gated trainer runs; phases 8, 9, 11, 12, 14, 16 and 19 run
-none of them), then the
+18 (a), as ``library_launches`` in phase 19, as ``analysis_launches``
+in phase 20's gated trainer runs and as ``fleet_launches`` in phase 21;
+phases 8, 9, 11, 12, 14, 16 and 19 run none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -7381,11 +7411,438 @@ def phase_analysis(card: str) -> dict:
     return launches
 
 
+FL_REPLICAS = 2         # phase 21: replicas of phase 4's LM behind one Fleet
+FL_BATCH = 2            # the pinned plan: bigdl.compile.buckets = maxBatch, so
+# every dispatch, live or a shadow replay, pads to this one shape
+FL_REQUESTS = 24        # (a), (b): open-loop arrivals through loadgen
+FL_RATE_HZ = 6.0        # (a), (b): their mean rate
+FL_SWAP_AFTER = 4       # (b): requests completed before the hot swap starts
+FL_AFTER_CUT = 4        # (b): the last arrivals wait for the cutover
+FL_KILL_REQUESTS = 8    # (d): submissions once the kill is armed
+FL_SIGTERM_REQUESTS = 12  # (c3): submissions during the preempted rollout
+FL_GRACE = 60.0         # the fleet's drain window: nothing sheds on time
+FL_PROBE_BATCH = 8      # (a): the same row padded to another bucket
+FL_ATOL = 1e-3          # (a): a served row against flash=False (phase 4's)
+
+
+def fl_serve(fleet, row):
+    """One request through the fleet, its output on the host."""
+    return fleet.submit("lm", row).result(timeout=600)
+
+
+def fl_rows(n: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        1, VOCAB + 1, (n, SEQ)).astype(np.float32)
+
+
+def fl_hot_swap(card: str, fleet, rows) -> tuple:
+    """(a) FL_REQUESTS open-loop arrivals through ``run_open_loop`` at
+    FL_RATE_HZ; (b) once FL_SWAP_AFTER have completed, a rollout to an
+    identical copy of the served model in ``bitwise`` parity, the last
+    FL_AFTER_CUT arrivals held until its cutover, so the arrivals straddle
+    it.  Returns (the loadgen record, the report)."""
+    import copy
+    import threading
+    from bigdl_tpu_torch.serving.loadgen import run_open_loop
+    svc = fleet._services["lm"]
+    swapped = threading.Event()
+
+    class Door:
+        """The fleet's service as the engine ``run_open_loop`` drives."""
+
+        def submit(self, payload, deadline_ms=None):
+            return fleet.submit("lm", payload, deadline_ms)
+
+    def hold(i: int) -> None:
+        if i == FL_REQUESTS - FL_AFTER_CUT:
+            swapped.wait(timeout=600)
+
+    box = {}
+
+    def drive() -> None:
+        box["record"] = run_open_loop(
+            Door(), rows, FL_RATE_HZ, deadline_ms=600_000.0, seed=SEED,
+            on_arrival=hold, result_timeout_s=600.0)
+
+    load = threading.Thread(target=drive, name="fleet-load")
+    load.start()
+    try:
+        wait_until(lambda: fleet.stats("lm")["completed"] >= FL_SWAP_AFTER,
+                   "(b) traffic before the swap", timeout=300)
+        report = fleet.rollout("lm", copy.deepcopy(svc.model),
+                               parity="bitwise")
+    finally:
+        swapped.set()
+        load.join(timeout=900)
+    record = box["record"]
+    cut = report.cutover_ns or 0
+    admitted = [h for _, h in record["handles"] if h is not None]
+    before = sum(h.submit_ns < cut for h in admitted)
+    after = sum(h.submit_ns >= cut for h in admitted)
+    if not fleet.quiesce(600):
+        raise AssertionError("(a) requests still pending after the load")
+    wait_until(lambda: fleet.stats("lm")["last_swap_to_serve_ms"]
+               is not None, "(b) no request served after the cutover",
+               timeout=60)
+    stats = fleet.stats("lm")
+    counts = {k: record[k] for k in ("submitted", "completed", "shed",
+                                     "rejected", "quarantined",
+                                     "unaccounted")}
+    log(f"[fleet] (a) {FL_REQUESTS} open-loop arrivals at {FL_RATE_HZ:g} Hz "
+        f"over {FL_REPLICAS} replicas (bucket {FL_BATCH}): {counts}; "
+        f"latency p50 {statistics.median(record['latency_ms']):.1f} ms on "
+        f"{card}")
+    log(f"[fleet] (b) hot swap {report.from_version} -> {report.to_version}"
+        f" under that load ({before} admitted before the cutover, {after} "
+        f"after): promoted {report.promoted}, parity {report.parity_mode} "
+        f"x{report.parity_checked} (max abs diff "
+        f"{report.parity_max_abs_diff:g}); prepare {report.prepare_ms:.1f} "
+        f"ms, verify {report.verify_ms:.1f} ms, shadow "
+        f"{report.shadow_ms:.1f} ms, swap {report.swap_ms:.1f} ms, drain "
+        f"{report.drain_ms:.1f} ms, cutover to first served "
+        f"{stats['last_swap_to_serve_ms']:.1f} ms; fleet {stats} on {card}")
+    identity(counts, "(a)")
+    identity(stats, "(a) the fleet")
+    if (not report.promoted or report.parity_checked == 0 or
+            report.parity_max_abs_diff != 0.0 or record["shed"] or
+            record["quarantined"] or stats["shed"] or
+            stats["quarantined"] or before == 0 or after == 0 or
+            stats["version"] != "v2"):
+        raise AssertionError(f"(b) the hot swap lost requests or did not "
+                             f"promote: {report}, {counts}, {stats}")
+    return record, report
+
+
+def fl_rollback(card: str, fleet, candidate, slug: str, what: str,
+                probe) -> object:
+    """A rollout that must roll back for ``slug``; the incumbent then
+    answers ``probe`` (row, output) with the same bits."""
+    version = fleet.stats("lm")["version"]
+    report = fleet.rollout("lm", candidate, parity="bitwise")
+    again = fl_serve(fleet, probe[0])
+    if not fleet.quiesce(600):
+        raise AssertionError(f"{what}: requests still pending")
+    identity(fleet.stats("lm"), what)
+    log(f"[fleet] {what}: rolled back {report.rolled_back} ({report.reason})"
+        f"; prepare {report.prepare_ms:.1f} ms, verify "
+        f"{report.verify_ms:.1f} ms, shadow {report.shadow_ms:.1f} ms; the "
+        f"incumbent {fleet.stats('lm')['version']} still serves on {card}")
+    if (not report.rolled_back or report.promoted or
+            slug not in report.reason or
+            fleet.stats("lm")["version"] != version or
+            not (again == probe[1]).all()):
+        raise AssertionError(f"{what}: {report}")
+    return report
+
+
+def fl_kill(card: str, fleet, rows, probe) -> float:
+    """(d) ``killReplicaAt`` three submissions on: replica 0's batcher dies
+    (when its CUDA call in flight returns), the supervisor sweeps its
+    stranded requests into ``shed`` and restarts the slot within its
+    budget; the identity holds and the fleet still serves.  Returns the
+    restart latency in seconds (the kill to the replacement in the
+    router)."""
+    import threading
+    from bigdl_tpu_torch.serving import Overloaded
+    from bigdl_tpu_torch.utils import chaos
+    svc = fleet._services["lm"]
+    victim = svc.active_replicas()[0]
+    seq = fleet.stats()["submit_seq"]
+    box = {}
+
+    def load() -> None:
+        for i in range(FL_KILL_REQUESTS):
+            if i == 2:    # the submission that injects the kill
+                box["t_kill"] = time.monotonic()
+            try:
+                fleet.submit("lm", rows[i % len(rows)])
+            except Overloaded:
+                pass
+            time.sleep(0.05)
+
+    with properties(bigdl__chaos__killReplicaAt=f"{seq + 3}:0"):
+        chaos.install()
+    th = threading.Thread(target=load, name="fleet-kill-load")
+    th.start()
+    try:
+        wait_until(lambda: "t_kill" in box, "(d) the kill's submission",
+                   timeout=60)
+        wait_until(lambda: not victim.engine.batcher_alive(),
+                   "(d) the killed batcher did not die", timeout=120)
+        died = time.monotonic() - box["t_kill"]
+        wait_until(lambda: fleet.stats("lm")["restarts"] >= 1 and
+                   fleet.stats("lm")["replicas"] == FL_REPLICAS,
+                   "(d) the slot was not restarted", timeout=300)
+        restart_s = time.monotonic() - box["t_kill"]
+        kills = chaos._state.replica_kills
+    finally:
+        th.join(timeout=600)
+        chaos.uninstall()
+    again = fl_serve(fleet, probe[0])
+    if not fleet.quiesce(600):
+        raise AssertionError("(d) requests still pending after the kill")
+    stats = fleet.stats("lm")
+    log(f"[fleet] (d) killReplicaAt: replica {victim.name}'s batcher died "
+        f"{died:.3f} s after the kill was injected, the slot was back in "
+        f"the router {restart_s:.3f} s after it; fleet {stats} on {card}")
+    identity(stats, "(d)")
+    if (kills != 1 or stats["restarts"] != 1 or
+            stats["replicas"] != FL_REPLICAS or
+            not (again == probe[1]).all()):
+        raise AssertionError(f"(d) kill and restart: kills {kills}, "
+                             f"{stats}")
+    return restart_s
+
+
+def fl_promote(card: str, fleet, tmp: str) -> object:
+    """(e) A ``CheckpointManager`` snapshot of the served model, seen by
+    ``watch_latest`` and promoted by the supervisor through the verified
+    rollout (deep load, bitwise shadow parity)."""
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.checkpoint_manager import CheckpointManager
+    svc = fleet._services["lm"]
+    version = fleet.stats("lm")["version"]
+    mgr = CheckpointManager(tmp)
+    t = time.monotonic()
+    mgr.save(svc.model, SGD(learning_rate=0.01), 1)
+    saved_s = time.monotonic() - t
+    fleet.watch("lm", mgr)
+    t = time.monotonic()
+    wait_until(lambda: svc.last_promotion is not None,
+               "(e) no promotion from the snapshot", timeout=600)
+    promoted_s = time.monotonic() - t
+    svc._watch_mgr = None
+    report = svc.last_promotion
+    log(f"[fleet] (e) snapshot 1 ({mgr.last_snapshot_bytes / 2**20:.1f} MiB,"
+        f" saved in {saved_s:.2f} s) promoted {report.from_version} -> "
+        f"{report.to_version} {promoted_s:.2f} s after the save: parity "
+        f"{report.parity_mode} x{report.parity_checked}, prepare "
+        f"{report.prepare_ms:.1f} ms, verify {report.verify_ms:.1f} ms, "
+        f"shadow {report.shadow_ms:.1f} ms, swap {report.swap_ms:.1f} ms, "
+        f"drain {report.drain_ms:.1f} ms on {card}")
+    if (not report.promoted or report.parity_checked == 0 or
+            report.from_version != version or
+            fleet.stats("lm")["version"] != report.to_version):
+        raise AssertionError(f"(e) promotion: {report}")
+    return report
+
+
+def fl_sigterm(card: str, fleet, rows) -> float:
+    """(c3) ``sigtermFleetAt`` at the first submission once a rollout has
+    begun: it rolls back as preempted, every replica drains, late arrivals are rejected
+    retriably and the identity holds.  Returns the drain time in seconds
+    (the preemption to the last replica's batcher gone, its queue
+    drained)."""
+    import copy
+    import threading
+    from bigdl_tpu_torch.serving import Overloaded
+    from bigdl_tpu_torch.utils import chaos, elastic
+    svc = fleet._services["lm"]
+    version = fleet.stats("lm")["version"]
+    seq = fleet.stats()["submit_seq"]
+    rejected = [0]
+
+    def load() -> None:
+        # the first submission lands once the rollout holds its lock,
+        # inside PREPARE's fingerprint
+        wait_until(svc._rollout_lock.locked, "(c3) the rollout's start",
+                   timeout=60)
+        for i in range(FL_SIGTERM_REQUESTS):
+            try:
+                fleet.submit("lm", rows[i % len(rows)])
+            except Overloaded:
+                rejected[0] += 1
+            time.sleep(0.05)
+
+    gone = {}
+
+    def watch() -> None:
+        """The moment the last replica's batcher has drained and exited."""
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and any(
+                r.engine.batcher_alive() for r in svc.active_replicas()):
+            time.sleep(0.001)
+        gone["t"] = time.monotonic()
+
+    with properties(bigdl__chaos__sigtermFleetAt=seq + 1):
+        chaos.install()
+    try:
+        watcher = threading.Thread(target=watch, name="fleet-drain-watch")
+        watcher.start()
+        th = threading.Thread(target=load, name="fleet-sigterm-load")
+        th.start()
+        try:
+            report = fleet.rollout("lm", copy.deepcopy(svc.model),
+                                   parity="bitwise")
+        finally:
+            th.join(timeout=600)
+            watcher.join(timeout=660)
+        fired = chaos._state.fleet_sigterms
+        if any(r.engine.batcher_alive() for r in svc.active_replicas()):
+            raise AssertionError("(c3) a replica did not drain")
+        if not fleet.quiesce(600):
+            raise AssertionError("(c3) requests pending after the drain")
+        drain_s = gone["t"] - elastic.preemption_requested_at()
+    finally:
+        chaos.uninstall()
+    stats = fleet.stats("lm")
+    log(f"[fleet] (c3) sigtermFleetAt mid-rollout: rolled back "
+        f"{report.rolled_back} ({report.reason}); {rejected[0]} late "
+        f"arrivals rejected; every replica drained {drain_s:.3f} s after "
+        f"the preemption; fleet {stats} on {card}")
+    identity(stats, "(c3)")
+    if (fired != 1 or not report.rolled_back or
+            "preempted" not in report.reason or rejected[0] == 0 or
+            stats["version"] != version or not stats["draining"]):
+        raise AssertionError(f"(c3) the preempted rollout: {report}, "
+                             f"{stats}")
+    return drain_s
+
+
+def fl_outputs(card: str, model, rows, record) -> None:
+    """Each (a) output against a plain ServingEngine serving its row in the
+    same bucket, bit for bit; one row padded to FL_PROBE_BATCH against its
+    bucket-FL_BATCH bits (logged: why the plan is pinned); one row against
+    the model with flash=False (FL_ATOL)."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.serving import ServingEngine
+    from bigdl_tpu_torch.utils import compile_cache
+    got = {int(k): v for k, v in record["results"].items()}
+    with ServingEngine(model, max_batch=FL_BATCH, deadline_ms=600_000.0,
+                       device=DEVICE) as plain:
+        handles = {i: plain.submit(rows[i]) for i in sorted(got)}
+        worst = 0.0
+        for i, h in handles.items():
+            want = h.result(timeout=600)
+            if not np.array_equal(want, got[i]):
+                worst = max(worst, float(np.abs(want - got[i]).max()))
+    log(f"[fleet] (a) {len(got)} fleet outputs against a plain "
+        f"ServingEngine in bucket {FL_BATCH}: "
+        f"{'bit for bit' if worst == 0.0 else f'max abs diff {worst:g}'}")
+    if worst != 0.0 or len(got) != FL_REQUESTS:
+        raise AssertionError(f"(a) fleet outputs differ from the plain "
+                             f"engine's (max abs diff {worst}, {len(got)} "
+                             "results)")
+    def row0(b: int):
+        """Row 0's output padded to a batch of ``b``, on the host."""
+        with torch.inference_mode():
+            return model(torch.from_numpy(compile_cache.pad_batch(
+                rows[:1], 1, b)).to(DEVICE))[0].cpu().numpy()
+
+    outs = [row0(b) for b in (FL_BATCH, FL_PROBE_BATCH)]
+    diff = float(np.abs(outs[0] - outs[1]).max())
+    log(f"[fleet] (a) row 0 padded to {FL_BATCH} and to {FL_PROBE_BATCH}: "
+        f"{'bit for bit' if diff == 0.0 else f'max abs diff {diff:.3e}'}"
+        f" on {card}")
+    set_flash(model, False)
+    try:
+        plain_row = row0(FL_BATCH)
+    finally:
+        set_flash(model, True)
+    err = float(np.abs(plain_row - got[0]).max())
+    log(f"[fleet] (a) row 0 against flash=False: max abs err {err:.3e} "
+        f"(atol {FL_ATOL})")
+    if not err <= FL_ATOL:
+        raise AssertionError(f"(a) flash vs plain attention: {err}")
+
+
+def phase_fleet(card: str) -> dict:
+    """Phase 21: FL_REPLICAS replicas of phase 4's LM behind one ``Fleet``
+    (see the module docstring).  Returns the phase's flash launches."""
+    import copy
+    import tempfile
+    import torch
+    from bigdl_tpu_torch.analysis import lockwitness
+    from bigdl_tpu_torch.fleet import Fleet
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    from bigdl_tpu_torch.utils import chaos, elastic
+    t0 = time.perf_counter()
+    model = lm(flash=True)
+    rows = fl_rows(FL_REQUESTS, SEED + 21)
+    elastic.clear_preemption()
+    lockwitness.reset()
+    lockwitness.arm("strict")
+    fa.reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, properties(
+                bigdl__compile__buckets=str(FL_BATCH),
+                bigdl__incident__dir=tmp):
+            fleet = Fleet(poll_interval=0.05, grace_period=FL_GRACE,
+                          device=DEVICE)
+            try:
+                t = time.perf_counter()
+                fleet.add_model("lm", model, replicas=FL_REPLICAS,
+                                warm_row=rows[0],
+                                engine_kw={"max_batch": FL_BATCH,
+                                           "deadline_ms": 600_000.0})
+                log(f"[fleet] {FL_REPLICAS} replicas of the "
+                    f"{sum(p.numel() for p in model.parameters()):,}-"
+                    f"parameter LM up and warm in "
+                    f"{time.perf_counter() - t:.2f} s on {card}")
+                record, _ = fl_hot_swap(card, fleet, rows)
+                probe = (rows[0], record["results"]["0"])
+                bad = copy.deepcopy(fleet._services["lm"].model)
+                name, param = list(bad.named_parameters())[-1]
+                with torch.no_grad():
+                    param.view(-1)[0] += 1.0
+                log(f"[fleet] (c1) the candidate's {name}[0] raised by 1.0")
+                fl_rollback(card, fleet, bad, "shadow parity violation",
+                            "(c1) one weight perturbed", probe)
+                del bad
+                with properties(bigdl__chaos__corruptCandidateAt=1):
+                    chaos.install()
+                try:
+                    fl_rollback(card, fleet,
+                                copy.deepcopy(fleet._services["lm"].model),
+                                "semantic fingerprint mismatch",
+                                "(c2) corruptCandidateAt", probe)
+                    if chaos._state.candidate_corruptions != 1:
+                        raise AssertionError("(c2) no candidate corrupted")
+                finally:
+                    chaos.uninstall()
+                restart_s = fl_kill(card, fleet, rows, probe)
+                fl_promote(card, fleet, os.path.join(tmp, "checkpoints"))
+                drain_s = fl_sigterm(card, fleet, rows)
+            finally:
+                fleet.stop()
+            bundles = sorted(f for f in os.listdir(tmp)
+                             if f.startswith("incident-"))
+            stats = fleet.stats("lm")
+            launches = dict(fa.launches)
+        snap = lockwitness.snapshot()
+    finally:
+        lockwitness.disarm()
+        lockwitness.reset()
+        elastic.clear_preemption()
+    identity(stats, "phase 21")
+    log(f"[fleet] stopped: {stats}; incident bundles {bundles}; lock "
+        f"witness {snap}; restart {restart_s:.3f} s, drain {drain_s:.3f} s; "
+        f"flash launches {launches} on {card}")
+    if snap["violations"]:
+        raise AssertionError(f"phase 21 lock witness: {snap}")
+    if launches["flash_attention_fwd_fp32"] <= 0 or any(
+            v for k, v in launches.items()
+            if k != "flash_attention_fwd_fp32"):
+        raise AssertionError(f"phase 21 flash launches {launches}: the fp32 "
+                             "forward only, at least once")
+    if any(t.is_alive() for t in fleet.supervisor.threads()):
+        raise AssertionError("phase 21: a fleet thread outlived stop()")
+    # the comparisons below launch kernels of their own, outside the count
+    fl_outputs(card, model, rows, record)
+    del model, record
+    torch.cuda.empty_cache()
+    log(f"[fleet] phase 21 took {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 trained: dict, fp32_step: dict, distri: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
                 sharded: dict, pipelined: dict, resilient: dict,
-                failures: dict, library: dict, analysis: dict) -> list:
+                failures: dict, library: dict, analysis: dict,
+                fleet: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -7399,7 +7856,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     ones 0), ``failure_launches`` in phase 18 (a) (the fp32 forward > 0,
     the rest 0), ``library_launches`` in phase 19 (no flash model: 0),
     ``analysis_launches`` in phase 20's gated trainer runs, (a) and (c2)
-    (all six > 0: the fp32 backward kernels' first trainer launches)."""
+    (all six > 0: the fp32 backward kernels' first trainer launches),
+    ``fleet_launches`` in phase 21 (the fp32 forward > 0, the rest 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -7422,7 +7880,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "resilience_launches": resilient.get(name, 0),
                     "failure_launches": failures.get(name, 0),
                     "library_launches": library.get(name, 0),
-                    "analysis_launches": analysis.get(name, 0)})
+                    "analysis_launches": analysis.get(name, 0),
+                    "fleet_launches": fleet.get(name, 0)})
     return out
 
 
@@ -7561,11 +8020,13 @@ def main(argv=None) -> int:
     library = phase_layer_library(card)
     torch.cuda.empty_cache()
     analysis = phase_analysis(card)
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(card)
 
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
                           sharded, pipelined, resilient, failures, library,
-                          analysis)
+                          analysis, fleet)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

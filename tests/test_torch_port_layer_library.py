@@ -46,9 +46,7 @@ import torch
 
 import bigdl_tpu.nn as jnn
 import bigdl_tpu_torch.nn as pnn
-from bigdl_tpu_torch.nn.module import random_stream
-from bigdl_tpu_torch.utils.convert import (params_from_jax, params_to_jax,
-                                           state_to_jax)
+from bigdl_tpu_torch.utils.convert import params_from_jax
 
 EXACT, ELEMENTWISE, CRITERION, GRAPH = ("exact", "elementwise",
                                         "criterion", "graph")
@@ -118,9 +116,9 @@ def check(a, b, kind, what):
         np.testing.assert_allclose(a, b, err_msg=what, **TOL[kind])
 
 
-# (case id, class name, constructor args, input maker, tolerance)
-MODULE_CASES = [
-    # activations
+# (case id, class name, constructor args, input maker, tolerance), by
+# family; each family is one file's cases of test_module_matches_jax
+ACTIVATION_CASES = [
     ("ReLU6", "ReLU6", (), lambda: normal(3, 5, scale=5), ELEMENTWISE),
     ("LeakyReLU", "LeakyReLU", (0.1,), lambda: normal(3, 5), ELEMENTWISE),
     ("ELU", "ELU", (0.7,), lambda: normal(3, 5), ELEMENTWISE),
@@ -151,9 +149,9 @@ MODULE_CASES = [
     ("PReLU-shared", "PReLU", (), lambda: normal(3, 5), ELEMENTWISE),
     ("PReLU-channels", "PReLU", (3,), lambda: normal(2, 3, 4, 4),
      ELEMENTWISE),
-    ("L1Penalty", "L1Penalty", (0.1, True), lambda: normal(3, 5),
-     ELEMENTWISE),
-    # tables
+]
+
+TABLE_CASES = [
     ("ParallelTable", "ParallelTable", (),
      lambda: [ints(2, 3), ints(2, 4, seed=1)], EXACT),
     ("MapTable", "MapTable", (),
@@ -199,7 +197,10 @@ MODULE_CASES = [
      lambda: [ints(3, 4), ints(3, 4, seed=1)], ELEMENTWISE),
     ("CosineDistance", "CosineDistance", (),
      lambda: [normal(3, 4), normal(3, 4, seed=1)], ELEMENTWISE),
-    # structural
+]
+
+#: reshaping and selection
+SHAPE_CASES = [
     ("Echo", "Echo", (), lambda: ints(2, 3), EXACT),
     ("Contiguous", "Contiguous", (), lambda: ints(2, 3), EXACT),
     ("InferReshape", "InferReshape", ((0, -1, 2),),
@@ -217,6 +218,10 @@ MODULE_CASES = [
      lambda: [ints(3, 5), np.array([3, 1, 5, 2], np.float32)], EXACT),
     ("MaskedSelect", "MaskedSelect", (),
      lambda: [ints(3, 4), ints(3, 4, lo=0, hi=2, seed=1)], EXACT),
+]
+
+#: reductions, padding and products
+REDUCTION_CASES = [
     ("Max", "Max", (2,), lambda: normal(3, 4), EXACT),
     ("Max-batch", "Max", (1, 1), lambda: normal(3, 4), EXACT),
     ("Min", "Min", (-1,), lambda: normal(3, 4), EXACT),
@@ -247,7 +252,10 @@ MODULE_CASES = [
      lambda: [ints(2, 3), ints(2, 3, seed=1), ints(2, 3, seed=2)], EXACT),
     ("Reverse", "Reverse", (2,), lambda: ints(2, 3, 4), EXACT),
     ("AddConstant", "AddConstant", (2.5,), lambda: ints(2, 3), EXACT),
-    # the linear family
+]
+
+#: the linear family and L1Penalty
+LINEAR_CASES = [
     ("Bilinear", "Bilinear", (3, 4, 5), lambda: [normal(2, 3),
                                                   normal(2, 4, seed=1)],
      ELEMENTWISE),
@@ -257,6 +265,8 @@ MODULE_CASES = [
     ("CAdd", "CAdd", ((3, 1),), lambda: normal(3, 5), ELEMENTWISE),
     ("Euclidean", "Euclidean", (5, 4), lambda: normal(3, 5), ELEMENTWISE),
     ("Cosine", "Cosine", (5, 4), lambda: normal(3, 5), ELEMENTWISE),
+    ("L1Penalty", "L1Penalty", (0.1, True), lambda: normal(3, 5),
+     ELEMENTWISE),
 ]
 
 #: children of the table containers, built in both packages
@@ -303,8 +313,9 @@ def port_apply(pm, x, gy):
     return out, grads[:len(ins)], grads_to_jax(pm)
 
 
-@pytest.mark.parametrize("case", MODULE_CASES, ids=[c[0] for c in MODULE_CASES])
-def test_module_matches_jax(case):
+def check_module_case(case):
+    """One case of a ``*_CASES`` list: forward output, input gradient and
+    parameter gradients of the class in both packages agree."""
     cid, name, args, make, kind = case
     jm, pm = build(jnn, name, args), build(pnn, name, args)
     x = make()
@@ -331,6 +342,12 @@ def test_module_matches_jax(case):
     for a, b in zip(jax.tree_util.tree_leaves(pg_p),
                     jax.tree_util.tree_leaves(pg_j), strict=True):
         check(a, b, kind, f"{cid} parameter gradient")
+
+
+@pytest.mark.parametrize("case", ACTIVATION_CASES,
+                         ids=[c[0] for c in ACTIVATION_CASES])
+def test_module_matches_jax(case):
+    check_module_case(case)
 
 
 def _nll_target(n, c, seed=3):
@@ -424,114 +441,13 @@ CRITERION_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", CRITERION_CASES,
-                         ids=[c[0] for c in CRITERION_CASES])
-def test_criterion_matches_jax(case):
-    cid, make_crit, make_x, make_t = case
-    jc, pc = make_crit(jnn), make_crit(pnn)
-    x, t = make_x(), make_t()
-    jx = jax.tree_util.tree_map(jnp.asarray, x)
-    jt = None if t is None else jax.tree_util.tree_map(jnp.asarray, t)
-    loss_j, vjp = jax.vjp(lambda v: jc.apply(v, jt), jx)
-    (grad_j,) = vjp(jnp.ones_like(loss_j))
-    px = to_torch(x, grad=False)
-    pt = None if t is None else to_torch(t, grad=False)
-    loss_p = pc.forward(px, pt)
-    grad_p = pc.backward(px, pt)
-    check(loss_p.detach().numpy(), loss_j, CRITERION, f"{cid} loss")
-    for a, b in zip(leaves(grad_p), jax.tree_util.tree_leaves(grad_j),
-                    strict=True):
-        check(a.numpy(), b, CRITERION, f"{cid} gradient")
-
-
-def test_time_distributed_separable_criterions():
-    """The separable path now also takes ``AbsCriterion`` and an unweighted
-    ``BCECriterion``, as the JAX package's does."""
-    x = np.random.default_rng(0).uniform(0.1, 0.9, (2, 3, 4)) \
-        .astype(np.float32)
-    t = ints(2, 3, 4, lo=0, hi=2, seed=1)
-    for name in ("AbsCriterion", "BCECriterion"):
-        jc = jnn.TimeDistributedCriterion(getattr(jnn, name)(), True)
-        pc = pnn.TimeDistributedCriterion(getattr(pnn, name)(), True)
-        assert pc._separable()
-        check(pc.forward(torch.from_numpy(x), torch.from_numpy(t)).numpy(),
-              jc.forward(jnp.asarray(x), jnp.asarray(t)), CRITERION, name)
-
-
 # ---- stochastic layers ------------------------------------------------------
 
 STOCHASTIC = [("RReLU", (0.1, 0.4)), ("GaussianDropout", (0.3,)),
               ("GaussianNoise", (0.5,)), ("Dropout", (0.4,))]
 
 
-@pytest.mark.parametrize("name,args", STOCHASTIC,
-                         ids=[s[0] for s in STOCHASTIC])
-def test_stochastic_eval_mode_is_exact(name, args):
-    x = normal(4, 6)
-    jm, pm = getattr(jnn, name)(*args), getattr(pnn, name)(*args)
-    out_j, _, xg_j = jax_apply(jm, {}, x, np.ones_like(x), training=False)
-    pm.evaluate()
-    g = torch.Generator().manual_seed(0)
-    with random_stream(pm, g):
-        xt = to_torch(x)
-        out = pm(xt)
-        (xg,) = torch.autograd.grad(out, xt, torch.ones_like(out))
-    np.testing.assert_array_equal(out.detach().numpy(), out_j)
-    np.testing.assert_array_equal(xg.numpy(), xg_j)
-
-
-@pytest.mark.parametrize("name,args", STOCHASTIC,
-                         ids=[s[0] for s in STOCHASTIC])
-def test_stochastic_training_moments_and_replay(name, args):
-    """The noise of one training-mode forward over 200000 entries has its
-    mean and variance within 1% (relative, or 3e-3 absolute for a mean of
-    0), and the shell's backward uses the forward's draw: the input's
-    gradient is what the drawn noise gives."""
-    n = 200_000
-    x = torch.full((n,), -2.0) if name == "RReLU" else torch.ones(n)
-    pm = getattr(pnn, name)(*args)
-    out = pm.update_output(x)
-    if name == "RReLU":
-        noise, mean, var = out / x, 0.25, 0.3 ** 2 / 12
-    elif name == "GaussianDropout":
-        noise, mean, var = out / x, 1.0, 0.3 / 0.7
-    elif name == "GaussianNoise":
-        noise, mean, var = out - x, 0.0, 0.25
-    else:
-        noise, mean, var = out / x, 1.0, 0.4 / 0.6
-    assert abs(noise.mean().item() - mean) <= max(0.01 * mean, 3e-3)
-    assert abs(noise.var().item() - var) <= 0.01 * var
-    if name == "RReLU":
-        assert noise.min() >= 0.1 and noise.max() <= 0.4
-    g = torch.randn(n, generator=torch.Generator().manual_seed(1))
-    gin = pm.backward(x, g)
-    expect = g if name == "GaussianNoise" else g * noise
-    torch.testing.assert_close(gin, expect, rtol=1e-6, atol=0)
-    # a second forward draws anew
-    assert not torch.equal(pm.update_output(x), out)
-
-
 # ---- initialisers -----------------------------------------------------------
-
-def test_initialisers():
-    shape = (3, 4, 5, 5)
-    np.testing.assert_array_equal(pnn.Ones()(shape).numpy(),
-                                  jnn.Ones()(None, shape))
-    np.testing.assert_array_equal(pnn.ConstInitMethod(0.3)(shape).numpy(),
-                                  jnn.ConstInitMethod(0.3)(None, shape))
-    # the port's (out, in, kh, kw) layout of the JAX package's HWIO
-    for k in ((4, 4), (3, 5)):
-        p = pnn.BilinearFiller()((2, 3) + k).numpy()
-        j = np.asarray(jnn.BilinearFiller()(None, k + (3, 2)))
-        np.testing.assert_array_equal(p, np.transpose(j, (3, 2, 0, 1)))
-    g = torch.Generator().manual_seed(0)
-    for fan_in, fan_out, var_fan_in in ((100, 50, True), (100, 50, False)):
-        w = pnn.MsraFiller(var_fan_in)((400, 500), fan_in, fan_out,
-                                       generator=g)
-        std = (2.0 / (fan_in if var_fan_in else fan_out)) ** 0.5
-        assert abs(w.std().item() - std) <= 0.01 * std
-        assert abs(w.mean().item()) <= 0.01 * std
-
 
 # ---- the imperative shell ---------------------------------------------------
 
@@ -550,119 +466,6 @@ def _shell_models():
     return jm, pm
 
 
-def test_shell_trains_like_the_jax_shell():
-    jm, pm = _shell_models()
-    jc, pc = jnn.ClassNLLCriterion(), pnn.ClassNLLCriterion()
-    lr = 0.1
-    for step in range(3):
-        x = normal(5, 6, seed=step)
-        y = _nll_target(5, 4, seed=step)
-        for m, c, xs, ys in ((jm, jc, jnp.asarray(x), jnp.asarray(y)),
-                             (pm, pc, torch.from_numpy(x),
-                              torch.from_numpy(y))):
-            m.zero_grad_parameters()
-            out = m.update_output(xs) if m is pm else m.forward(xs)
-            c.forward(out, ys)
-            m.backward(xs, c.backward(out, ys))
-            m.update_parameters(lr)
-    wj, gj = jm.get_parameters()
-    wp, gp = pm.get_parameters()
-    assert wp.shape == (pm.n_parameters(),) == (jm.n_parameters(),)
-    np.testing.assert_allclose(wp.numpy(), np.asarray(wj), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(gp.numpy(), np.asarray(gj), rtol=0, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(state_to_jax(pm)),
-                    jax.tree_util.tree_leaves(jm.state), strict=True):
-        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-6)
-
-
-def test_get_parameters_is_the_jax_flat_order():
-    """Same weights in both packages give the same flat vector, entry for
-    entry (a layer's entries by sorted name, ``Linear`` (in, out));
-    ``set_flat_parameters`` is its inverse."""
-    jm, pm = _shell_models()
-    wj, _ = jm.get_parameters()
-    wp, gp = pm.get_parameters()
-    np.testing.assert_array_equal(wp.numpy(), np.asarray(wj))
-    assert not gp.any()
-    pm.set_flat_parameters(2 * wp)
-    np.testing.assert_array_equal(pm.get_parameters()[0].numpy(),
-                                  2 * np.asarray(wj))
-    tree = params_to_jax(pm)
-    np.testing.assert_array_equal(tree[0]["weight"],
-                                  2 * np.asarray(jm.params[0]["weight"]))
-
-
-def test_update_grad_input_and_acc_grad_parameters():
-    jm, pm = _shell_models()
-    x, y = normal(5, 6), _nll_target(5, 4)
-    pm.zero_grad_parameters()
-    jm.zero_grad_parameters()
-    out = pm.update_output(torch.from_numpy(x))
-    jout = jm.forward(jnp.asarray(x))
-    g = pnn.ClassNLLCriterion().backward(out, torch.from_numpy(y))
-    jg = jnn.ClassNLLCriterion().backward(jout, jnp.asarray(y))
-    stats = [b.clone() for b in pm.buffers()]
-    gin = pm.update_grad_input(torch.from_numpy(x), g)
-    np.testing.assert_allclose(gin.numpy(), np.asarray(
-        jm.update_grad_input(jnp.asarray(x), jg)), rtol=0, atol=1e-6)
-    assert not pm.get_parameters()[1].any()
-    for b, kept in zip(pm.buffers(), stats):   # no second statistics update
-        assert torch.equal(b, kept)
-    pm.acc_grad_parameters(torch.from_numpy(x), g)
-    once = pm.get_parameters()[1].clone()
-    jm.acc_grad_parameters(jnp.asarray(x), jg)
-    np.testing.assert_allclose(once.numpy(), np.asarray(jm.get_parameters()[1]),
-                               rtol=0, atol=1e-6)
-    pm.acc_grad_parameters(torch.from_numpy(x), g)
-    torch.testing.assert_close(pm.get_parameters()[1], 2 * once, rtol=0,
-                               atol=0)
-
-
-def test_scale_w_and_scale_b():
-    jl, pl = jnn.Linear(4, 3), pnn.Linear(4, 3)
-    params = jax_params(jl, 0)
-    params_from_jax(params, pl)
-    jl._params = jax.tree_util.tree_map(jnp.asarray, params)
-    jl._state, jl._grads = {}, jax.tree_util.tree_map(jnp.zeros_like,
-                                                      jl._params)
-    x, g = normal(2, 4), normal(2, 3, seed=1)
-    pl.zero_grad_parameters()
-    pl.backward(torch.from_numpy(x), torch.from_numpy(g))
-    plain = pl.get_parameters()[1].clone()
-    for m in (jl, pl):
-        m.scale_w, m.scale_b = 2.0, 3.0
-        m.zero_grad_parameters()
-    jl.backward(jnp.asarray(x), jnp.asarray(g))
-    pl.backward(torch.from_numpy(x), torch.from_numpy(g))
-    scaled = pl.get_parameters()[1]
-    np.testing.assert_allclose(scaled.numpy(),
-                               np.asarray(jl.get_parameters()[1]),
-                               rtol=1e-6, atol=1e-7)
-    # flat order: bias (3) then weight (12)
-    torch.testing.assert_close(scaled[:3], 3 * plain[:3], rtol=0, atol=0)
-    torch.testing.assert_close(scaled[3:], 2 * plain[3:], rtol=0, atol=0)
-
-
-def test_shell_bookkeeping():
-    _, pm = _shell_models()
-    x = torch.from_numpy(normal(5, 6))
-    out = pm.update_output(x)
-    assert pm.output is out
-    pm.backward(x, torch.ones_like(out))
-    times = pm.get_times()
-    assert times[0][0] is pm and times[0][1] > 0 and times[0][2] > 0
-    pm.reset_times()
-    assert all(f == 0 and b == 0 for _, f, b in pm.get_times())
-    clone = pm.clone_module()
-    torch.testing.assert_close(clone.get_parameters()[0],
-                               pm.get_parameters()[0], rtol=0, atol=0)
-    assert clone.layers[0].weight is not pm.layers[0].weight
-    table = pm.get_parameters_table()
-    assert sorted(table) == ["layers.0", "layers.1", "layers.2", "layers.4"]
-    params, grads = pm.params_and_grads()
-    assert len(params) == len(grads) == len(list(pm.parameters()))
-
-
 # ---- Graph -------------------------------------------------------------------
 
 def _dag(nn):
@@ -675,36 +478,3 @@ def _dag(nn):
     cat = nn.JoinTable(2).inputs(left, right)
     head = nn.Linear(12, 2).inputs(cat)
     return nn.Graph([in1, in2], [head, right])
-
-
-def test_graph_matches_jax():
-    jg, pg = _dag(jnn), _dag(pnn)
-    assert [type(m).__name__ for m in pg.layers] == \
-        [type(m).__name__ for m in jg.children]
-    params = jax_params(jg, 0)
-    params_from_jax(params, pg)
-    x = [normal(3, 4), normal(3, 3, seed=1)]
-    gy = [normal(3, 2, seed=2), normal(3, 6, seed=3)]
-    out_j, pg_j, xg_j = jax_apply(jg, params, x, gy)
-    out_p, xg_p, pg_p = port_apply(pg, x, gy)
-    for a, b in zip(leaves(out_p) + list(xg_p), jax.tree_util.tree_leaves(out_j)
-                    + jax.tree_util.tree_leaves(xg_j), strict=True):
-        check(a.detach().numpy(), b, GRAPH, "graph output / input")
-    for a, b in zip(jax.tree_util.tree_leaves(pg_p),
-                    jax.tree_util.tree_leaves(pg_j), strict=True):
-        check(a, b, GRAPH, "graph parameter gradient")
-    # the shell through the graph: the same gradients
-    pg.zero_grad_parameters()
-    gin = pg.backward([torch.from_numpy(v) for v in x],
-                      [torch.from_numpy(v) for v in gy])
-    for a, b in zip(gin, xg_p, strict=True):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-
-
-def test_graph_cycle_raises():
-    for nn in (jnn, pnn):
-        n1 = nn.Identity().inputs()
-        n2 = nn.Identity().inputs(n1)
-        n1.inputs(n2)
-        with pytest.raises(ValueError, match="cycle"):
-            nn.Graph([n1], [n2])

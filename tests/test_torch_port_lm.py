@@ -23,7 +23,6 @@ import pytest
 import torch
 
 from bigdl_tpu.models.transformer import PositionOutOfRange as JaxPOR
-from bigdl_tpu.models.transformer import _default_remat as jax_default_remat
 from bigdl_tpu.models.transformer import transformer_lm as jax_lm
 from bigdl_tpu.models.transformer import \
     transformer_lm_pipeline as jax_lm_pipeline
@@ -32,7 +31,6 @@ from bigdl_tpu.optim.optimizer import \
 from bigdl_tpu_torch.models.transformer import (PositionOutOfRange,
                                                 transformer_lm,
                                                 transformer_lm_pipeline)
-from bigdl_tpu_torch.nn import Remat
 from bigdl_tpu_torch.optim.optimizer import mixed_precision_forward
 from bigdl_tpu.utils import config as jconfig
 from bigdl_tpu_torch.utils import config as pconfig
@@ -203,32 +201,3 @@ def remat_preset(value, via: str):
             os.environ.pop(REMAT_ENV, None)
         else:
             os.environ[REMAT_ENV] = env
-
-
-@pytest.mark.parametrize("via", ["property", "env"])
-@pytest.mark.parametrize("preset", REMAT_PRESETS)
-def test_remat_preset_raises_where_the_reference_remats(preset, via):
-    """The port wraps its blocks in ``Remat`` exactly where the JAX
-    package's ``_default_remat`` resolves the preset to remat, with the
-    same policy (``Remat`` is ported now; it raised before), and builds
-    plain blocks otherwise."""
-    with remat_preset(preset, via):
-        remats = jax_default_remat(False)
-        blocks = transformer_lm(VOCAB, device="cpu", **SHAPE).layers[2:-3]
-    assert bool(remats) == (preset in ("nothing", "true", "dots",
-                                       "save_attn"))
-    if remats:
-        policy = None if remats is True else remats
-        assert all(isinstance(b, Remat) and b.policy == policy
-                   for b in blocks)
-    else:
-        assert not any(isinstance(b, Remat) for b in blocks)
-
-
-@pytest.mark.parametrize("remat,preset", [(None, "dots"), (True, "off")])
-def test_explicit_remat_argument_wins_over_the_preset(remat, preset):
-    with remat_preset(preset, "property"):
-        assert jax_default_remat(remat) is remat
-        blocks = transformer_lm(VOCAB, device="cpu", remat=remat,
-                                **SHAPE).layers[2:-3]
-        assert all(isinstance(b, Remat) == bool(remat) for b in blocks)

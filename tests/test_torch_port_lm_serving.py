@@ -32,7 +32,6 @@ enough to be observed, and streams submitted before ``start()`` so that
 the chaos hooks meet the same slots in both.
 """
 
-import time
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +45,6 @@ from bigdl_tpu.models.transformer import transformer_lm as jax_lm
 from bigdl_tpu import serving as jax_serving
 from bigdl_tpu.serving import LMServingEngine as JaxLMServingEngine
 from bigdl_tpu.serving import lm as jax_lm_serving
-from bigdl_tpu.serving.loadgen import sample_lm_workload as jax_workload
 from bigdl_tpu.utils import chaos as jax_chaos
 from bigdl_tpu.utils import config as jax_config
 from bigdl_tpu.utils import elastic as jax_elastic
@@ -56,13 +54,7 @@ from bigdl_tpu_torch.models.transformer import (PositionalEncoding,
                                                 PositionOutOfRange,
                                                 transformer_lm)
 from bigdl_tpu_torch.resources import preflight_pool
-from bigdl_tpu_torch.serving import (DeadlineExceeded, LMServingEngine,
-                                     Overloaded, PagedKVCache,
-                                     QuantizationGateError,
-                                     ServingDataError, ServingEngine,
-                                     ServingInfraError, UnsupportedModelError,
-                                     run_lm_open_loop, run_open_loop,
-                                     sample_lm_workload)
+from bigdl_tpu_torch.serving import LMServingEngine, Overloaded, PagedKVCache
 from bigdl_tpu_torch.serving import lm as port_lm_serving
 from bigdl_tpu_torch.serving.engine import OUTCOMES
 from bigdl_tpu_torch.serving.kv_cache import DUMP_BLOCK
@@ -422,217 +414,13 @@ def test_preflight_passes_through_on_the_cpu():
 # (e) the scheduler's contracts
 # ---------------------------------------------------------------------------
 
-def test_non_lm_model_is_refused_structurally():
-    m = (nn.Sequential().add(nn.Linear(4, 8, device="cpu")).add(nn.ReLU())
-         .add(nn.Linear(8, 3, device="cpu")))
-    with pytest.raises(UnsupportedModelError, match="transformer_lm-shaped"):
-        LMServingEngine(m, device="cpu")
-
-
-def test_max_context_beyond_position_table_is_refused(models):
-    with pytest.raises(ValueError, match="PositionalEncoding"):
-        LMServingEngine(models[1], max_context=128, device="cpu")
-
-
-def test_never_fits_prompt_rejected_at_the_door(models):
-    # 3 allocatable blocks x 4 slots = 12 tokens at most
-    eng = _engine(models[1], warm=False, cache_blocks=4)
-    with pytest.raises(Overloaded, match="kv blocks exhausted"):
-        eng.submit(_prompt(8), max_new_tokens=8)
-    eng.close()
-    _identity(eng.stats())
-
-
-def test_over_context_prompt_is_quarantined(models):
-    with _engine(models[1]) as eng:
-        eng.start()
-        s = eng.submit(_prompt(30), max_new_tokens=8)   # 38 > 32
-        with pytest.raises(ServingDataError, match="maxContext"):
-            s.result(timeout=10)
-        assert s.outcome == "quarantined"
-        stats = eng.stats()
-    _identity(stats)
-
-
-def test_stream_iterates_tokens_and_completes(models, offline):
-    with _engine(models[1]) as eng:
-        eng.start()
-        s = eng.submit(_prompt(6), max_new_tokens=6)
-        got = list(s)
-        assert got == s.result(timeout=10) and len(got) == 6
-        assert s.outcome == "completed"
-        assert s.ttft_ms() > 0 and s.latency_ms() >= s.ttft_ms()
-        stats = eng.stats()
-    _identity(stats)
-    assert got == offline.generate(_prompt(6), max_new_tokens=6)
-
-
-def test_eos_finishes_early(models):
-    with _engine(models[1]) as eng:
-        eng.start()
-        toks = eng.submit(_prompt(6, seed=2),
-                          max_new_tokens=8).result(timeout=10)
-        s = eng.submit(_prompt(6, seed=2), max_new_tokens=8, eos_id=toks[2])
-        assert s.result(timeout=10) == toks[:toks.index(toks[2]) + 1]
-        assert s.outcome == "completed"
-
-
-def test_iteration_level_batching_shares_decode_steps(models, offline):
-    with _engine(models[1]) as eng:
-        eng.start()
-        streams = [eng.submit(_prompt(5, seed=i), max_new_tokens=8)
-                   for i in range(8)]
-        outs = [s.result(timeout=30) for s in streams]
-        stats = eng.stats()
-    assert all(len(o) == 8 for o in outs)
-    # one decode step per token would take tokens - prefills steps
-    assert stats["decode_steps"] < stats["tokens_out"] - stats["prefills"]
-    _identity(stats)
-    for i, o in enumerate(outs):
-        assert o == offline.generate(_prompt(5, seed=i), max_new_tokens=8)
-
-
-def test_blocks_free_after_drain(models):
-    with _engine(models[1]) as eng:
-        eng.start()
-        for i in range(6):
-            eng.submit(_prompt(4, seed=i), max_new_tokens=4)
-        eng.stop()
-        assert eng.cache.used_blocks == 0
-        assert not eng.scheduler_alive()
-        _identity(eng.stats())
-
-
-def test_deadline_sheds_after_streamed_prefix(models):
-    """The deadline check runs AFTER an iteration's emit, so a stream that
-    expires mid-generation keeps its prefix and ends with a structured
-    error.  The second decode step is slowed to 1 s, twice the
-    deadline."""
-    with _engine(models[1]) as eng:
-        step, calls = eng._decode_step, []
-
-        def slow_step(inputs):
-            calls.append(None)
-            if len(calls) == 2:
-                time.sleep(1.0)
-            return step(inputs)
-
-        eng._decode_step = slow_step
-        eng.start()
-        s = eng.submit(_prompt(5), max_new_tokens=10, deadline_ms=500.0)
-        got = []
-        with pytest.raises(DeadlineExceeded):
-            for tok in s:
-                got.append(tok)
-        assert s.outcome == "shed"
-        assert len(got) >= 1 and got == s.tokens()
-        stats = eng.stats()
-    _identity(stats)
-    assert eng.cache.used_blocks == 0
-
-
-def test_generate_refused_while_scheduler_runs(models):
-    with _engine(models[1], warm=False) as eng:
-        eng.start()
-        with pytest.raises(ServingInfraError, match="offline"):
-            eng.generate(_prompt(4))
-
-
-def test_submit_after_close_is_rejected(models):
-    eng = _engine(models[1], warm=False, start=True)
-    eng.close()
-    with pytest.raises(Overloaded, match="closed"):
-        eng.submit(_prompt(4))
-    _identity(eng.stats())
-    assert eng.terminal
-
-
 # ---------------------------------------------------------------------------
 # (f) the open loop
 # ---------------------------------------------------------------------------
 
-def test_open_loop_accounting_and_tokens_match_jax(models, jax_engine):
-    kw = dict(seed=7, prompt_lens=(4, 8, 16), output_lens=(4, 8))
-    reqs = sample_lm_workload(12, VOCAB, **kw)
-    for (p, o), (jp, jo) in zip(reqs, jax_workload(12, VOCAB, **kw)):
-        assert o == jo and np.array_equal(p, jp)
-    with _engine(models[1]) as eng:
-        eng.start()
-        rec = run_lm_open_loop(eng, reqs, rate_hz=500.0, seed=4)
-        stats = eng.stats()
-    _identity(rec)
-    _identity(stats)
-    assert rec["completed"] == 12 and eng.cache.used_blocks == 0
-    assert rec["tokens_total"] == sum(o for _, o in reqs)
-    assert rec["p99_ttft_ms"] is not None and rec["p99_itl_ms"] is not None
-    for (prompt, max_new), (_, s) in zip(reqs, rec["streams"]):
-        assert s.result(timeout=1) == jax_engine.generate(
-            prompt, max_new_tokens=max_new)
-
-
-def test_run_open_loop_drives_serving_engine():
-    """The port's copy of the generic open loop, over ``ServingEngine``:
-    every row completed, the identity exact, each result the model's."""
-    model = transformer_lm(VOCAB, device="cpu", **SHAPE)
-    rows = np.random.default_rng(8).integers(
-        1, VOCAB + 1, (5, 8)).astype(np.float32)
-    with ServingEngine(model, max_batch=2, deadline_ms=60000.0,
-                       device="cpu") as eng:
-        rec = run_open_loop(eng, rows, rate_hz=0.0)
-    _identity(rec)
-    assert rec["completed"] == 5 and len(rec["latency_ms"]) == 5
-    with torch.no_grad():
-        ref = model(torch.from_numpy(rows)).numpy()
-    for i in range(5):
-        np.testing.assert_allclose(rec["results"][str(i)], ref[i],
-                                   atol=1e-5, rtol=0)
-
-
 # ---------------------------------------------------------------------------
 # (g) the recompile sentinels, in every configuration
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("case", ["quantize_arg", "quantize_key",
-                                  "stall_factor"])
-def test_left_out_features_raise(case, models):
-    """The int8 tier and the watchdog build, and every configuration has
-    its recompile sentinels (they raised NotImplementedError before the
-    port had them): one per step, ``lm_decode_int8`` with the int8 tier,
-    every planned shape registered as a warmup plan, none a retrace."""
-    kw = {}
-    if case == "quantize_arg":
-        kw["quantize"] = "int8"
-    elif case == "quantize_key":
-        config.set_property("bigdl.lm.quantize", "int8")
-    else:
-        config.set_property("bigdl.lm.stallFactor", 20.0)
-    eng = LMServingEngine(models[1], device="cpu", **ENGINE, **kw)
-    assert eng.quantize == ("off" if case == "stall_factor" else "int8")
-    labels = {"lm_decode", "lm_prefill", "lm_full"}
-    if eng.quantize == "int8":
-        labels.add("lm_decode_int8")
-    sentinels = eng.sentinels
-    assert set(sentinels) == labels
-    assert sentinels["lm_prefill"].compiles_in_warmup == len(eng._buckets)
-    assert all(s.retraces == 0 for s in sentinels.values())
-    eng.close()
-
-
-def test_sentinels_raise_and_unknown_quantize_is_refused(models, offline,
-                                                          jax_engine):
-    """An unknown tier is refused; the offline engine (warmed up, then
-    generating at mixed prompt lengths) shows zero post-warmup retraces
-    under the JAX engine's labels."""
-    for tier in ("fp8", "int4"):
-        with pytest.raises(ValueError, match="int8"):
-            LMServingEngine(models[1], device="cpu", quantize=tier, **ENGINE)
-    for n in (3, 9, 17):
-        offline.generate(_prompt(n, seed=n), max_new_tokens=3)
-        offline.generate_sequential(_prompt(n, seed=n), max_new_tokens=2)
-    sentinels = offline.sentinels
-    assert set(sentinels) == set(jax_engine.sentinels)
-    assert all(s.retraces == 0 and s.calls > 0 for s in sentinels.values())
-
 
 # ---------------------------------------------------------------------------
 # (h) the int8 decode tier against the JAX package's
@@ -661,211 +449,6 @@ def _leaves(tree, path=""):
         yield path, _np(tree)
 
 
-def test_quantize_params_match_jax_bit_for_bit(int8_pair):
-    jeng, peng = int8_pair
-    got = dict(_leaves(peng._dp_q))
-    ref = {k: v for k, v in _leaves(jeng._dp_q) if k in got}
-    assert got.keys() == ref.keys()
-    assert sum(k.endswith("/q") for k in got) == 2 * 6 + 1
-    for k, v in got.items():
-        assert v.dtype == ref[k].dtype and v.shape == ref[k].shape, k
-        assert v.tobytes() == ref[k].tobytes(), k
-    # an all-zero column (s -> 1, q 0) and steps of exactly .5 (half to
-    # even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2, -2.5 -> -2)
-    w = np.random.default_rng(4).standard_normal((8, 5)).astype(np.float32)
-    w[:, 1] = 0.0
-    w[:, 3] = [127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 3.5, 0.0]
-    je = jax_lm_serving._quantize_entry({"w": jnp.asarray(w), "b": None})
-    pe = port_lm_serving._quantize_entry(
-        {"w": torch.from_numpy(np.ascontiguousarray(w.T)).t(), "b": None})
-    assert _np(pe["q"]).tobytes() == np.asarray(je["q"]).tobytes()
-    assert _np(pe["s"]).tobytes() == np.asarray(je["s"]).tobytes()
-    assert _np(pe["q"])[:, 3].tolist() == [127, 0, 2, 2, -2, 0, 4, 0]
-    assert _np(pe["s"])[1] == 1.0 and not _np(pe["q"])[:, 1].any()
-
-
-def test_int8_prefill_and_decode_steps_match_jax(int8_pair):
-    jeng, peng = int8_pair
-    mb = peng._max_blocks
-    shape = tuple(peng.cache.k.shape)
-    jk = jv = jnp.zeros(shape, jnp.float32)
-    pk, pv = torch.zeros(shape), torch.zeros(shape)
-    inputs = peng._idle_inputs()
-    jin = (np.ones((4, 1), np.int32), np.zeros((4,), np.int32),
-           np.full((4, mb), DUMP_BLOCK, np.int32), np.zeros((4,), bool))
-    # prompts of 8 and 6 ids: prefill bucket 8, which the JAX gate compiled
-    for slot, (n, seed, blocks) in enumerate(((8, 11, [1, 2, 3]),
-                                              (6, 12, [4, 5]))):
-        prompt = _prompt(n, seed)
-        padded = np.ones((1, 8), np.int32)
-        padded[0, :n] = prompt
-        table = np.full((mb,), DUMP_BLOCK, np.int32)
-        table[:len(blocks)] = blocks
-        jlp, jk, jv = jeng._prefill(jeng._dp, jk, jv, padded, np.int32(n),
-                                    table)
-        with torch.no_grad():
-            plp = peng._prefill_fn(peng._dp, pk, pv,
-                                   torch.from_numpy(padded).long(), n,
-                                   torch.from_numpy(table).long())
-        np.testing.assert_allclose(_np(plp), np.asarray(jlp), atol=1e-5,
-                                   rtol=0)
-        tok = int(np.argmax(np.asarray(jlp))) + 1
-        inputs[slot, :3] = (tok, n, 1)
-        inputs[slot, 3:] = table
-        jin[0][slot, 0], jin[1][slot] = tok, n
-        jin[2][slot], jin[3][slot] = table, True
-    jlp, _, _ = jeng._decode_q(jeng._dp_q, jk, jv, *jin)
-    with torch.no_grad():
-        plp = peng._run_decode(pk, pv, torch.from_numpy(inputs),
-                               quantized=True)
-    np.testing.assert_allclose(_np(plp)[:2], np.asarray(jlp)[:2], atol=1e-5,
-                               rtol=0)
-
-
-def test_int8_generate_and_gate_report_match_jax(int8_pair):
-    jeng, peng = int8_pair
-    for n, seed in ((8, 13), (5, 14)):
-        p = _prompt(n, seed)
-        jt, jl = jeng.generate(p, max_new_tokens=10, return_logps=True)
-        pt, pl = peng.generate(p, max_new_tokens=10, return_logps=True)
-        assert pt == jt
-        for a, b in zip(pl, jl):
-            np.testing.assert_allclose(a, np.asarray(b), atol=1e-4, rtol=0)
-    rep = peng.quantization_report
-    assert rep["audit_ok"] is None and "not ported" in rep["audit"]
-    assert rep["allclose"] and (rep["rtol"], rep["atol"]) == (0.05, 0.05)
-    assert set(jeng.quantization_report) <= set(rep)
-    assert abs(rep["max_abs_diff"] -
-               jeng.quantization_report["max_abs_diff"]) <= 1e-5
-    assert peng.decode_captures == 0 and peng.cache.used_blocks == 0
-
-
-def test_int8_gate_refuses_drift(models):
-    config.set_property("bigdl.lm.quantizeRtol", 0.0)
-    config.set_property("bigdl.lm.quantizeAtol", 1e-9)
-    with pytest.raises(QuantizationGateError, match="drifted past"):
-        LMServingEngine(models[1], quantize="int8", device="cpu", **ENGINE)
-
-
-def test_int8_engine_streams(models, int8_pair):
-    with _engine(models[1], quantize="int8") as eng:
-        eng.start()
-        s = eng.submit(_prompt(6, seed=15), max_new_tokens=6)
-        assert s.result(timeout=30) == int8_pair[1].generate(
-            _prompt(6, seed=15), max_new_tokens=6)
-        stats = eng.stats()
-    _identity(stats)
-    assert eng.cache.used_blocks == 0
-
-
 # ---------------------------------------------------------------------------
 # (i) the failure taxonomy, both packages under the same plan
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("pkg", ["jax", "port"])
-def test_preemption_drains_and_rejects_late_arrivals(pkg, models):
-    mod, el = (jax_serving, jax_elastic) if pkg == "jax" else \
-        (port_serving, elastic)
-    with _pair_engine(pkg, models) as eng:
-        eng.start()
-        streams = [eng.submit(_prompt(4, seed=i), max_new_tokens=4)
-                   for i in range(4)]
-        el.request_preemption(reason="test SIGTERM")
-        deadline = time.monotonic() + 5
-        while True:
-            try:
-                eng.submit(_prompt(4))
-            except mod.Overloaded as e:
-                rejected = e
-                break
-            assert time.monotonic() < deadline
-            time.sleep(0.005)
-        assert rejected.reason in ("draining", "closed")
-        assert rejected.retriable
-        for s in streams:
-            assert len(s.result(timeout=30)) == 4
-        assert eng.draining
-    stats = eng.stats()
-    _identity(stats)
-    assert stats["completed"] >= 4 and stats["rejected"] >= 1
-    assert eng.cache.used_blocks == 0
-
-
-def test_hung_decode_is_aborted_cooled_and_readmitted(models):
-    both(bigdl__lm__stallFactor=50.0, bigdl__lm__warmupSteps=2,
-         bigdl__lm__pollInterval=0.2,
-         bigdl__chaos__hangDecodeAt=f"8:{WEDGE}")
-    seen = {}
-    for pkg, mod, _, _, _ in PACKAGES:
-        verdicts, tokens = [], []
-        with _pair_engine(pkg, models) as eng:
-            eng.start()
-            # decode steps 1-7 finish a clean stream and seed the EMA
-            s = eng.submit(_prompt(4), max_new_tokens=8)
-            tokens.append(s.result(timeout=30))
-            verdicts.append(_verdict(s))
-            t0 = time.monotonic()
-            victim = eng.submit(_prompt(4, seed=1), max_new_tokens=8)
-            with pytest.raises(mod.HungDispatchError, match="wedged past"):
-                victim.result(timeout=30)
-            abort_s = time.monotonic() - t0
-            verdicts.append(_verdict(victim))
-            assert abort_s < WEDGE, f"{pkg}: the abort took {abort_s:.2f} s"
-            deadline = time.monotonic() + 5
-            while eng.stats()["cooldown"] == 0:
-                assert time.monotonic() < deadline
-                time.sleep(0.002)
-            with pytest.raises(mod.Overloaded) as ei:
-                eng.submit(_prompt(4, seed=2), max_new_tokens=4)
-            assert ei.value.reason == "cooldown" and ei.value.retriable
-            verdicts.append(_verdict(None, ei.value))
-            # the scheduler's next idle poll (the queue is empty) re-admits
-            while eng.stats()["cooldown"] != 0:
-                assert time.monotonic() < deadline + 5
-                time.sleep(0.01)
-            s = eng.submit(_prompt(4, seed=2), max_new_tokens=4)
-            tokens.append(s.result(timeout=30))
-            verdicts.append(_verdict(s))
-            stats = eng.stats()
-        _identity(stats)
-        assert eng.cache.used_blocks == 0
-        seen[pkg] = (verdicts, {o: stats[o] for o in OUTCOMES}, tokens)
-    assert seen["port"] == seen["jax"]
-    assert seen["port"][1] == {"completed": 2, "shed": 1, "rejected": 1,
-                               "quarantined": 0}
-
-
-def test_prompt_and_block_chaos_match_jax_per_index(models):
-    """poisonPromptAt 1 quarantines the second stream; evictBlockAt 2
-    evicts the first slot's blocks at decode step 2, which sheds the first
-    stream with the prefix it streamed; the third completes."""
-    both(bigdl__chaos__poisonPromptAt="1", bigdl__chaos__evictBlockAt=2)
-    seen = {}
-    for pkg, _, _, _, _ in PACKAGES:
-        with _pair_engine(pkg, models) as eng:
-            streams = [eng.submit(_prompt(4, seed=20 + i), max_new_tokens=6)
-                       for i in range(3)]
-            eng.start()
-            for s in streams:
-                try:
-                    s.result(timeout=30)
-                except Exception:
-                    pass
-            stats = eng.stats()
-        _identity(stats)
-        assert eng.cache.used_blocks == 0
-        seen[pkg] = ([_verdict(s) for s in streams],
-                     [s.tokens() for s in streams])
-    assert seen["port"] == seen["jax"]
-    assert seen["port"][0] == [("shed", "ServingInfraError"),
-                               ("quarantined", "ServingDataError"),
-                               ("completed", None)]
-    tokens = seen["port"][1]
-    assert len(tokens[0]) >= 1 and tokens[1] == [] and len(tokens[2]) == 6
-
-
-def test_cuda_is_the_default_device(models):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default is usable")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        LMServingEngine(models[1], **ENGINE)
