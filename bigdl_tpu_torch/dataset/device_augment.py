@@ -5,6 +5,9 @@ In device-augment mode the ingest engine ships the full decoded uint8
 frames and two small tensors drawn on the host from the clone-and-commit
 stream, the crop origins and the flip flags; the crop, the flip and the
 NHWC -> NCHW transpose happen here, on the batch's device, in PyTorch ops.
+With ``device_jitter`` the engine also ships one int32 seed per record, and
+:func:`color_jitter` draws that record's brightness, contrast and
+saturation factors from it with JAX's threefry keys.
 """
 
 from __future__ import annotations
@@ -44,11 +47,45 @@ def crop_flip_transpose(frames: torch.Tensor, offsets: torch.Tensor,
     return patch.permute(0, 3, 1, 2)
 
 
-def color_jitter(images, seeds, brightness=0.0, contrast=0.0,
-                 saturation=0.0):
-    """Per-record ColorJitter keyed by ride-along seeds: the JAX package
-    draws its factors from ``jax.random.PRNGKey(seed)`` (threefry), which
-    the port does not have yet, so it cannot give the same images."""
-    raise NotImplementedError(
-        "color_jitter: its factors come from JAX's threefry PRNG, which is "
-        "not ported yet")
+def color_jitter(images: torch.Tensor, seeds: torch.Tensor,
+                 brightness: float = 0.0, contrast: float = 0.0,
+                 saturation: float = 0.0) -> torch.Tensor:
+    """Per-record ColorJitter over a uint8 NCHW (BGR) batch.
+
+    images: (N, C, H, W) uint8, BGR channel order (the decoders' layout)
+    seeds:  (N,) int32 per-record keys, drawn on the host from the
+            clone-and-commit stream, so a replayed batch jitters alike
+    returns (N, C, H, W) uint8
+
+    Each factor is drawn uniformly from ``[1 - x, 1 + x]`` with JAX's own
+    keys (:mod:`bigdl_tpu_torch.utils.prng`: ``PRNGKey(seed)`` split in
+    three, one key for brightness, contrast and saturation), so the
+    factors are the JAX package's to the bit; a zero leaves its leg out.
+    Brightness scales the pixels, contrast pulls them towards the image's
+    mean over every channel, saturation towards the BGR luma; the result
+    is rounded half to even and held in [0, 255].  The ops are the JAX
+    function's, one by one: the image mean (a float32 sum in another
+    order) can differ from JAX's in its last bit, which moves a pixel
+    that sits at .5 by 1."""
+    from bigdl_tpu_torch.utils import prng
+    dev = images.device
+    keys = prng.split(prng.prng_key(seeds.to(device=dev,
+                                             dtype=torch.int32)), 3)
+    per_image = (-1, 1, 1, 1)
+
+    def factor(i: int, x: float) -> torch.Tensor:
+        return prng.uniform(keys[:, i], 1.0 - x, 1.0 + x).view(per_image)
+
+    x = images.to(torch.float32)
+    if brightness:
+        x = x * factor(0, brightness)
+    if contrast:
+        f = factor(1, contrast)
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        x = mean + (x - mean) * f
+    if saturation:
+        f = factor(2, saturation)
+        # BGR luma: channel 0 is blue, 2 is red
+        gray = (0.114 * x[:, 0] + 0.587 * x[:, 1] + 0.299 * x[:, 2])[:, None]
+        x = gray + (x - gray) * f
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)

@@ -58,10 +58,33 @@ def default_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+#: the zero-copy floor (JAX ``engine.py`` ``_ZERO_COPY_MIN_BYTES``): smaller
+#: arrays (crop origins, flip flags, labels) gain nothing from aliasing
+ZERO_COPY_MIN_BYTES = 1 << 16
+
+
+def host_tensor(x: np.ndarray, zero_copy: Optional[bool] = None
+                ) -> torch.Tensor:
+    """A host array as a CPU tensor.  With ``bigdl.ingest.zeroCopyUpload``
+    (default on; ``zero_copy`` overrides it) a C-contiguous array of
+    :data:`ZERO_COPY_MIN_BYTES` or more is aliased, not copied: the JAX
+    package's dlpack leg (``engine.py`` ``_leaf_to_device``), safe because
+    the assembler packs a fresh buffer per batch and never writes it after
+    the hand-off.  Any other array, and every array with the key off, is
+    copied first, the JAX package's ``jnp.asarray`` leg."""
+    if zero_copy is None:
+        zero_copy = config.get_bool("bigdl.ingest.zeroCopyUpload", True)
+    if (zero_copy and x.nbytes >= ZERO_COPY_MIN_BYTES and
+            x.flags["C_CONTIGUOUS"]):
+        return torch.from_numpy(x)
+    return torch.from_numpy(np.array(x, order="C", copy=True))
+
+
 def to_device(x: np.ndarray, device: DeviceLike) -> torch.Tensor:
     """Move a host array onto ``device``, keeping its dtype: the single
-    host-to-device crossing point of the serving path."""
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    host-to-device crossing point of the serving path (:func:`host_tensor`
+    first)."""
+    return host_tensor(x).to(device)
 
 
 def tree_map(fn, tree):
@@ -347,10 +370,10 @@ class _StagingSlot:
         return self.buffers
 
 
-def _host_tensor(x) -> Optional[torch.Tensor]:
+def _host_tensor(x, zero_copy: bool) -> Optional[torch.Tensor]:
     """An array leaf as a host tensor (None for a scalar or other leaf)."""
     if isinstance(x, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(x))
+        return host_tensor(x, zero_copy)
     if isinstance(x, torch.Tensor):
         return x
     return None
@@ -393,8 +416,10 @@ class BatchPrefetcher:
     does not reuse its memory before the consumer's work is done.  A batch
     of ``READY_BYTES`` (4 MiB) or more is also waited for on the host by
     the transfer thread (``block_ns``).  On the CPU the batch's arrays
-    become host tensors (shared with the numpy arrays) and no stream is
-    used: that is the caller's device, not a fallback.
+    become host tensors and no stream is used: that is the caller's
+    device, not a fallback.  Either way an array leaf becomes a host tensor
+    through :func:`host_tensor` (aliased or copied under
+    ``bigdl.ingest.zeroCopyUpload``, read when the prefetcher is made).
 
     ``depth`` defaults to ``bigdl.prefetch.depth`` (2); 0 is synchronous:
     the call fetches and copies on the calling thread and stream.
@@ -441,6 +466,8 @@ class BatchPrefetcher:
             else config.get_int("bigdl.ingest.batchesInFlight", 2))
         self._fetch = fetch
         self._on_batch = on_batch
+        self._zero_copy = config.get_bool("bigdl.ingest.zeroCopyUpload",
+                                          True)
         self._stats_lock = make_lock("engine.prefetch")
         self.fetch_ns = 0            # guarded-by: _stats_lock
         self.block_ns = 0            # guarded-by: _stats_lock
@@ -492,7 +519,7 @@ class BatchPrefetcher:
         """The batch's arrays on the device: (batch, event, bytes); the
         event is None off CUDA."""
         leaves = tree_leaves(batch)
-        hosts = [_host_tensor(x) for x in leaves]
+        hosts = [_host_tensor(x, self._zero_copy) for x in leaves]
         arrays = [h for h in hosts if h is not None]
         nbytes = sum(h.numel() * h.element_size() for h in arrays)
         if not self._cuda:

@@ -689,9 +689,13 @@ class ChannelNormalize(Module):
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         consts = self._consts.get(input.device)
         if consts is None:
-            consts = tuple(torch.tensor(v, dtype=torch.float32,
-                                        device=input.device)
-                           for v in (self.mean, self.std))
+            # filled on the device, not copied from the host: a pageable
+            # copy would synchronize in the step (the host-sync guard's
+            # "synchronizing CUDA call")
+            consts = tuple(
+                torch.stack([torch.full((), x, dtype=torch.float32,
+                                        device=input.device) for x in v])
+                for v in (self.mean, self.std))
             self._consts[input.device] = consts
         c = len(self.mean)
         if self.format == "NCHW":
@@ -711,26 +715,29 @@ class DeviceAugment(Module):
     (:func:`bigdl_tpu_torch.dataset.device_augment.crop_flip_transpose`:
     channels-last in memory).  An assembled batch (a tensor) passes through
     unchanged, so one model serves both ingest modes.  Place it first,
-    before :class:`ChannelNormalize`.  ``color_jitter`` (the JAX package's
-    per-record jitter, keyed by JAX's threefry) is not ported and
-    raises."""
+    before :class:`ChannelNormalize`.  ``color_jitter``, a dict of
+    ``brightness``/``contrast``/``saturation`` strengths, jitters each
+    record with the seed that ``StreamingIngest(device_jitter=True)`` packs
+    as a fourth input (:func:`bigdl_tpu_torch.dataset.device_augment.
+    color_jitter`); without that input the crop passes unjittered, as in
+    the JAX package."""
 
     def __init__(self, crop_h: int, crop_w: int, color_jitter=None):
         super().__init__()
-        if color_jitter:
-            raise NotImplementedError(
-                "DeviceAugment(color_jitter=...): its factors come from "
-                "JAX's threefry PRNG, which is not ported yet")
         self.crop_h = int(crop_h)
         self.crop_w = int(crop_w)
+        self.color_jitter = dict(color_jitter) if color_jitter else None
 
     def forward(self, input):
-        from bigdl_tpu_torch.dataset.device_augment import \
-            crop_flip_transpose
+        from bigdl_tpu_torch.dataset import device_augment
         if not isinstance(input, (list, tuple)) or len(input) < 3:
             return input
-        return crop_flip_transpose(input[0], input[1], input[2],
-                                   self.crop_h, self.crop_w)
+        out = device_augment.crop_flip_transpose(
+            input[0], input[1], input[2], self.crop_h, self.crop_w)
+        if self.color_jitter and len(input) > 3:
+            out = device_augment.color_jitter(out, input[3],
+                                              **self.color_jitter)
+        return out
 
 
 class AddConstant(Module):

@@ -5,8 +5,8 @@ subset:
 ``install``/``uninstall``/``active`` :1074-1104, ``on_step`` :1105,
 ``take_bitflip`` :1227, ``desync_replica`` :1236, ``take_oom_dispatch``
 :1256, ``host_mem_pressure`` :1272, the storage hooks ``on_write`` :1098 and
-``take_disk_full`` :1264, ``corrupt_state_before_save`` :1247, and the
-serving hooks :1144-1196, the fleet hooks ``kill_replica`` :1280,
+``take_disk_full`` :1264, ``corrupt_state_before_save`` :1247, the ingest
+hooks :1198-1225 over :659-720, and the serving hooks :1144-1196, the fleet hooks ``kill_replica`` :1280,
 ``corrupt_candidate`` :1288 and ``sigterm_fleet`` :1297 over
 ``_ChaosState`` :533-657, :805-861).
 
@@ -17,7 +17,9 @@ batcher on every request it handles and before every dispatch,
 ``LMServingEngine``'s scheduler on every prompt it validates and before
 every decode iteration, the open-loop load generators at every arrival, the
 fleet at every submission and its rollout on every candidate it prepares.
-The keys, each read at :func:`install`:
+The ingest stages (``dataset/ingest.py``) consult the record-read, decode,
+stage-death and stage-throttle hooks on every record.  The keys, each read
+at :func:`install`:
 
 ==================================  =========================================
 ``bigdl.chaos.failWriteAt``         k: the k-th payload write raises
@@ -113,6 +115,30 @@ The keys, each read at :func:`install`:
                                     the harness calls
                                     ``elastic.request_preemption`` once (a
                                     fleet-wide SIGTERM).
+``bigdl.chaos.corruptRecordAt``     "k" or "k:m": ingest records k..m
+                                    (0-based stream position) read as
+                                    corrupt (:class:`CorruptRecord`, a data
+                                    fault), once per position.
+``bigdl.chaos.corruptRecordEvery``  n: every n-th ingest record (positions
+                                    n, 2n, ...) reads corrupt, every pass.
+``bigdl.chaos.failDecodeAt``        "k" or "k:m": records k..m decode to
+                                    :class:`UndecodableImage`, once per
+                                    position.
+``bigdl.chaos.transientReads``      n: the first n ingest record reads raise
+                                    a transient :class:`ChaosError`, then
+                                    recover (the reader's capped-backoff
+                                    retry absorbs them).
+``bigdl.chaos.killStageThread``     "stage" or "stage:k" (``reader``,
+                                    ``assembler`` or ``decode``): the stage
+                                    dies silently at its k-th item (default
+                                    1), once; the stage supervisor must
+                                    restart it.
+``bigdl.chaos.starveStageAt``       "stage:k" or "stage:k:seconds"
+                                    (``read``, ``decode`` or ``assemble``):
+                                    from its k-th item the stage pauses
+                                    about 50 ms an item for ``seconds``
+                                    (default 1.0), once; its downstream
+                                    starves.
 ==================================  =========================================
 
 ``bigdl.chaos.lockDelayAt``         "<lockname>:k[:seconds]": the k-th
@@ -123,13 +149,13 @@ The keys, each read at :func:`install`:
                                     check, while the witness is armed;
                                     once per position per plan.
 
-Every other ``bigdl.chaos.*`` key of the JAX package (the ingest, compile
-and audit injectors) belongs to a part the port does not have yet:
+Every other ``bigdl.chaos.*`` key of the JAX package (the compile and audit
+injectors) belongs to a part the port does not have yet:
 :func:`install` raises :class:`NotImplementedError` when one is set
 (:data:`UNPORTED_KEYS`), as do the trainers, both serving engines and
 ``StreamingIngest`` (:func:`refuse_unported_keys`), which also refuse the
-JAX package's compile-cache, audit, zero-copy and device-budget keys when
-they ask for what the port lacks (:data:`UNHONOURED_KEYS`).
+JAX package's compile-cache, audit and device-budget keys when they ask for
+what the port lacks (:data:`UNHONOURED_KEYS`).
 
 Counters are process-local and count from :func:`install`; disarmed (the
 default) every hook is a no-op behind one attribute check.
@@ -147,9 +173,6 @@ from bigdl_tpu_torch.analysis.lockwitness import make_lock
 
 #: the JAX package's injectors that the port does not have
 UNPORTED_KEYS = (
-    "bigdl.chaos.corruptRecordAt", "bigdl.chaos.corruptRecordEvery",
-    "bigdl.chaos.failDecodeAt", "bigdl.chaos.transientReads",
-    "bigdl.chaos.killStageThread", "bigdl.chaos.starveStageAt",
     "bigdl.chaos.corruptCompileCacheAt", "bigdl.chaos.hangCompileAt",
     "bigdl.chaos.extraAllGather",
     "bigdl.chaos.f32Upcast", "bigdl.chaos.dropBucketCollective")
@@ -174,8 +197,7 @@ def _true(value) -> bool:
 #: the JAX package's other keys of parts the port does not have, each with
 #: the test of a value that asks for the missing behaviour: a directory, a
 #: timeout, a budget or ``strict``.  The values that ask for nothing (unset,
-#: 0, ``off``; ``warn``, whose JAX pass only logs; ``zeroCopyUpload``
-#: false, the copy the port makes) pass.
+#: 0, ``off``; ``warn``, whose JAX pass only logs) pass.
 UNHONOURED_KEYS = {
     # the executable cache and compile watchdog (utils/compile_cache.py)
     "bigdl.compile.cacheDir": _is_set,
@@ -187,8 +209,6 @@ UNHONOURED_KEYS = {
     "bigdl.audit.collectives": _strict,
     "bigdl.audit.precision": _strict,
     "bigdl.audit.memory": _strict,
-    # the JAX ingest's dlpack hand-off of the assembler's buffers
-    "bigdl.ingest.zeroCopyUpload": _true,
     # the fused step's device-memory preflight (resources/device.py)
     "bigdl.resources.deviceMemBudgetMB": _positive,
 }
@@ -221,6 +241,30 @@ def _incident_note(kind: str, **fields) -> None:
     mod = _sys.modules.get("bigdl_tpu_torch.telemetry.incident")
     if mod is not None:
         mod.record(f"chaos/{kind}", **fields)
+
+
+class CorruptRecord(ChaosError):
+    """An injected corrupt ingest record: a data fault, quarantined and
+    never retried (corrupt bytes read again are still corrupt)."""
+
+    fatal = True
+
+    def __init__(self, index: int):
+        super().__init__(f"chaos: corrupt record at stream position "
+                         f"{index}")
+        self.index = index
+
+
+class UndecodableImage(ChaosError):
+    """An injected decode failure: a record whose bytes are not an
+    image."""
+
+    fatal = True
+
+    def __init__(self, index: int):
+        super().__init__(
+            f"chaos: undecodable image at stream position {index}")
+        self.index = index
 
 
 class _TornWrite(ChaosError):
@@ -375,6 +419,19 @@ class _ChaosState:
             config.get_property("bigdl.chaos.stallStepAt"))
         self.topology_change_at = config.get_int(
             "bigdl.chaos.topologyChangeAt", 0)
+        self.corrupt_record_at = _parse_span(
+            config.get_property("bigdl.chaos.corruptRecordAt"))
+        self.corrupt_record_every = config.get_int(
+            "bigdl.chaos.corruptRecordEvery", 0)
+        self.fail_decode_at = _parse_span(
+            config.get_property("bigdl.chaos.failDecodeAt"))
+        self.transient_reads = config.get_int(
+            "bigdl.chaos.transientReads", 0)
+        self.kill_stage, self.kill_stage_after = _parse_kill(
+            config.get_property("bigdl.chaos.killStageThread"))
+        (self.starve_stage_name, self.starve_stage_after,
+         self.starve_stage_seconds) = _parse_starve(
+            config.get_property("bigdl.chaos.starveStageAt"))
         self.bitflip_at, self.bitflip_leaf = _parse_indexed(
             config.get_property("bigdl.chaos.bitflipParamAt"), 0)
         self.desync_at, self.desync_replica = _parse_indexed(
@@ -412,6 +469,13 @@ class _ChaosState:
         self.steps_failed = 0
         self.steps_seen = 0
         self.transient_raised = 0
+        self.transient_reads_raised = 0
+        self.record_faults_fired: set = set()   # positions fired once
+        self.decode_faults_fired: set = set()
+        self.stage_kills = 0
+        self.stage_starve_started: Optional[float] = None
+        self.stage_starve_done = False
+        self.stage_starve_throttles = 0
         self.preempts = 0
         self.stalls = 0
         self.topology_changes = 0
@@ -602,6 +666,74 @@ class _ChaosState:
         return fire
 
 
+    # ---- the ingest stages ---------------------------------------------
+
+    def on_record_read(self, index: int) -> None:
+        """The reader stage, with each record's 0-based stream position
+        before it hands the record on: a transient :class:`ChaosError` for
+        the first ``transientReads`` reads, a :class:`CorruptRecord` in the
+        ``corruptRecordAt`` span (once per position) or on the
+        ``corruptRecordEvery`` grid."""
+        with self._lock:
+            if self.transient_reads_raised < self.transient_reads:
+                self.transient_reads_raised += 1
+                raise ChaosError(
+                    f"chaos: transient read failure "
+                    f"{self.transient_reads_raised}/{self.transient_reads} "
+                    f"on record {index}")
+        lo, hi = self.corrupt_record_at
+        if hi >= 0 and lo <= index <= hi:
+            with self._lock:
+                fire = index not in self.record_faults_fired
+                self.record_faults_fired.add(index)
+            if fire:     # a fresh epoch's pass is not dirtied again
+                raise CorruptRecord(index)
+        if (self.corrupt_record_every and
+                index and index % self.corrupt_record_every == 0):
+            raise CorruptRecord(index)
+
+    def on_decode(self, index: int) -> None:
+        """Before a record's decode: :class:`UndecodableImage` inside the
+        ``failDecodeAt`` span, once per position."""
+        lo, hi = self.fail_decode_at
+        if hi >= 0 and lo <= index <= hi:
+            with self._lock:
+                fire = index not in self.decode_faults_fired
+                self.decode_faults_fired.add(index)
+            if fire:
+                raise UndecodableImage(index)
+
+    def kill_stage_thread(self, stage: str, items: int) -> bool:
+        """True once, when the named stage has handled its
+        ``killStageThread`` item count: the stage then ends silently (no
+        error, no done flag), a crashed thread for the supervisor."""
+        if self.kill_stage != stage or items < self.kill_stage_after:
+            return False
+        with self._lock:
+            if self.stage_kills:
+                return False        # one death per plan, not per restart
+            self.stage_kills = 1
+        return True
+
+    def starve_stage(self, stage: str, items: int) -> None:
+        """Each stage calls this with its running item count: from the
+        named stage's ``starveStageAt``-th item every call pauses up to
+        50 ms until ``seconds`` after the first pause; once per plan."""
+        import time
+        if (self.starve_stage_name != stage or self.stage_starve_done or
+                items < self.starve_stage_after):
+            return
+        with self._lock:
+            if self.stage_starve_started is None:
+                self.stage_starve_started = time.monotonic()
+            remaining = (self.stage_starve_started +
+                         self.starve_stage_seconds - time.monotonic())
+            if remaining <= 0:
+                self.stage_starve_done = True
+                return
+            self.stage_starve_throttles += 1
+        time.sleep(min(0.05, remaining))
+
     # ---- the serving engines -------------------------------------------
 
     def on_serving_request(self, index: int) -> None:
@@ -752,6 +884,30 @@ class _ChaosState:
             _incident_note("sigterm_fleet", submits=submits)
             elastic.request_preemption("chaos: injected fleet-wide SIGTERM")
         return fire
+
+
+def _parse_kill(value) -> Tuple[Optional[str], int]:
+    """``"stage"`` -> (stage, 1); ``"stage:k"`` -> (stage, k); falsy ->
+    (None, 0)."""
+    if not value:
+        return (None, 0)
+    s = str(value)
+    if ":" in s:
+        stage, k = s.split(":", 1)
+        return (stage.strip(), int(k))
+    return (s.strip(), 1)
+
+
+def _parse_starve(value) -> Tuple[Optional[str], int, float]:
+    """``"stage:k"`` -> (stage, k, 1.0); ``"stage:k:seconds"`` ->
+    (stage, k, seconds); falsy -> (None, 0, 0.0)."""
+    if not value:
+        return (None, 0, 0.0)
+    parts = str(value).split(":")
+    stage = parts[0].strip()
+    k = int(parts[1]) if len(parts) > 1 else 1
+    secs = float(parts[2]) if len(parts) > 2 else 1.0
+    return (stage, k, secs)
 
 
 def _parse_lock_delay(value) -> Tuple[Optional[str], int, float]:
@@ -929,3 +1085,30 @@ def sigterm_fleet(submits: int) -> bool:
     if _state is None:
         return False
     return _state.sigterm_fleet(submits)
+
+
+def on_record_read(index: int) -> None:
+    """Ingest reader-stage hook (no-op when disarmed): transient read blips
+    and corrupt records by stream position."""
+    if _state is not None:
+        _state.on_record_read(index)
+
+
+def on_decode(index: int) -> None:
+    """Ingest decode-stage hook (no-op when disarmed)."""
+    if _state is not None:
+        _state.on_decode(index)
+
+
+def kill_stage_thread(stage: str, items: int) -> bool:
+    """Ingest stage-death hook: True means "end silently now" (once per
+    plan; False when disarmed)."""
+    if _state is None:
+        return False
+    return _state.kill_stage_thread(stage, items)
+
+
+def starve_stage(stage: str, items: int) -> None:
+    """Ingest stage-throttle hook (no-op when disarmed)."""
+    if _state is not None:
+        _state.starve_stage(stage, items)

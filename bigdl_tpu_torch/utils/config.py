@@ -153,24 +153,38 @@ _DEFAULTS: Dict[str, Any] = {
     "bigdl.ingest.batchesInFlight": 2,       # copies to the card in flight
     "bigdl.ingest.deviceAugment": False,     # full uint8 frames + crop/flip draws;
     # crop/flip/transpose on the device (nn.DeviceAugment)
+    "bigdl.ingest.zeroCopyUpload": True,     # alias the assembler's buffers at
+    # the host->device crossing (engine.to_device); False copies them first
+    # stage autoscaling (dataset/ingest.py AutoscalePolicy): the supervisor
+    # adds/retires decode workers (and native assemble threads) from the
+    # assemble stage's starve/backpressure signals, governor as upper bound
+    "bigdl.ingest.autoscale.enabled": True,   # scale decode/assemble workers
+    "bigdl.ingest.autoscale.min": 1,          # decode-worker floor
+    "bigdl.ingest.autoscale.max": 0,          # worker ceiling; 0 = host cores
+    "bigdl.ingest.autoscale.intervalSec": 0.25,  # decision cadence
+    "bigdl.ingest.autoscale.upStarveFrac": 0.2,  # assemble starve frac -> +1
+    "bigdl.ingest.autoscale.downStarveFrac": 0.02,  # below this (or
+    # backpressure-bound) -> -1 toward the floor
+    "bigdl.ingest.autoscale.patience": 2,     # consecutive signals before acting
+    "bigdl.ingest.autoscale.cooldown": 3,     # hold intervals after an action
+    # decoded-epoch cache (dataset/epoch_cache.py): repeated-epoch training
+    # pays JPEG decode once; RAM segments, optional checksummed disk spill
+    "bigdl.ingest.epochCache": False,        # cache decoded frames across epochs
+    "bigdl.ingest.epochCacheDir": None,      # disk-spill dir; None = RAM only
+    "bigdl.ingest.epochCacheBudgetMB": 0,    # cache byte cap; 0 = governor only
+    "bigdl.ingest.epochCacheSegmentRecords": 256,  # records per segment
+    # self-healing ingest (error taxonomy + quarantine + supervision)
     "bigdl.ingest.maxBadRecords": 0,         # data-error quarantine budget; 0 = fail fast
-    # what the port does not have yet asks for it here and raises
-    # NotImplementedError (ingest.StreamingIngest); the JAX package's defaults
-    # differ for the first two (autoscale on, 2 restarts), which change
-    # timing and recovery, never the batches
-    "bigdl.ingest.autoscale.enabled": False,  # decode-pool autoscaler (not ported)
-    "bigdl.ingest.maxStageRestarts": 0,      # stage restarts (not ported: > 0 raises)
-    "bigdl.ingest.fallbackOnFailure": False,  # sync path after a failure (not ported)
-    "bigdl.ingest.stallTimeoutSec": 0,       # wedged-ring detection (not ported: > 0 raises)
-    "bigdl.ingest.epochCache": False,        # decoded-frame cache (not ported)
-    # the ingest stages' fault injection (not ported: any of them set raises,
-    # as does every other key of utils/chaos.py UNPORTED_KEYS)
-    "bigdl.chaos.corruptRecordAt": None,
-    "bigdl.chaos.corruptRecordEvery": 0,
-    "bigdl.chaos.failDecodeAt": None,
-    "bigdl.chaos.transientReads": 0,
-    "bigdl.chaos.killStageThread": None,
-    "bigdl.chaos.starveStageAt": None,
+    "bigdl.ingest.maxStageRestarts": 2,      # dead-stage restarts before escalation
+    "bigdl.ingest.fallbackOnFailure": False,  # dead engine -> sync MT path mid-epoch
+    "bigdl.ingest.stallTimeoutSec": 0,       # wedged-ring detection; 0 = disabled
+    # the ingest stages' fault injection (utils/chaos.py)
+    "bigdl.chaos.corruptRecordAt": None,     # "k" or "k:m": records read corrupt
+    "bigdl.chaos.corruptRecordEvery": 0,     # every n-th record reads corrupt
+    "bigdl.chaos.failDecodeAt": None,        # "k" or "k:m": records undecodable
+    "bigdl.chaos.transientReads": 0,         # first n record reads blip
+    "bigdl.chaos.killStageThread": None,     # "stage[:k]": a stage dies silently
+    "bigdl.chaos.starveStageAt": None,       # "stage:k[:seconds]": a stage throttles
     # data parallelism (bigdl_tpu_torch/parallel/distri_optimizer.py)
     "bigdl.parallel.overlap": True,          # False = monolithic baseline step
     "bigdl.parallel.overlapBuckets": 4,      # column buckets of the flat vector per step

@@ -483,6 +483,36 @@ Phases, each fatal on any fault:
    to FL_PROBE_BATCH against its bucket-FL_BATCH bits (logged), and one
    served row against the model with ``flash=False`` (FL_ATOL).  The fp32
    forward kernel launched, no other flash kernel.
+22. ingest's remainder (``dataset/ingest.py``'s supervisor, autoscaler and
+   fallback, ``dataset/epoch_cache.py``, ``utils/prng.py``), run right
+   after phase 11 over its records and model, the flash launch counts
+   reset at its start and read at its end (all 0).  (a) An epoch of the
+   1280 records through ``StreamingIngest`` at the reference's defaults
+   (the autoscaler on), from 1 decode worker, paced at phase 11's step,
+   and with a fixed pool: every batch's uint8 frames, draws and labels
+   hash alike; the decode workers after each batch, the autoscale events
+   and images/s logged.  (b) ``killStageThread`` at the reader, a decode
+   worker and the assembler (IG_KILLS), each on phase 11's 384-record
+   determinism set under deterministic cuDNN: one restart each, weights
+   and BN statistics bit-identical to a clean run; the time from the
+   death to the restart.  (c) ``starveStageAt`` IG_STARVE with
+   ``stallTimeoutSec`` IG_STALL_S (below the throttle's 50 ms a record):
+   ``IngestStallError`` within the timeout plus 1 s of the first throttled
+   item, the throttled stage's items at the armed position in the
+   diagnosis, every ``ingest-`` thread joined.  (d) ``fallbackOnFailure``
+   after a kill with no restart: bit-identical weights; an ingest-only
+   epoch falling back at IG_FALLBACK_COST_KILL gives the clean epoch's
+   batches, its images/s beside the clean one's.  (e) The epoch cache in
+   RAM: two ingest-only epochs (all 1280 hit in the second, the same
+   batches, the decode stage's busy seconds and images/s each) and 20
+   trained iterations at prefetch depth 2 (images/s by epoch); on disk,
+   the determinism set in segments of IG_CACHE_SEGMENT with the first
+   segment bit-flipped as it is written: one segment quarantined, weights
+   bit-identical to an uncached run.  (f) ``color_jitter``: the threefry
+   factors on the card bit for bit the CPU's, the jittered crops within 1
+   of the CPU's (at most IG_JITTER_SHARE of the pixels differ), and
+   IG_JITTER_STEPS ResNet-50 steps with ``DeviceAugment(color_jitter=...)``
+   under the strict host-sync guard: 0 implicit syncs, one pull a step.
 
 Prints the card's name and power limit, then one JSON line of kernels (the
 six above, as ``flash_attention_{fwd,bwd_dkv,bwd_dq}_{fp32,bf16}``, each with
@@ -492,8 +522,9 @@ phase 13, as ``zoo_rnn_launches`` in phase 14 and as ``sharded_launches``
 in phase 15 (a), as ``pipeline_launches`` in phase 16 (a) and as
 ``resilience_launches`` in phase 17, as ``failure_launches`` in phase
 18 (a), as ``library_launches`` in phase 19, as ``analysis_launches``
-in phase 20's gated trainer runs and as ``fleet_launches`` in phase 21;
-phases 8, 9, 11, 12, 14, 16 and 19 run none of them), then the
+in phase 20's gated trainer runs, as ``fleet_launches`` in phase 21 and
+as ``ingest_launches`` in phase 22; phases 8, 9, 11, 12, 14, 16, 19 and 22
+run none of them), then the
 result line ``{"ok": true, "device":
 {...}}`` last.  Exits non-zero without a result
 when CUDA is absent or the port is not beside this file.
@@ -586,6 +617,16 @@ RD_MEAN, RD_STD = (104.0, 117.0, 123.0), (1.0, 1.0, 1.0)
 RD_STEPS = 15                # the epoch of 10 iterations rolls over
 RD_TIMED = slice(3, RD_STEPS)   # iterations 4-15 timed
 RD_DET_IMAGES, RD_DET_STEPS = 384, 4   # 3 iterations an epoch
+#: phase 22: ingest's remainder over phase 11's records and model
+IG_KILLS = ("reader:100", "decode:200", "assembler:300")   # (b), det set
+IG_STARVE = "read:64:5"      # (c): the reader throttles from record 64
+IG_STALL_S = 0.02            # (c): below the throttle's 50 ms a record
+IG_FALLBACK_KILL = "assembler:200"   # (d), det set, 0 restarts
+IG_FALLBACK_COST_KILL = "assembler:256"   # (d): the ingest-only epoch
+IG_CACHE_SEGMENT = 128       # (e) disk leg: 3 sealed segments of the det set
+IG_JITTER = {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4}
+IG_JITTER_STEPS = 4          # (f): strict host-sync steps, det set
+IG_JITTER_SHARE = 1e-3       # (f): pixels allowed to differ by 1 from the CPU
 #: phase 12: the train drivers.  ResNet-50 through models/resnet/train.py:
 #: 512 synthetic images at B128 (4 iterations an epoch), 2 epochs,
 #: validation over 128 images each epoch, a checkpoint each epoch
@@ -2964,10 +3005,10 @@ def rd_write_seqfiles(root: str, n_images: int, files: int) -> float:
     return time.perf_counter() - t
 
 
-def rd_model():
+def rd_model(color_jitter=None):
     """Phase 11's model: DeviceAugment -> ChannelNormalize (bf16) ->
     ResNet-50 as phase 8 builds it (channels-last, seed 0) ->
-    LogSoftMax."""
+    LogSoftMax (phase 22 (f): the head with ``color_jitter``)."""
     import torch
     from bigdl_tpu_torch.models import model_init, resnet
     from bigdl_tpu_torch.nn import (ChannelNormalize, DeviceAugment,
@@ -2975,15 +3016,18 @@ def rd_model():
     body = resnet(R50_CLASSES, depth=50, dataset="imagenet", device=DEVICE,
                   seed=SEED)
     model_init(body, generator=torch.Generator().manual_seed(SEED))
-    return (Sequential().add(DeviceAugment(*RD_CROP))
+    return (Sequential().add(DeviceAugment(*RD_CROP,
+                                           color_jitter=color_jitter))
             .add(ChannelNormalize(RD_MEAN, RD_STD, dtype=torch.bfloat16))
             .add(body).add(LogSoftMax()))
 
 
-def rd_dataset(root: str):
+def rd_dataset(root: str, **engine):
+    """The records at ``root`` through ``StreamingIngest(RD_BATCH,
+    device_augment=True, **engine)``: (dataset, engine)."""
     from bigdl_tpu_torch.dataset import DataSet, StreamingIngest
     eng = StreamingIngest(RD_BATCH, crop=RD_CROP, mean=RD_MEAN, std=RD_STD,
-                          device_augment=True)
+                          device_augment=True, **engine)
     return DataSet.seq_file_folder(root, decode=False).transform(eng), eng
 
 
@@ -3028,14 +3072,16 @@ def rd_parity(card: str, root: str) -> None:
         it.close()
 
 
-def rd_train(card: str, root: str, model, depth: int, steps: int):
+def rd_train(card: str, root: str, model, depth: int, steps: int,
+             **engine):
     """Train ``model`` through Optimizer.create(...).optimize() from the
-    SequenceFiles at ``root``; returns the optimizer and its engine."""
+    SequenceFiles at ``root`` (``engine``: StreamingIngest's arguments);
+    returns the optimizer and its engine."""
     from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
     RandomGenerator.RNG().set_seed(SEED)
-    ds, eng = rd_dataset(root)
+    ds, eng = rd_dataset(root, **engine)
     opt = (Optimizer.create(model, ds, ClassNLLCriterion(), device=DEVICE)
            .set_optim_method(SGD(0.01, momentum=0.9))
            .set_precision("bf16")
@@ -3046,12 +3092,13 @@ def rd_train(card: str, root: str, model, depth: int, steps: int):
     return opt, eng
 
 
-def phase_realdata(card: str) -> None:
-    """Phase 11: ResNet-50 trained from SequenceFiles of JPEGs through the
-    native library, StreamingIngest(device_augment=True) and the
-    prefetcher, across an epoch rollover; then depth 0 against depth 2
-    under deterministic cuDNN."""
-    import tempfile
+def phase_realdata(card: str, tmp: str) -> float:
+    """Phase 11: ResNet-50 trained from SequenceFiles of JPEGs (written
+    under ``tmp``: ``train/`` and the determinism set ``det/``, which phase
+    22 reads again) through the native library,
+    StreamingIngest(device_augment=True) and the prefetcher, across an
+    epoch rollover; then depth 0 against depth 2 under deterministic cuDNN.
+    Returns the median step in seconds."""
     import numpy as np
     import torch
     from bigdl_tpu_torch.dataset import native
@@ -3081,120 +3128,517 @@ def phase_realdata(card: str) -> None:
         f"({all(hasattr(lib, s) for s in native.REQUIRED_SYMBOLS)}); host "
         f"os.cpu_count() {os.cpu_count()}; decoders {decoders}, "
         f"StreamingIngest decodes with {decoders[0]}")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_realdata_") as tmp:
-        root = os.path.join(tmp, "train")
-        gen_s = rd_write_seqfiles(root, RD_IMAGES, RD_FILES)
-        size = sum(os.path.getsize(os.path.join(root, f))
-                   for f in os.listdir(root))
-        log(f"[realdata] {RD_IMAGES} JPEGs ({RD_SIZE} x {RD_SIZE}, q"
-            f"{RD_QUALITY}, seed {RD_SEED}) in {RD_FILES} SequenceFiles, "
-            f"{size / 2**20:.1f} MiB, written in {gen_s:.1f} s")
-        first = os.path.join(root, sorted(os.listdir(root))[0])
-        with contextlib.closing(read_image_seqfile(first)) as recs:
-            frame = MTLabeledBGRImgToBatch._decode(next(recs)[2])
-        if frame.shape != (RD_SIZE, RD_SIZE, 3):
-            raise AssertionError(f"decoded frame {frame.shape}")
-        rd_parity(card, root)
+    root = os.path.join(tmp, "train")
+    gen_s = rd_write_seqfiles(root, RD_IMAGES, RD_FILES)
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for f in os.listdir(root))
+    log(f"[realdata] {RD_IMAGES} JPEGs ({RD_SIZE} x {RD_SIZE}, q"
+        f"{RD_QUALITY}, seed {RD_SEED}) in {RD_FILES} SequenceFiles, "
+        f"{size / 2**20:.1f} MiB, written in {gen_s:.1f} s")
+    first = os.path.join(root, sorted(os.listdir(root))[0])
+    with contextlib.closing(read_image_seqfile(first)) as recs:
+        frame = MTLabeledBGRImgToBatch._decode(next(recs)[2])
+    if frame.shape != (RD_SIZE, RD_SIZE, 3):
+        raise AssertionError(f"decoded frame {frame.shape}")
+    rd_parity(card, root)
 
-        model = rd_model()
-        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        before = bn_stats(model)
-        saved = torch.backends.cudnn.benchmark
-        torch.backends.cudnn.benchmark = True
+    model = rd_model()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    before = bn_stats(model)
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    try:
+        t = time.perf_counter()
+        opt, eng = rd_train(card, root, model, 2, RD_STEPS)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
-        try:
-            t = time.perf_counter()
-            opt, eng = rd_train(card, root, model, 2, RD_STEPS)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        finally:
-            torch.backends.cudnn.benchmark = saved
-        launches = dict(fa.launches)
-        peak = torch.cuda.max_memory_allocated()
-        hist = opt.history
-        losses = [h["loss"] for h in hist]
-        timed = hist[RD_TIMED]
-        rate = RD_BATCH * len(timed) / sum(h["seconds"] for h in timed)
-        step_s = statistics.median(h["seconds"] for h in timed)
-        wait_s = statistics.median(h["wait_seconds"] for h in timed)
-        fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
-        pf = opt.prefetcher
-        up = (RD_BATCH * RD_SIZE * RD_SIZE * 3 + RD_BATCH * (2 * 4 + 1) +
-              RD_BATCH * 4)
-        f32 = RD_BATCH * 4 * math.prod(R50_IMAGE) + RD_BATCH * 4
-        log(f"[realdata] {type(opt).__name__}, {len(hist)} bf16 iterations "
-            f"at B{RD_BATCH} in {wall:.2f} s (the first with cuDNN's "
-            f"autotuning), prefetch depth 2, batchesInFlight 2; epochs "
-            f"{[h['epoch'] for h in hist]}; losses "
-            f"{[round(v, 4) for v in losses]}; step ms "
-            f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; wait ms "
-            f"{[round(h['wait_seconds'] * 1e3, 2) for h in hist]}; fetch ms "
-            f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
-        log(f"[realdata] end to end {rate:,.1f} images/s (wall of iterations "
-            f"4-{RD_STEPS}, the wait for batches included); step "
-            f"{step_s * 1e3:.2f} ms, the loop's wait {wait_s * 1e3:.2f} ms, "
-            f"the producer's fetch {fetch_s * 1e3:.2f} ms (medians); the "
-            f"producer's totals over {pf.batches} batches: fetch "
-            f"{pf.fetch_ns / 1e6:.1f} ms, waiting for copies to land "
-            f"{pf.block_ns / 1e6:.1f} ms; {up / 2**20:.2f} MiB copied to "
-            f"the card a batch (uint8 frames, draws, labels) against "
-            f"{f32 / 2**20:.2f} MiB for phase 8's float32 batch; peak memory "
-            f"{peak / 2**30:.2f} GiB on {card}")
-        for stage, snap in eng.stats().items():
-            log(f"[realdata] ingest stage {stage}: {snap['items']} items, "
-                f"busy {snap['busy_s']:.3f} s, starve {snap['starve_s']:.3f} "
-                f"s, backpressure {snap['backpressure_s']:.3f} s, "
-                f"{snap['throughput_per_sec']:,.1f}/s, mean ring depth "
-                f"{snap['mean_queue_depth']} (the last epoch's run; "
-                f"{eng.stage_workers.get(stage, 1)} worker(s))")
-        if not isinstance(opt, LocalOptimizer):
-            raise AssertionError(f"trainer {type(opt).__name__}")
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"losses {losses} not all finite")
-        after = bn_stats(model)
-        if not all(torch.isfinite(a).all() for a in after) or any(
-                torch.equal(a, b) for a, b in zip(after, before)):
-            raise AssertionError("BatchNorm running statistics not finite, "
-                                 "or some did not move")
-        if any(launches.values()):
-            raise AssertionError(f"phase 11 launched flash kernels: "
-                                 f"{launches}")
-        if not (hist[-1]["epoch"] >= 2 and
-                opt.optim_method.state["epoch"] >= 2):
-            raise AssertionError("the epoch counter did not advance")
+        wall = time.perf_counter() - t
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    hist = opt.history
+    losses = [h["loss"] for h in hist]
+    timed = hist[RD_TIMED]
+    rate = RD_BATCH * len(timed) / sum(h["seconds"] for h in timed)
+    step_s = statistics.median(h["seconds"] for h in timed)
+    wait_s = statistics.median(h["wait_seconds"] for h in timed)
+    fetch_s = statistics.median(h["fetch_seconds"] for h in timed)
+    pf = opt.prefetcher
+    up = (RD_BATCH * RD_SIZE * RD_SIZE * 3 + RD_BATCH * (2 * 4 + 1) +
+          RD_BATCH * 4)
+    f32 = RD_BATCH * 4 * math.prod(R50_IMAGE) + RD_BATCH * 4
+    log(f"[realdata] {type(opt).__name__}, {len(hist)} bf16 iterations "
+        f"at B{RD_BATCH} in {wall:.2f} s (the first with cuDNN's "
+        f"autotuning), prefetch depth 2, batchesInFlight 2; epochs "
+        f"{[h['epoch'] for h in hist]}; losses "
+        f"{[round(v, 4) for v in losses]}; step ms "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist]}; wait ms "
+        f"{[round(h['wait_seconds'] * 1e3, 2) for h in hist]}; fetch ms "
+        f"{[round(h['fetch_seconds'] * 1e3, 2) for h in hist]}")
+    log(f"[realdata] end to end {rate:,.1f} images/s (wall of iterations "
+        f"4-{RD_STEPS}, the wait for batches included); step "
+        f"{step_s * 1e3:.2f} ms, the loop's wait {wait_s * 1e3:.2f} ms, "
+        f"the producer's fetch {fetch_s * 1e3:.2f} ms (medians); the "
+        f"producer's totals over {pf.batches} batches: fetch "
+        f"{pf.fetch_ns / 1e6:.1f} ms, waiting for copies to land "
+        f"{pf.block_ns / 1e6:.1f} ms; {up / 2**20:.2f} MiB copied to "
+        f"the card a batch (uint8 frames, draws, labels) against "
+        f"{f32 / 2**20:.2f} MiB for phase 8's float32 batch; peak memory "
+        f"{peak / 2**30:.2f} GiB on {card}")
+    for stage, snap in eng.stats().items():
+        log(f"[realdata] ingest stage {stage}: {snap['items']} items, "
+            f"busy {snap['busy_s']:.3f} s, starve {snap['starve_s']:.3f} "
+            f"s, backpressure {snap['backpressure_s']:.3f} s, "
+            f"{snap['throughput_per_sec']:,.1f}/s, mean ring depth "
+            f"{snap['mean_queue_depth']} (the last epoch's run; "
+            f"{eng.stage_workers.get(stage, 1)} worker(s))")
+    log(f"[realdata] the engine's defaults: autoscaler {eng.autoscale} "
+        f"(events {eng.autoscale_events}), stage restart budget "
+        f"{eng.max_stage_restarts}, restarts "
+        f"{sum(r['stage_restarts'] for r in eng.run_history)} over "
+        f"{len(eng.run_history)} runs")
+    if not isinstance(opt, LocalOptimizer):
+        raise AssertionError(f"trainer {type(opt).__name__}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses} not all finite")
+    after = bn_stats(model)
+    if not all(torch.isfinite(a).all() for a in after) or any(
+            torch.equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("BatchNorm running statistics not finite, "
+                             "or some did not move")
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 launched flash kernels: "
+                             f"{launches}")
+    if not (hist[-1]["epoch"] >= 2 and
+            opt.optim_method.state["epoch"] >= 2):
+        raise AssertionError("the epoch counter did not advance")
 
-        det = os.path.join(tmp, "det")
-        os.makedirs(det)
-        for f in sorted(os.listdir(root))[:RD_DET_IMAGES // (
-                RD_IMAGES // RD_FILES)]:
-            os.link(os.path.join(root, f), os.path.join(det, f))
-        runs = {}
-        with cudnn_deterministic():
-            for depth in (0, 2):
-                model.load_state_dict(init)
-                o, _ = rd_train(card, det, model, depth, RD_DET_STEPS)
-                torch.cuda.synchronize()
-                runs[depth] = ([h["loss"] for h in o.history],
-                               [h["epoch"] for h in o.history],
-                               [p.detach().clone()
-                                for p in model.parameters()] +
-                               bn_stats(model))
-        same_loss = runs[0][0] == runs[2][0]
-        same_w = all(torch.equal(a, b) for a, b in zip(runs[0][2],
-                                                      runs[2][2]))
-        log(f"[realdata] determinism, {RD_DET_IMAGES} records "
-            f"({RD_DET_IMAGES // RD_BATCH} iterations an epoch), "
-            f"{RD_DET_STEPS} iterations, cuDNN deterministic: depth 0 losses "
-            f"{runs[0][0]} epochs {runs[0][1]}; depth 2 losses {runs[2][0]}; "
-            f"losses bit-identical {same_loss}, final weights and statistics "
-            f"bit-identical {same_w}")
-        if not (same_loss and same_w):
-            raise AssertionError("depth 0 and depth 2 trained differently")
+    det = os.path.join(tmp, "det")
+    os.makedirs(det)
+    for f in sorted(os.listdir(root))[:RD_DET_IMAGES // (
+            RD_IMAGES // RD_FILES)]:
+        os.link(os.path.join(root, f), os.path.join(det, f))
+    runs = {}
+    with cudnn_deterministic():
+        for depth in (0, 2):
+            model.load_state_dict(init)
+            o, _ = rd_train(card, det, model, depth, RD_DET_STEPS)
+            torch.cuda.synchronize()
+            runs[depth] = ([h["loss"] for h in o.history],
+                           [h["epoch"] for h in o.history],
+                           [p.detach().clone()
+                            for p in model.parameters()] +
+                           bn_stats(model))
+    same_loss = runs[0][0] == runs[2][0]
+    same_w = all(torch.equal(a, b) for a, b in zip(runs[0][2],
+                                                  runs[2][2]))
+    log(f"[realdata] determinism, {RD_DET_IMAGES} records "
+        f"({RD_DET_IMAGES // RD_BATCH} iterations an epoch), "
+        f"{RD_DET_STEPS} iterations, cuDNN deterministic: depth 0 losses "
+        f"{runs[0][0]} epochs {runs[0][1]}; depth 2 losses {runs[2][0]}; "
+        f"losses bit-identical {same_loss}, final weights and statistics "
+        f"bit-identical {same_w}")
+    if not (same_loss and same_w):
+        raise AssertionError("depth 0 and depth 2 trained differently")
     del model
     log(f"[realdata] phase 11 took {time.perf_counter() - t_phase:.1f} s "
         f"on {card}")
+    return step_s
+
+
+# ---- phase 22: ingest's remainder -------------------------------------------
+
+def ig_epoch(ds, eng, pace_s: float = 0.0) -> dict:
+    """One epoch of ``ds`` (through ``eng``) taken on this thread, pausing
+    ``pace_s`` a batch in place of a training step: images/s, the decode
+    workers after each batch, the decode stage's busy seconds and, hashed
+    after the timed epoch, each batch's sha256 of its uint8 frames, draws
+    and labels."""
+    import hashlib
+    import numpy as np
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    RandomGenerator.RNG().set_seed(SEED)
+    kept, trace, n = [], [], 0
+    t = time.perf_counter()
+    it = ds.data(train=False)
+    try:
+        for b in it:
+            kept.append(list(b.get_input()) + [b.get_target()])
+            trace.append(eng.stage_workers["decode"])
+            n += b.size()
+            if pace_s:
+                time.sleep(pace_s)
+    finally:
+        it.close()
+    wall = time.perf_counter() - t
+    hashes = []
+    for arrays in kept:
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        hashes.append(h.hexdigest())
+    return {"hashes": hashes, "rate": n / wall, "trace": trace,
+            "images": n, "decode_busy": eng.stats()["decode"]["busy_s"]}
+
+
+@contextlib.contextmanager
+def ig_chaos(**keys):
+    """The port's chaos plan of ``bigdl.chaos.<key>`` values for the
+    block."""
+    from bigdl_tpu_torch.utils import chaos
+    with properties(**{f"bigdl__chaos__{k}": v for k, v in keys.items()}):
+        chaos.install()
+    try:
+        yield chaos
+    finally:
+        chaos.uninstall()
+
+
+def ig_weights(model) -> list:
+    return [p.detach().clone() for p in model.parameters()] + \
+        bn_stats(model)
+
+
+def ig_det_run(card: str, det: str, model, init: dict, steps: int,
+               chaos_keys=None, **engine) -> tuple:
+    """``steps`` iterations of phase 11's training over the determinism set
+    from ``init`` under cuDNN's deterministic algorithms and a chaos plan:
+    (optimizer, engine, weights and BN statistics, wall seconds)."""
+    import torch
+    model.load_state_dict(init)
+    with cudnn_deterministic(), ig_chaos(**(chaos_keys or {})):
+        t = time.perf_counter()
+        opt, eng = rd_train(card, det, model, 2, steps, **engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return opt, eng, ig_weights(model), wall
+
+
+def ig_same(a: list, b: list) -> bool:
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def ig_autoscale(card: str, root: str, step_s: float) -> None:
+    """(a) The autoscaler at the reference's defaults against a fixed
+    pool: an epoch each, flat out and paced at phase 11's step."""
+    from bigdl_tpu_torch.utils import config
+    legs = {}
+    for label, engine, pace in (
+            ("fixed pool", {"autoscale": False}, 0.0),
+            ("autoscaled", {}, 0.0),
+            ("autoscaled from 1 worker", {"decode_workers": 1}, 0.0),
+            ("autoscaled, paced", {}, step_s)):
+        ds, eng = rd_dataset(root, **engine)
+        legs[label] = out = ig_epoch(ds, eng, pace)
+        log(f"[ingest] (a) {label}: {out['images']} images at "
+            f"{out['rate']:,.1f} images/s (a batch taken every "
+            f"{pace * 1e3:.1f} ms after it arrives), decode workers after "
+            f"each batch {out['trace']}, autoscale events "
+            f"{eng.autoscale_events}, interval "
+            f"{config.get_float('bigdl.ingest.autoscale.intervalSec', 0.25)}"
+            f" s, ceiling {config.get_int('bigdl.ingest.autoscale.max', 0)}"
+            f" (0: {os.cpu_count()} cores)")
+    ref = legs["fixed pool"]["hashes"]
+    for label, out in legs.items():
+        if out["hashes"] != ref or len(ref) != RD_IMAGES // RD_BATCH:
+            raise AssertionError(f"(a) {label}: batches differ from the "
+                                 "fixed pool's")
+    log(f"[ingest] (a) every leg's {len(ref)} batches (uint8 frames, "
+        f"draws, labels) hash as the fixed pool's on {card}")
+
+
+def ig_kills(card: str, det: str, model, init: dict) -> list:
+    """(b) killStageThread for each stage on the determinism set, against
+    a clean run; returns the clean run's weights."""
+    from bigdl_tpu_torch.dataset import ingest
+    from bigdl_tpu_torch.utils import chaos
+    _, _, clean, wall = ig_det_run(card, det, model, init, RD_DET_STEPS)
+    log(f"[ingest] (b) clean: {RD_DET_STEPS} iterations over "
+        f"{RD_DET_IMAGES} records, cuDNN deterministic, {wall:.2f} s")
+    killed, restarted = {}, {}
+    real_kill, real_count = (chaos.kill_stage_thread,
+                             ingest._StageSupervisor.count_restart)
+
+    def spy_kill(stage, items):
+        fired = real_kill(stage, items)
+        if fired:
+            killed[stage] = time.monotonic()
+        return fired
+
+    def spy_count(self, stage):
+        restarted[stage] = time.monotonic()
+        return real_count(self, stage)
+
+    chaos.kill_stage_thread = spy_kill
+    ingest._StageSupervisor.count_restart = spy_count
+    try:
+        for plan in IG_KILLS:
+            stage = plan.split(":")[0]
+            _, eng, w, wall = ig_det_run(card, det, model, init,
+                                         RD_DET_STEPS,
+                                         {"killStageThread": plan})
+            restarts = sum(r["stage_restarts"] for r in eng.run_history)
+            latency = restarted.get(stage, math.nan) - \
+                killed.get(stage, math.nan)
+            same = ig_same(w, clean)
+            log(f"[ingest] (b) killStageThread {plan}: restarts {restarts} "
+                f"(budget {eng.max_stage_restarts}), the stage back "
+                f"{latency * 1e3:.1f} ms after its death, {wall:.2f} s; "
+                f"weights and BN statistics bit-identical to the clean "
+                f"run: {same}")
+            if restarts != 1 or not same or not latency >= 0:
+                raise AssertionError(f"(b) {plan}: restarts {restarts}, "
+                                     f"bit-identical {same}")
+    finally:
+        chaos.kill_stage_thread = real_kill
+        ingest._StageSupervisor.count_restart = real_count
+    return clean
+
+
+def ig_stall(card: str, root: str) -> None:
+    """(c) starveStageAt with stallTimeoutSec: IngestStallError within the
+    timeout plus 1 s of the throttle's start, every ingest thread joined."""
+    import threading
+    from bigdl_tpu_torch.dataset.ingest import IngestStallError
+    stage, at = IG_STARVE.split(":")[:2]
+    err, t_err = None, None
+    with ig_chaos(starveStageAt=IG_STARVE) as chaos:
+        ds, eng = rd_dataset(root, stall_timeout=IG_STALL_S)
+        it = ds.data(train=False)
+        t = time.perf_counter()
+        try:
+            for _ in it:
+                pass
+        except IngestStallError as e:
+            err, t_err = e, time.monotonic()
+        finally:
+            it.close()
+        close_s = time.perf_counter() - t
+        started = chaos._state.stage_starve_started
+        throttles = chaos._state.stage_starve_throttles
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("ingest-")]
+    diag = err.diagnosis if err is not None else {}
+    items = diag.get(stage, {}).get("items", -1)
+    detect = (t_err - started) if err is not None and started else math.nan
+    log(f"[ingest] (c) starveStageAt {IG_STARVE}, stallTimeoutSec "
+        f"{IG_STALL_S}: {type(err).__name__ if err else 'no error'} "
+        f"{detect * 1e3:.1f} ms after the first throttled {stage} item "
+        f"({throttles} throttles); the {stage} stage stopped at item "
+        f"{items}; per-stage items "
+        f"{ {k: v['items'] for k, v in diag.items()} }; raised and closed "
+        f"in {close_s:.2f} s; ingest threads alive after {alive} on {card}")
+    if not (err is not None and detect <= IG_STALL_S + 1.0 and
+            throttles > 0 and int(at) <= items < int(at) + 10 and
+            not alive):
+        raise AssertionError(f"(c) stall: {err!r}, detect {detect}, "
+                             f"items {items}, alive {alive}")
+
+
+def ig_fallback(card: str, root: str, det: str, model, init: dict,
+                clean: list) -> None:
+    """(d) fallbackOnFailure after a kill with no restart: bit-identical
+    weights; its cost on an ingest-only epoch."""
+    _, eng, w, wall = ig_det_run(card, det, model, init, RD_DET_STEPS,
+                                 {"killStageThread": IG_FALLBACK_KILL},
+                                 max_stage_restarts=0,
+                                 fallback_on_failure=True)
+    same = ig_same(w, clean)
+    log(f"[ingest] (d) killStageThread {IG_FALLBACK_KILL}, 0 restarts, "
+        f"fallbackOnFailure: fallbacks {eng.fallbacks}, {wall:.2f} s; "
+        f"weights and BN statistics bit-identical to the clean run: {same}")
+    if eng.fallbacks != 1 or not same:
+        raise AssertionError(f"(d) fallbacks {eng.fallbacks}, "
+                             f"bit-identical {same}")
+    rates = {}
+    for label, keys in (("clean", {}),
+                        ("fallback", {"killStageThread":
+                                      IG_FALLBACK_COST_KILL})):
+        with ig_chaos(**keys):
+            ds, e = rd_dataset(root, max_stage_restarts=0,
+                               fallback_on_failure=True)
+            rates[label] = ig_epoch(ds, e)
+        rates[label]["fallbacks"] = e.fallbacks
+    if rates["fallback"]["hashes"] != rates["clean"]["hashes"] or \
+            rates["fallback"]["fallbacks"] != 1:
+        raise AssertionError("(d) the fallback epoch's batches differ")
+    log(f"[ingest] (d) the fallback's cost, ingest only, "
+        f"{RD_IMAGES} records: clean {rates['clean']['rate']:,.1f} "
+        f"images/s, falling back at {IG_FALLBACK_COST_KILL} "
+        f"{rates['fallback']['rate']:,.1f} images/s (the tail decodes on "
+        f"the consumer's thread), the same batches, on {card}")
+
+
+def ig_flip_first_segment(cache_dir: str, stop) -> None:
+    """Watch ``cache_dir`` for the first sealed segment and flip one bit of
+    its payload as soon as it is written (its records are read back only
+    in the next epoch)."""
+    while not stop.is_set():
+        names = sorted(f for f in os.listdir(cache_dir)
+                       if f.endswith(".bin")) if os.path.isdir(
+            cache_dir) else []
+        if names:
+            path = os.path.join(cache_dir, names[0])
+            with open(path, "r+b") as f:
+                f.seek(-3, os.SEEK_END)
+                b = f.read(1)
+                f.seek(-3, os.SEEK_END)
+                f.write(bytes([b[0] ^ 0x40]))
+            return
+        stop.wait(0.005)
+
+
+def ig_cache(card: str, root: str, det: str, tmp: str, model,
+             init: dict) -> None:
+    """(e) The decoded-epoch cache: two ingest-only epochs and two trained
+    epochs of the 1280 records in RAM; a disk leg over the determinism set
+    with a segment bit-flipped between the epochs, against an uncached
+    run."""
+    import threading
+    import torch
+    ds, eng = rd_dataset(root, epoch_cache=True)
+    epochs = [ig_epoch(ds, eng) for _ in range(2)]
+    stats = eng.epoch_cache.stats()
+    log(f"[ingest] (e) epoch cache in RAM, ingest only: epoch 1 "
+        f"{epochs[0]['rate']:,.1f} images/s, decode busy "
+        f"{epochs[0]['decode_busy']:.3f} s; epoch 2 {epochs[1]['rate']:,.1f}"
+        f" images/s, decode busy {epochs[1]['decode_busy']:.3f} s; hits "
+        f"{stats['hits']}, misses {stats['misses']}, "
+        f"{stats['ram_bytes'] / 2**20:.1f} MiB held on {card}")
+    if stats["hits"] != RD_IMAGES or stats["misses"] != RD_IMAGES or \
+            epochs[0]["hashes"] != epochs[1]["hashes"]:
+        raise AssertionError(f"(e) cache stats {stats}, or epoch 2's "
+                             "batches differ")
+    model.load_state_dict(init)
+    steps = 2 * RD_IMAGES // RD_BATCH
+    opt, eng = rd_train(card, root, model, 2, steps, epoch_cache=True)
+    torch.cuda.synchronize()
+    per = {}
+    for h in opt.history[1:]:
+        per.setdefault(h["epoch"], []).append(h["seconds"])
+    rates = {e: RD_BATCH * len(v) / sum(v) for e, v in per.items()}
+    log(f"[ingest] (e) trained {steps} iterations, prefetch depth 2, epoch "
+        f"cache on: images/s by epoch {rates} (epoch 1 from its second "
+        f"iteration); the cache's hits {eng.epoch_cache.stats()['hits']} "
+        f"(every run's gets, with the read-ahead that each epoch's "
+        f"rollover discards)")
+    det_steps = 2 * (RD_DET_IMAGES // RD_BATCH)     # two epochs
+    cache_dir = os.path.join(tmp, "epoch_cache")
+    stop = threading.Event()
+    watcher = threading.Thread(target=ig_flip_first_segment,
+                               args=(cache_dir, stop), daemon=True)
+    watcher.start()
+    try:
+        with properties(bigdl__ingest__epochCacheDir=cache_dir,
+                        bigdl__ingest__epochCacheSegmentRecords=(
+                            IG_CACHE_SEGMENT)):
+            _, eng, cached, wall = ig_det_run(card, det, model, init,
+                                              det_steps, epoch_cache=True)
+    finally:
+        stop.set()
+        watcher.join()
+    _, _, plain, plain_wall = ig_det_run(card, det, model, init, det_steps)
+    s = eng.epoch_cache.stats()
+    same = ig_same(cached, plain)
+    log(f"[ingest] (e) disk leg, {RD_DET_IMAGES} records in segments of "
+        f"{IG_CACHE_SEGMENT}, the first bit-flipped when written: "
+        f"{s['disk_segments']} segments on disk, {s['corrupt_segments']} "
+        f"quarantined, hits {s['hits']}, misses {s['misses']}; "
+        f"{det_steps} iterations in {wall:.2f} s against "
+        f"{plain_wall:.2f} s uncached; weights and BN statistics "
+        f"bit-identical to the uncached run: {same}")
+    if s["corrupt_segments"] != 1 or not same:
+        raise AssertionError(f"(e) disk leg: {s}, bit-identical {same}")
+
+
+def ig_jitter(card: str, root: str, det: str) -> None:
+    """(f) ColorJitter on the card: the threefry factors bit for bit the
+    CPU's, the jittered crops within 1 of the CPU's, and a ResNet-50 step
+    under the strict host-sync guard with one pull a step."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.nn import DeviceAugment
+    from bigdl_tpu_torch.utils import prng
+    ds, eng = rd_dataset(root, device_jitter=True)
+    it = ds.data(train=False)
+    try:
+        frames, offs, flips, seeds = next(it).get_input()
+    finally:
+        it.close()
+    cpu = [torch.from_numpy(np.ascontiguousarray(a))
+           for a in (frames, offs, flips, seeds)]
+    dev = [t.to(DEVICE) for t in cpu]
+    keys = {d: prng.split(prng.prng_key(s), 3)
+            for d, s in (("cpu", cpu[3]), ("card", dev[3]))}
+    same_factors = all(torch.equal(
+        prng.uniform(keys["cpu"][:, i], 0.6, 1.4).view(torch.int32),
+        prng.uniform(keys["card"][:, i], 0.6, 1.4).cpu().view(torch.int32))
+        for i in range(3))
+    head = DeviceAugment(*RD_CROP, color_jitter=IG_JITTER)
+    want = head(cpu).numpy().astype(np.int32)
+    got = head(dev).cpu().numpy().astype(np.int32)
+    diff = np.abs(got - want)
+    share = float((diff > 0).mean())
+    log(f"[ingest] (f) {len(seeds)} seeds (int32, {int((seeds < 0).sum())} "
+        f"negative): threefry factors on the card bit-identical to the "
+        f"CPU's: {same_factors}; ColorJitter {IG_JITTER} crops "
+        f"{tuple(got.shape)}: largest difference from the CPU "
+        f"{int(diff.max())}, share of pixels that differ {share:.3e} "
+        f"({int((diff > 0).sum())} of {diff.size})")
+    if not same_factors or diff.max() > 1 or share > IG_JITTER_SHARE:
+        raise AssertionError(f"(f) factors {same_factors}, largest "
+                             f"difference {diff.max()}, share {share}")
+    model = rd_model(color_jitter=IG_JITTER)
+    with properties(bigdl__analysis__hostSync="strict"):
+        before = an_stats()
+        opt, _ = rd_train(card, det, model, 2, IG_JITTER_STEPS,
+                          device_jitter=True)
+        torch.cuda.synchronize()
+        delta = an_delta(before)
+    losses = [h["loss"] for h in opt.history]
+    log(f"[ingest] (f) ResNet-50 B{RD_BATCH} with DeviceAugment("
+        f"color_jitter) over device_jitter batches, {IG_JITTER_STEPS} "
+        f"steps under the strict host-sync guard: implicit syncs "
+        f"{delta['implicit']}, explicit pulls {delta['explicit_pulls']}; "
+        f"losses {[round(v, 4) for v in losses]} on {card}")
+    if delta["implicit"] != 0 or \
+            delta["explicit_pulls"] != IG_JITTER_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"(f) strict guard: {delta}, losses {losses}")
+    del model, opt
+
+
+def phase_ingest(card: str, tmp: str, step_s: float) -> dict:
+    """Phase 22: ingest's remainder over phase 11's records (``tmp``'s
+    ``train/`` and ``det/``) and model, (a)-(f); the flash launches
+    counted from its start (0)."""
+    import torch
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    t_phase = time.perf_counter()
+    root, det = os.path.join(tmp, "train"), os.path.join(tmp, "det")
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    ig_autoscale(card, root, step_s)
+    model = rd_model()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    clean = ig_kills(card, det, model, init)
+    ig_stall(card, root)
+    ig_fallback(card, root, det, model, init, clean)
+    ig_cache(card, root, det, tmp, model, init)
+    del model
+    torch.cuda.empty_cache()
+    ig_jitter(card, root, det)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    if any(launches.values()):
+        raise AssertionError(f"phase 22 launched flash kernels: {launches}")
+    log(f"[ingest] phase 22 took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}; flash launches {launches}")
+    return launches
 
 
 @contextlib.contextmanager
@@ -7842,7 +8286,7 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                 drivers: dict, traced: dict, zoo_rnn: dict,
                 sharded: dict, pipelined: dict, resilient: dict,
                 failures: dict, library: dict, analysis: dict,
-                fleet: dict) -> list:
+                fleet: dict, ingested: dict) -> list:
     """The kernels JSON records: each kernel's launches on its main path
     (fp32 forward: serving; bf16 forward: the bf16 forward phase; bf16
     backward: training; fp32 backward: the fp32 gradient step) and its
@@ -7857,7 +8301,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
     the rest 0), ``library_launches`` in phase 19 (no flash model: 0),
     ``analysis_launches`` in phase 20's gated trainer runs, (a) and (c2)
     (all six > 0: the fp32 backward kernels' first trainer launches),
-    ``fleet_launches`` in phase 21 (the fp32 forward > 0, the rest 0)."""
+    ``fleet_launches`` in phase 21 (the fp32 forward > 0, the rest 0),
+    ``ingest_launches`` in phase 22 (no flash model: 0)."""
     out = []
     for kind, dname, counts, rec in (
             ("fwd", "float32", served, fwd["float32"]),
@@ -7881,7 +8326,8 @@ def kernel_line(fwd: dict, bwd: dict, served: dict, mixed: dict,
                     "failure_launches": failures.get(name, 0),
                     "library_launches": library.get(name, 0),
                     "analysis_launches": analysis.get(name, 0),
-                    "fleet_launches": fleet.get(name, 0)})
+                    "fleet_launches": fleet.get(name, 0),
+                    "ingest_launches": ingested.get(name, 0)})
     return out
 
 
@@ -8001,7 +8447,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     distri = phase_distri(card, train_step_s, r50_step_s)
     torch.cuda.empty_cache()
-    phase_realdata(card)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_realdata_") as tmp:
+        rd_step_s = phase_realdata(card, tmp)
+        torch.cuda.empty_cache()
+        ingested = phase_ingest(card, tmp, rd_step_s)
     torch.cuda.empty_cache()
     drivers = phase_drivers(card)
     torch.cuda.empty_cache()
@@ -8026,7 +8476,7 @@ def main(argv=None) -> int:
     kernels = kernel_line(records, bwd_records, served, mixed, trained,
                           fp32_step, distri, drivers, traced, zoo_rnn,
                           sharded, pipelined, resilient, failures, library,
-                          analysis, fleet)
+                          analysis, fleet, ingested)
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,7 @@ from bigdl_tpu_torch.dataset.device_augment import (color_jitter,
 from bigdl_tpu_torch.dataset.ingest import IngestInfraError, _Ring
 from bigdl_tpu_torch.engine import BatchPrefetcher, DispatchPipeline
 from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+from bigdl_tpu_torch.utils import chaos
 from bigdl_tpu_torch.utils import config as pconfig
 from bigdl_tpu_torch.utils.convert import (params_from_jax, params_to_jax,
                                            state_to_jax)
@@ -391,19 +392,38 @@ def test_a_close_never_returns_with_a_thread_alive(entries, monkeypatch,
     assert not _live(_threads_before, "ingest-")
 
 
-def test_streaming_ingest_refuses_what_is_not_ported():
-    for kw in ({"device_jitter": True}, {"max_stage_restarts": 1},
-               {"stall_timeout": 5.0}, {"autoscale": True},
-               {"fallback_on_failure": True}, {"epoch_cache": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            StreamingIngest(BATCH, **kw)
+def test_streaming_ingest_refuses_what_is_not_ported(entries):
+    """What the engine once refused (restarts, stall detection, the
+    autoscaler, the fallback, the epoch cache, ``device_jitter``, the
+    ingest chaos keys, ColorJitter) now builds and runs: every record comes
+    through, and the jitter seeds ride along as a fourth input."""
+    recs = _records(entries, image.LabeledImageBytes)
+    for kw in ({"device_jitter": True, "device_augment": True},
+               {"max_stage_restarts": 1}, {"stall_timeout": 5.0},
+               {"autoscale": True}, {"fallback_on_failure": True},
+               {"epoch_cache": True}):
+        with seeded(SEED):
+            got = list(StreamingIngest(BATCH, crop=CROP, decode_workers=2,
+                                       **kw)(iter(recs)))
+        assert sum(b.size() for b in got) == N_IMAGES, kw
+        if "device_jitter" in kw:
+            assert [len(b.get_input()) for b in got] == [4] * len(got)
     with properties([pconfig], bigdl__chaos__failDecodeAt="3"):
-        with pytest.raises(NotImplementedError, match="failDecodeAt"):
-            StreamingIngest(BATCH)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        color_jitter(None, None)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        pnn.DeviceAugment(32, 32, color_jitter={"brightness": 0.4})
+        chaos.install()
+        try:
+            eng = StreamingIngest(BATCH, crop=CROP, decode_workers=2,
+                                  max_bad_records=1)
+            with seeded(SEED):
+                assert sum(b.size() for b in eng(iter(recs))) == \
+                    N_IMAGES - 1
+        finally:
+            chaos.uninstall()
+    assert eng.quarantine.by_stage == {"decode": 1}
+    imgs = torch.zeros((2, 3, 4, 4), dtype=torch.uint8)
+    seeds = torch.tensor([1, -1], dtype=torch.int32)
+    assert color_jitter(imgs, seeds, brightness=0.4).shape == imgs.shape
+    head = pnn.DeviceAugment(32, 32, color_jitter={"brightness": 0.4})
+    assert head.color_jitter == {"brightness": 0.4}
 
 
 def test_a_silently_dead_stage_raises_at_the_consumer(entries, monkeypatch):

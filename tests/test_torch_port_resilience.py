@@ -390,7 +390,8 @@ def test_unported_chaos_keys_raise():
 
 
 #: each JAX key of a part the port lacks: a value that asks for the part,
-#: and one that asks for nothing
+#: and one that asks for nothing; ``zeroCopyUpload`` is honoured now, so
+#: no value of it is refused (asks None)
 UNHONOURED = [("bigdl.compile.cacheDir", "compile-cache", ""),
               ("bigdl.compile.timeoutSec", 30, 0),
               ("bigdl.compile.keepLast", 4, 0),
@@ -399,7 +400,7 @@ UNHONOURED = [("bigdl.compile.cacheDir", "compile-cache", ""),
               ("bigdl.audit.collectives", "strict", "warn"),
               ("bigdl.audit.precision", "strict", "off"),
               ("bigdl.audit.memory", "strict", "warn"),
-              ("bigdl.ingest.zeroCopyUpload", True, False),
+              ("bigdl.ingest.zeroCopyUpload", None, True),
               ("bigdl.resources.deviceMemBudgetMB", 1, 0)]
 
 
@@ -409,7 +410,8 @@ def test_unhonoured_keys_are_refused_where_each_path_starts(key, asks,
                                                             benign):
     """The trainers, both serving engines and ``StreamingIngest`` refuse a
     value that asks for what the port lacks, naming the key, before any
-    work; a value that asks for nothing passes."""
+    work; a value that asks for nothing passes (for an honoured key, every
+    value: ``StreamingIngest`` builds under it)."""
     from bigdl_tpu_torch.dataset.ingest import StreamingIngest
     from bigdl_tpu_torch.serving import LMServingEngine, ServingEngine
     model, samples = _port_mlp(), _port_samples(_records(8))
@@ -420,13 +422,17 @@ def test_unhonoured_keys_are_refused_where_each_path_starts(key, asks,
               lambda: LMServingEngine(model, device="cpu"),
               lambda: StreamingIngest(8))
     try:
-        config.set_property(key, asks)
-        for start in starts:
-            with pytest.raises(NotImplementedError, match=re.escape(key)):
-                start()
-        assert opt.history == []
+        if asks is not None:
+            config.set_property(key, asks)
+            for start in starts:
+                with pytest.raises(NotImplementedError,
+                                   match=re.escape(key)):
+                    start()
+            assert opt.history == []
         config.set_property(key, benign)
         chaos.refuse_unported_keys()
+        if asks is None:
+            StreamingIngest(8)
     finally:
         config.clear_property(key)
 
